@@ -3,23 +3,39 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device   — the card's name and power limit (nvidia-smi);
-  2. build    — compile every CUDA kernel of the training path;
-  3. kernels  — the fused Metropolis sweep against its plain PyTorch
-                version on the card (TF32 off), at the flagship shapes
-                (10x10, C=16^3, k=3, M=2048, trained fixture params) and at
-                the tfim16 shape (N=16, C=(12,12), k=5);
-  4. main     — the training path through ``qmcnn_tpu_torch.train.train``:
+  2. build    — compile every CUDA kernel of the training paths, one nvcc
+                per source, all started together;
+  3. kernels  — each kernel against its plain PyTorch version on the card
+                (TF32 off): the fused Metropolis sweep at the flagship
+                shapes (10x10, C=16^3, k=3, M=2048, trained fixture params)
+                and at the tfim16 shape (N=16, C=(12,12), k=5); the fused
+                GCNN forward at the j1j2_8x8_gcnn shapes (W=64, L=3,
+                lncosh, complex, B=2048), at the depth-12 fixture
+                (W=80, L=12, selu, residual, B=512, trained params), with
+                real params, with a B1 character and at a batch that fits
+                no block size; complex lncosh at weight scales 0.15 and 0.3,
+                where rounding may cross its branch cuts, held to twice the
+                disagreement of a second plain version (the Karatsuba
+                model) plus 0.5% of the configurations;
+  4. main     — the training paths through ``qmcnn_tpu_torch.train.train``,
+                each with the launch counters zeroed just before it and
+                read just after it:
                 configs/heis10x10_sr.yaml at full width warm-started from
                 runs/ab_cnn_float32.csv.params.npz (5 steps after the
                 config's 100 thermalization sweeps; the tail energy must sit
                 within 0.01/site of the -0.6705/site the JAX run that wrote
-                the fixture reached), then a few steps of
-                configs/tfim16_sgd.yaml (flip moves, 1D, the ED check);
-                the kernel launch counters are zeroed before the heis10x10
-                run and read after it;
-  5. timings  — CUDA-event times of the kernel, its plain version and the
-                torch sampler per sweep, the kernel's bound, and the
-                per-phase split of one flagship training step;
+                the fixture reached), a few steps of configs/tfim16_sgd.yaml
+                (flip moves, 1D, the ED check), and configs/j1j2_8x8_gcnn.yaml
+                at full width (M=1024, exchange_anti, minSR; 3 steps after 20
+                thermalization sweeps; the fused GCNN forward must run on
+                every evaluation, at the expected count per step, and match
+                its plain version on the trained params); then the
+                depth-12 snapshot runs/j1j2_8x8_d12_fix.csv.params.npz in
+                its own architecture (M=512), whose tail energy must sit
+                within 0.01/site of the -0.497679/site its JAX run reached;
+  5. timings  — CUDA-event times of each kernel, its plain version and its
+                bound at the main path's shapes, and the per-phase split of
+                a training step of each path (``qmcnn_tpu_torch.step_timing``);
   6. report   — one JSON line of kernel records, the card line, and the
                 final ``{"ok": true, ...}`` line.
 
@@ -32,11 +48,21 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "runs" / "ab_cnn_float32.csv.params.npz"
 E_SITE_FIXTURE = -0.6705  # the JAX run that wrote the fixture (BASELINE.md)
+GCNN_CONFIG = ROOT / "configs" / "j1j2_8x8_gcnn.yaml"
+D12_FIXTURE = ROOT / "runs" / "j1j2_8x8_d12_fix.csv.params.npz"
+#: final_energy_tail / 64 of the JAX run that wrote the depth-12 snapshot
+#: (runs/j1j2_8x8_d12_fix.csv.meta.json)
+E_SITE_D12 = -0.497679
+#: the snapshot's architecture (its meta.json), in float32
+D12_MODEL = ("model.channels=[" + ",".join(["10"] * 12) + "]",
+             "model.activation=selu", "model.init_mode=fan_in",
+             "model.param_scale=1.0", "model.residual=true")
 #: card peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM rate
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -189,56 +215,328 @@ def time_sweep(case, card: str) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def step_split(cfg, state, card: str) -> None:
-    """Per-phase device time of flagship training steps (host clock around
-    synchronized phases)."""
-    import torch
+def step_split(cfg, state, card: str, label: str) -> dict:
+    """Per-phase time of training steps (``qmcnn_tpu_torch.step_timing``:
+    host clock around synchronized phases), in ms per step."""
     from qmcnn_tpu_torch.builder import build
-    from qmcnn_tpu_torch.ops.local_energy import local_energy
-    from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
-    from qmcnn_tpu_torch.vmc import energy_and_grad
+    from qmcnn_tpu_torch.step_timing import step_split as split
 
     vmc, _, _ = build(cfg, device="cuda")
-    params, walkers = state.params, state.walkers
-    opt_state = vmc.optimizer.init(params)
-    ids = torch.arange(walkers.s.shape[0], device="cuda")
-    totals = {"sample": 0.0, "e_loc": 0.0, "gradient": 0.0, "sr": 0.0,
-              "update": 0.0}
-    n = 3
-
-    def lap(t0):
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    for i in range(n + 1):
-        t0 = time.perf_counter()
-        w = vmc.sampler.refresh(params, vmc.sampler.reset_counters(walkers))
-        w = vmc.sampler.sample(params, w, fold_in(prng_key(7), i), ids, 1)
-        t_sample = lap(t0)
-        t0 = time.perf_counter()
-        local_energy(vmc.log_psi_fn, params, vmc.ham, w.s, w.log_psi,
-                     chunk_size=vmc.chunk_size)
-        t_eloc = lap(t0)
-        t0 = time.perf_counter()
-        _, _, grads, e_loc = energy_and_grad(vmc.log_psi_fn, vmc.ham, params,
-                                             w, chunk_size=vmc.chunk_size)
-        t_grad = lap(t0) - t_eloc
-        t0 = time.perf_counter()
-        grads, iters, _ = vmc.sr.solve(vmc.log_psi_fn, params, w.s, grads,
-                                       state.step, e_loc=e_loc)
-        t_sr = lap(t0)
-        t0 = time.perf_counter()
-        upd, opt_state = vmc.optimizer.update(grads, opt_state)
-        params = {k: params[k] + upd[k] for k in params}
-        t_upd = lap(t0)
-        walkers = w
-        if i:  # the first step warms up
-            for k, v in zip(totals, (t_sample, t_eloc, t_grad, t_sr, t_upd)):
-                totals[k] += v / n
-    total = sum(totals.values())
+    totals = split(vmc, state, 3)
     parts = ", ".join(f"{k} {v:.2f}" for k, v in totals.items())
-    print(f"  heis10x10_sr step ({card}): {total:.2f} ms = {parts} ms "
-          f"(pcg iters last step {iters})")
+    print(f"  {label} step ({card}): {sum(totals.values()):.2f} ms = "
+          f"{parts} ms (SR {vmc.sr.solver})")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# the fused GCNN forward
+# ---------------------------------------------------------------------------
+
+def gcnn_flop(hw: int, width: int, n_layers: int, cplx: bool,
+              batch: int) -> float:
+    """The least FLOPs for the readout sums of ``batch`` configurations:
+    the lift (9 taps, Cin = 1, real input: 1 real product per part) and
+    L-1 group layers (9 taps, W -> W), 2 per MAC. A complex group layer
+    takes 3 real products (Karatsuba, as the model computes it) plus
+    4 HW W additions (the input sum re + im, and p1 - p2, p3 - p1 - p2 on
+    the outputs), and 9 W^2 for the weight sum, once per call. The kernel
+    itself does the direct form's 4 products."""
+    lift = 9 * hw * width * 2 * (2 if cplx else 1)
+    group = 9 * hw * width * width * 2 * (3 if cplx else 1)
+    if cplx:
+        group += 4 * hw * width
+    once = (n_layers - 1) * 9 * width * width if cplx else 0
+    return float(batch) * (lift + (n_layers - 1) * group) + once
+
+
+def gcnn_bound(ws, hw: int, width: int, n_layers: int, batch: int):
+    """(bound ms, 'operations' | 'bytes', FLOP): the larger of FLOP over the
+    FP32 peak and bytes (x read once, weights once, S_g written once) over
+    the memory rate."""
+    cplx = ws.lift_im is not None
+    flop = gcnn_flop(hw, width, n_layers, cplx, batch)
+    n_bytes = 4 * (batch * hw + batch * 16
+                   + sum(w.numel() for w in ws if w is not None))
+    ops_ms, bytes_ms = flop / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flop)
+
+
+def gcnn_case(model_kw: dict, batch: int, seed: int, device, params=None,
+              model=None):
+    """Params (unless given, a bias-perturbed fresh init of ``model``,
+    default the bare LogPsiGCNN: zero biases and an even lncosh would make
+    the s -> -s pairing degenerate), the expanded weights and S^z = 0 spins
+    for one kernel check."""
+    import torch
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN
+    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
+
+    shape = model_kw["lattice_shape"]
+    if params is None:
+        model = model or LogPsiGCNN(**model_kw)
+        params = model.init(seed, device=device)
+        gen = torch.Generator().manual_seed(seed + 1)
+        params = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(device)
+                  if "bias" in k else v for k, v in params.items()}
+    prefix = ("params/inner/" if any("/inner/" in k for k in params)
+              else "params/")
+    ws = k2.expand_gcnn_params(params, 3, model_kw["complex_params"], prefix)
+    x = init_walkers(prng_key(seed + 2), batch, shape[0] * shape[1],
+                     sector="sz0", device=device)
+    kw = dict(lattice_shape=shape, channels=tuple(model_kw["channels"]),
+              kernel_size=3, activation=model_kw.get("activation", "lncosh"),
+              residual=model_kw.get("residual", False))
+    return params, ws, x, kw
+
+
+def compare_gcnn(name: str, ws, x, kw, tol: float) -> float:
+    """K2 against its plain version on the card; returns max abs error of
+    S_g. Passes where |kernel - plain| <= tol + tol |plain|."""
+    import torch
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+
+    got = k2.gcnn_group_sums(x, ws, **kw)
+    want = k2.gcnn_group_sums_reference(x, ws, **kw)
+    torch.cuda.synchronize()
+    worst, max_abs = 0.0, 0.0
+    for a, b in ((got.re, want.re), (got.im, want.im)):
+        diff = (a - b).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        worst = max(worst, float((diff - tol * b.abs()).max()))
+    print(f"  {name}: B={x.shape[0]}, S_g max abs err {max_abs:.3e} "
+          f"(|S_g| ~ {float(want.re.abs().mean()):.3f}; tol {tol:g})")
+    check(worst <= tol, f"{name}: S_g outside rtol/atol {tol}")
+    return max_abs
+
+
+def lncosh_at_scale(scale: float, batch: int, seed: int, dev) -> None:
+    """Complex lncosh at large weights. log cosh z is taken on
+    t = z sign(Re z), so its Im jumps by 2 pi k where Re z crosses 0 at
+    |Im z| > pi/2, and a pre-activation within rounding of such a cut may
+    land on either side in any two f32 summation orders. Counts the
+    configurations whose S_g leaves 1e-4 of (1 + their largest |S_g|):
+    K2 against the plain
+    version (direct 4-product form), and, as the witness, the plain model
+    (Karatsuba, ``LogPsiGCNN.group_sums``) against the same plain version.
+    K2 may leave it on at most twice the witness's count plus 0.5% of the
+    batch."""
+    import torch
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.models.cnn import module_names
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN
+
+    model_kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                    complex_params=True, param_scale=scale)
+    model = LogPsiGCNN(**model_kw)
+    params, ws, x, kw = gcnn_case(model_kw, batch, seed, dev, model=model)
+    model.load_state_dict(module_names(params))
+    model.to(dev)
+    with torch.no_grad():
+        got = k2.gcnn_group_sums(x, ws, **kw)
+        want = k2.gcnn_group_sums_reference(x, ws, **kw)
+        witness = model.group_sums(x)
+    torch.cuda.synchronize()
+
+    # rtol 1e-4 of each configuration's largest |S_g| (an Im part near 0
+    # carries the rounding of sums as large as the Re parts)
+    size = 1.0 + torch.maximum(want.re.abs(), want.im.abs()).amax(dim=1)
+
+    def outside(a):  # configurations outside tolerance, max abs error
+        diff = torch.maximum((a.re - want.re).abs(), (a.im - want.im).abs())
+        bad = (diff > 1e-4 * size[:, None]).any(dim=1)
+        return int(bad.sum()), float(diff.max())
+
+    n_k2, err_k2 = outside(got)
+    n_wit, err_wit = outside(witness)
+    limit = 2 * n_wit + -(-5 * batch // 1000)
+    print(f"  lncosh at weight scale {scale}, B={batch} (|S_g| ~ "
+          f"{float(want.re.abs().mean()):.1f}): outside 1e-4, K2 vs plain "
+          f"{n_k2} ({100 * n_k2 / batch:.2f}%, max abs err {err_k2:.3e}); "
+          f"witness, Karatsuba model vs plain {n_wit} "
+          f"({100 * n_wit / batch:.2f}%, max abs err {err_wit:.3e}); "
+          f"limit {limit}")
+    check(n_k2 <= limit, f"lncosh at scale {scale}: K2 leaves tolerance on "
+          f"{n_k2} configurations, limit {limit}")
+
+
+def compare_gcnn_log_psi(name: str, model, params, x, fused_kw: dict,
+                         amplitudes: bool) -> None:
+    """FusedLogPsi (K2) against the plain model's log psi: Re within
+    1e-4 and phases mod 2 pi, or normalized amplitudes within 1e-3 for a
+    sign-changing character (exact nodes)."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch.kernels.gcnn_forward import FusedLogPsi
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+
+    got = FusedLogPsi(**fused_kw)(params, x)
+    want = log_psi_apply(model, params, x)
+    torch.cuda.synchronize()
+    if amplitudes:
+        scale = float(want.re.max())
+
+        def amp(lp):
+            return (torch.exp(lp.re.double() - scale)
+                    * torch.exp(1j * lp.im.double())).cpu().numpy()
+
+        err = float(np.abs(amp(got) - amp(want)).max())
+        print(f"  {name}: normalized amplitude max err {err:.3e}")
+        check(err <= 1e-3, f"{name}: amplitudes differ by {err}")
+        return
+    d_re = float(((got.re - want.re).abs() - 1e-4 * want.re.abs()).max())
+    dphi = torch.remainder(got.im - want.im + np.pi, 2 * np.pi) - np.pi
+    print(f"  {name}: log psi re max err "
+          f"{float((got.re - want.re).abs().max()):.3e}, phase max err "
+          f"{float(dphi.abs().max()):.3e} (mod 2 pi)")
+    check(d_re <= 1e-4, f"{name}: Re log psi outside 1e-4")
+    check(float(dphi.abs().max()) <= 1e-3, f"{name}: phases differ")
+
+
+def expected_k2_launches(cfg) -> dict:
+    """K2 launches of one training step (refresh, every proposal, every
+    E_loc chunk) and of the whole train() run."""
+    import numpy as np
+    from qmcnn_tpu_torch.train import therm_chunks
+
+    m = cfg.sampler.n_walkers
+    sweep = cfg.sampler.sweep_size or int(np.prod(cfg.lattice.shape))
+    chunks = -(-m // (cfg.run.chunk_size or m))
+    per_step = 1 + cfg.sampler.n_sweeps_per_step * sweep + chunks
+    therm = sum(1 + n * sweep for _, n in
+                therm_chunks(cfg.sampler.n_therm_sweeps,
+                             cfg.run.therm_sweeps_per_dispatch))
+    return {"per_step": per_step,
+            "run": 1 + therm + cfg.run.n_steps * per_step}
+
+
+def time_gcnn(ws, x, kw, card: str, label: str) -> dict:
+    """K2 and its plain version (cuDNN, TF32 off) ms per call, and the
+    bound, at one shape."""
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+
+    batch = x.shape[0]
+    reps = 3 if batch > 16384 else 10
+    ms = cuda_ms(lambda: k2.gcnn_group_sums(x, ws, **kw), reps=reps)
+    plain_ms = cuda_ms(lambda: k2.gcnn_group_sums_reference(x, ws, **kw),
+                       reps=reps)
+    hw = x.shape[1]
+    width, n_layers = 8 * kw["channels"][0], len(kw["channels"])
+    bound_ms, bound_by, flop = gcnn_bound(ws, hw, width, n_layers, batch)
+    print(f"  {label} B={batch} ({card}): kernel {ms:.4f} ms, plain (cuDNN, "
+          f"TF32 off) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({flop:.3e} FLOP, Karatsuba count, {bound_by}); kernel at "
+          f"{flop / ms / 1e9:.2f} TFLOP/s of that work = "
+          f"{100 * bound_ms / ms:.1f}% of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def gcnn_main_path(card: str, out_dir: Path) -> dict:
+    """configs/j1j2_8x8_gcnn.yaml at full width through train(), the K2
+    counter zeroed just before and read just after; then one more step by
+    hand for the launches per step, the minSR residual and E_im."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.sampler.metropolis import prng_key
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.train import train
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+
+    csv = out_dir / "j1j2_8x8_gcnn.csv"
+    cfg = configs.load(str(GCNN_CONFIG), (
+        "sampler.n_therm_sweeps=20", "run.n_steps=3", "run.log_every=1",
+        f"run.csv_path={csv}"))
+    want = expected_k2_launches(cfg)
+    k1.metropolis_sweep.launches = 0
+    k2.gcnn_group_sums.launches = 0
+    t0 = time.perf_counter()
+    state, logger = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches, k1_launches = (k2.gcnn_group_sums.launches,
+                             k1.metropolis_sweep.launches)
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    acc = np.asarray(hist["accept"])
+    print(f"    j1j2_8x8_gcnn: {time.perf_counter() - t0:.1f} s, K2 launches "
+          f"{launches} (expected {want['run']}; sweep kernel {k1_launches}), "
+          f"E/site {[round(float(v) / 64, 5) for v in e]}, E_im "
+          f"{[round(v, 5) for v in hist['energy_im']]}, accept "
+          f"{acc.tolist()}, sr_iters {hist['sr_iters']}")
+    check(np.isfinite(e).all(), "gcnn: non-finite energies")
+    check(((acc > 0) & (acc < 1)).all(), "gcnn: accept rate outside (0, 1)")
+    check(launches > 0, "gcnn: the training path never launched K2")
+    check(launches == want["run"], f"gcnn: {launches} K2 launches, "
+          f"expected {want['run']}")
+
+    vmc, _, _ = build(cfg, device="cuda")
+    ids = torch.arange(cfg.sampler.n_walkers, device="cuda")
+    k2.gcnn_group_sums.launches = 0
+    new, mt = vmc.step(state, prng_key(17), ids)
+    torch.cuda.synchronize()
+    per_step = k2.gcnn_group_sums.launches
+    w = new.walkers
+    e_loc = local_energy(vmc.eval_log_psi_fn, state.params, vmc.ham, w.s,
+                         w.log_psi, chunk_size=vmc.chunk_size)
+    err_im = binned_stderr(e_loc.im.double().cpu().numpy())
+    e_im, resid = float(mt.energy_im), float(mt.sr_residual)
+    print(f"    one more step: K2 launches {per_step} (expected "
+          f"{want['per_step']}), E_im {e_im:.5f} vs 3 x binned stderr "
+          f"{3 * err_im:.5f}, minSR residual {resid:.3e}, sr_iters "
+          f"{mt.sr_iters}, accept {float(mt.accept_rate):.4f}")
+    check(per_step == want["per_step"], f"gcnn: {per_step} K2 launches in a "
+          f"step, expected {want['per_step']}")
+    check(abs(e_im) < 3 * err_im, f"gcnn: |E_im| {e_im} >= 3 stderr")
+    check(np.isfinite(resid) and mt.sr_iters == 0, "gcnn: minSR residual")
+    # K2 on the trained lncosh params and the walkers' own (spin-flip
+    # doubled) configurations; the count check ran before it
+    ws = k2.expand_gcnn_params(new.params, 3, True, "params/inner/")
+    compare_gcnn("after training, the walkers' configurations", ws,
+                 torch.cat([w.s, -w.s]),
+                 dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                      kernel_size=3), 1e-4)
+    return {"launches": launches, "per_step": per_step, "cfg": cfg,
+            "state": new}
+
+
+def d12_fixture_energy(out_dir: Path, n_therm: int) -> None:
+    """The depth-12 snapshot in its own architecture (float32), warm-started
+    from the npz, M=512, exchange_anti, a few minSR steps at the learning
+    rate its JAX run ended at; the tail E/site must sit within 0.01 of the
+    JAX run's."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.train import train
+
+    csv = out_dir / "j1j2_8x8_d12.csv"
+    cfg = configs.load(str(GCNN_CONFIG), D12_MODEL + (
+        "sampler.n_walkers=512", f"sampler.n_therm_sweeps={n_therm}",
+        f"run.init_from={D12_FIXTURE}", "run.n_steps=8", "run.log_every=1",
+        "optimizer.lr=0.001", "optimizer.schedule=constant",
+        "sr.diag_shift0=0.001", "sr.diag_shift_decay=1.0",
+        "sr.diag_shift_min=0.001", "sr.proportional_shift=true",
+        f"run.csv_path={csv}"))
+    before = k2.gcnn_group_sums.launches
+    t0 = time.perf_counter()
+    _, logger = train(cfg, device="cuda")
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    tail, err = logger.tail_energy()
+    e_site = tail / 64
+    print(f"    d12 fixture: {time.perf_counter() - t0:.1f} s, K2 launches "
+          f"{k2.gcnn_group_sums.launches - before}, E/site "
+          f"{[round(float(v) / 64, 5) for v in e]}, tail {e_site:.6f} +- "
+          f"{err / 64:.6f} (JAX run {E_SITE_D12}), accept {hist['accept']}")
+    check(np.isfinite(e).all(), "d12: non-finite energies")
+    check(abs(e_site - E_SITE_D12) <= 0.01,
+          f"d12: E/site {e_site} not within 0.01 of {E_SITE_D12}")
 
 
 def main() -> int:
@@ -258,9 +556,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
     from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
     from qmcnn_tpu_torch.lattice import chain, square
     from qmcnn_tpu_torch.models.cnn import LogPsiCNN
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
     from qmcnn_tpu_torch.train import train
     from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                                 params_from_jax)
@@ -272,13 +572,22 @@ def main() -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    path, log = k1.build()
-    print(f"[2] build: {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+
+    def timed_build(mod):
+        t = time.perf_counter()
+        path, log = mod.build()
+        return path, log, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (k1, k2)))
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s in all")
+    for path, log, secs in builds:
+        print(f"    {path.name}: {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
 
     # 3. kernel vs plain version on the card
     print("[3] fused sweep vs plain version (TF32 off)", flush=True)
@@ -298,6 +607,46 @@ def main() -> int:
                                   3, dev),
     }
     errs = {k: compare_kernel(c)["max_abs_err"] for k, c in cases.items()}
+
+    print("[3] fused GCNN forward vs plain version (TF32 off)", flush=True)
+    t0 = time.perf_counter()
+    # the config's init scale: complex lncosh jumps by 2 pi k where Re
+    # crosses 0 at |Im| > pi/2, and large weights put rounding-level
+    # pre-activations on such branch cuts, where any two summation orders
+    # may legitimately disagree
+    main_kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                   complex_params=True, param_scale=0.05)
+    _, main_ws, main_x, main_kw2 = gcnn_case(main_kw, 2048, 21, dev)
+    errs["gcnn"] = compare_gcnn("j1j2_8x8_gcnn shape (W=64, L=3, lncosh)",
+                                main_ws, main_x, main_kw2, 1e-4)
+    d12_params = params_from_jax(load_checkpoint_params(str(D12_FIXTURE)),
+                                 dev)
+    d12_kw = dict(lattice_shape=(8, 8), channels=(10,) * 12,
+                  complex_params=True, activation="selu", residual=True)
+    _, d12_ws, d12_x, d12_kw2 = gcnn_case(d12_kw, 512, 22, dev,
+                                          params=d12_params)
+    compare_gcnn("d12 fixture (W=80, L=12, selu, residual)", d12_ws, d12_x,
+                 d12_kw2, 1e-3)
+    _, ws, x, kw = gcnn_case(dict(main_kw, complex_params=False,
+                                  activation="selu", param_scale=0.3),
+                             777, 23, dev)
+    compare_gcnn("real params, selu, B=777", ws, x, kw, 1e-4)
+    spin_kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                   complex_params=True, param_scale=0.1)
+    for character, sector, batch in (("A1", 1, 2048), ("B1", -1, 1001)):
+        model = SpinFlipSymmetrized(LogPsiGCNN(character=character,
+                                               **spin_kw), sector)
+        params, _, x, _ = gcnn_case(dict(spin_kw, character=character),
+                                    batch, 24, dev, model=model)
+        fused_kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                        kernel_size=3, complex_params=True,
+                        character=character, spin_flip_sector=sector)
+        compare_gcnn_log_psi(f"log psi, {character}, spin-flip {sector:+d}, "
+                             f"B={batch}", model, params, x, fused_kw,
+                             amplitudes=character != "A1")
+    for scale, seed in ((0.15, 28), (0.3, 29)):
+        lncosh_at_scale(scale, 2048, seed, dev)
+    print(f"    GCNN checks {time.perf_counter() - t0:.1f} s")
 
     # 4. main path, counters zeroed just before and read just after
     print("[4] main path: heis10x10_sr training", flush=True)
@@ -352,11 +701,24 @@ def main() -> int:
           f"tfim16: tail energy {tail_t} outside [ED, -15.5]")
     check(rel[-1] < 0.25, f"tfim16: rel_err {rel[-1]} vs ED")
 
+    print("[4] main path: j1j2_8x8_gcnn training", flush=True)
+    gcnn = gcnn_main_path(card, out_dir)
+    print("[4] fixture energy: the depth-12 snapshot", flush=True)
+    d12_fixture_energy(out_dir, n_therm=60)
+
     # 5. timings
     print(f"[5] timings ({card})", flush=True)
     t_flag = time_sweep(cases["flagship_exchange"], card)
     t_tfim = time_sweep(cases["tfim16_flip"], card)
-    step_split(cfg, state, card)
+    step_split(cfg, state, card, "heis10x10_sr")
+    t_eloc = time_gcnn(*gcnn_case(main_kw, 256 * 256 * 2, 26, dev)[1:], card,
+                       "K2 at the E_loc chunk shape (256 x 256 x 2)")
+    t_swp = time_gcnn(*gcnn_case(main_kw, 1024 * 2, 27, dev)[1:], card,
+                      "K2 at the sweep shape (1024 x 2)")
+    time_gcnn(d12_ws, d12_x, d12_kw2, card, "K2 at the d12 shape")
+    print(f"  K2 launches per j1j2_8x8_gcnn training step: "
+          f"{gcnn['per_step']}")
+    step_split(gcnn["cfg"], gcnn["state"], card, "j1j2_8x8_gcnn")
 
     # 6. report
     rec = {
@@ -372,11 +734,26 @@ def main() -> int:
         "bound_by": t_flag["bound_by"],
         "library_ms": None,
     }
+    rec2 = {
+        "name": "gcnn_group_sums",
+        "route": "cuda",
+        "source": "qmcnn_tpu_torch/csrc/gcnn_forward.cu",
+        "replaces": "qmcnn_tpu/kernels/gcnn_pallas.py:259",
+        "launches": gcnn["launches"],
+        "max_abs_err": errs["gcnn"],
+        "ms": t_eloc["ms"],
+        "plain_ms": t_eloc["plain_ms"],
+        "bound_ms": t_eloc["bound_ms"],
+        "bound_by": t_eloc["bound_by"],
+        "library_ms": None,
+    }
     print(f"    tfim16 shape: kernel {t_tfim['ms']:.4f} ms/sweep, plain "
           f"{t_tfim['plain_ms']:.4f}, bound {t_tfim['bound_ms']:.5f} "
           f"({card})")
+    print(f"    K2 sweep shape: kernel {t_swp['ms']:.4f} ms, plain "
+          f"{t_swp['plain_ms']:.4f}, bound {t_swp['bound_ms']:.4f} ({card})")
     print(f"[6] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": [rec, rec2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

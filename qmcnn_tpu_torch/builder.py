@@ -1,5 +1,5 @@
 """Config -> framework objects (port of ``qmcnn_tpu/builder.py``, the CNN
-training path on one device).
+and square-lattice GCNN training paths on one device).
 
 ``build(cfg, device)`` wires lattice, ansatz, Hamiltonian, sampler,
 optimizer and (optionally) SR into a :class:`qmcnn_tpu_torch.vmc.VMC`.
@@ -21,6 +21,7 @@ import torch
 from qmcnn_tpu_torch.configs import Config
 from qmcnn_tpu_torch.lattice import Lattice
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply
+from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
 from qmcnn_tpu_torch.ops.hamiltonians import TFIM, Heisenberg
 from qmcnn_tpu_torch.sampler.metropolis import MetropolisSampler
 from qmcnn_tpu_torch.sr import SR
@@ -48,23 +49,77 @@ def build_hamiltonian(cfg: Config, lattice: Lattice):
 
 
 _LATER_SLICE = ("translation_average", "point_group_average",
-                "spin_flip_sector", "phase_bias", "jastrow", "jastrow_phase",
-                "phase_net_channels", "lanczos_alpha")
+                "lanczos_alpha")
+_PRIORS = ("phase_bias", "jastrow", "jastrow_phase", "phase_net_channels")
 
 
-def build_model(cfg: Config, lattice: Lattice) -> LogPsiCNN:
-    """The plain CNN ansatz; other kinds and wrappers raise (later slices
-    of the port, ROADMAP.md)."""
+def _set(value) -> bool:
+    return value not in (False, None, 0, ())
+
+
+def build_model(cfg: Config, lattice: Lattice):
+    """The CNN or the square-lattice GCNN, optionally spin-flip projected;
+    other kinds and wrappers raise (later slices of the port, ROADMAP.md)."""
     m = cfg.model
-    if m.kind != "cnn":
+    if m.kind not in ("cnn", "gcnn"):
         raise NotImplementedError(f"model.kind={m.kind!r} is not ported yet "
-                                  "(ROADMAP.md); only 'cnn'")
+                                  "(ROADMAP.md); only 'cnn' and 'gcnn'")
+    if m.momentum and any(m.momentum):
+        raise ValueError("model.momentum requires translation_average: true "
+                         "on the cnn ansatz")
+    if m.kind == "gcnn":
+        if len(lattice.shape) != 2 or not lattice.pbc:
+            raise ValueError("gcnn needs a periodic 2D lattice")
+        if m.translation_average or m.point_group_average:
+            raise ValueError("gcnn is already fully space-group symmetric; "
+                             "drop translation/point_group averaging")
+        if lattice.geometry in ("triangular", "kagome"):
+            raise NotImplementedError(
+                f"the {lattice.geometry} GCNN is not ported yet (ROADMAP.md, "
+                "A13)")
+        if lattice.geometry != "hypercubic":
+            raise ValueError("gcnn is point-group equivariant for square, "
+                             "triangular and kagome lattices only — not "
+                             f"geometry={lattice.geometry!r}")
     for name in _LATER_SLICE:
-        if getattr(m, name) not in (False, None, 0, ()):
+        if _set(getattr(m, name)):
             raise NotImplementedError(f"model.{name} is not ported yet "
                                       "(ROADMAP.md)")
-    if m.momentum and any(m.momentum):
-        raise ValueError("model.momentum requires translation_average: true")
+    if m.kind == "gcnn":
+        inner = LogPsiGCNN(
+            lattice_shape=tuple(lattice.shape),
+            channels=tuple(m.channels),
+            kernel_size=m.kernel_size,
+            complex_params=m.complex_params,
+            param_scale=m.param_scale,
+            character=m.gcnn_character,
+            init_mode=m.init_mode,
+            activation=m.activation,
+            residual=m.residual,
+            compute_dtype=m.compute_dtype,
+        )
+    else:
+        inner = _cnn(m, lattice)
+    return _maybe_spin_flip(_maybe_priors(inner, m), m)
+
+
+def _maybe_priors(inner, m):
+    """Phase priors and Jastrow factors wrap the inner model in the JAX
+    package; none is ported yet."""
+    for name in _PRIORS:
+        if _set(getattr(m, name)):
+            raise NotImplementedError(f"model.{name} is not ported yet "
+                                      "(ROADMAP.md)")
+    return inner
+
+
+def _maybe_spin_flip(inner, m):
+    if not m.spin_flip_sector:
+        return inner
+    return SpinFlipSymmetrized(inner=inner, sector=m.spin_flip_sector)
+
+
+def _cnn(m, lattice: Lattice) -> LogPsiCNN:
     return LogPsiCNN(
         lattice_shape=tuple(lattice.shape),
         channels=tuple(m.channels),
@@ -261,10 +316,12 @@ def resolve_move(cfg: Config) -> str:
 
 def kernel_eligible(cfg: Config) -> bool:
     """The CUDA sweep computes the plain real, f32, lncosh, skip-free,
-    periodic CNN on a one-site-basis grid: the JAX eligibility rule plus
-    the activation, residual and pbc checks it lacks."""
+    periodic CNN on a one-site-basis grid with flip or exchange moves: the
+    JAX eligibility rule plus the activation, residual, pbc and move checks
+    it lacks."""
     m = cfg.model
     return (m.kind == "cnn"
+            and resolve_move(cfg) in ("flip", "exchange")
             and m.lanczos_alpha is None
             and not m.complex_params
             and not m.translation_average
@@ -281,17 +338,54 @@ def kernel_eligible(cfg: Config) -> bool:
             and cfg.lattice.pbc)
 
 
-def resolve_sampler_backend(cfg: Config, device) -> str:
-    """'torch' (plain sweep) or 'cuda' (the fused kernel).
+def gcnn_kernel_eligible(cfg: Config) -> bool:
+    """The fused GCNN forward computes the bare square-lattice GCNN
+    (optionally spin-flip projected) in f32 with equal channel widths, one
+    configuration's activations per block in shared memory: no priors,
+    Jastrow factors or (1 + alpha H) wrapping, and no lattice x width too
+    large for a block (16x16 at W = 8C = 80 is)."""
+    m, lat = cfg.model, cfg.lattice
+    if not (m.kind == "gcnn"
+            and lat.geometry == "hypercubic"
+            and len(lat.shape) == 2
+            and lat.pbc
+            and len(set(m.channels)) == 1
+            and m.compute_dtype == "float32"
+            and m.lanczos_alpha is None
+            and not any(_set(getattr(m, name)) for name in _PRIORS)):
+        return False
+    from qmcnn_tpu_torch.kernels.gcnn_forward import G, smem_bytes
+    from qmcnn_tpu_torch.kernels.nvcc import MAX_SMEM_BYTES
+    from qmcnn_tpu_torch.models.gcnn import effective_kernel
 
-    'auto' takes the kernel on a CUDA device for every eligible model and
-    both flip and exchange moves; 'xla' is the plain torch sweep; 'pallas'
-    is the kernel, or an error."""
+    shape = tuple(lat.shape)
+    k = effective_kernel(m.kernel_size, shape)
+    return smem_bytes(shape[0] * shape[1], G * m.channels[0], k * k,
+                      m.complex_params) <= MAX_SMEM_BYTES
+
+
+def uses_fused_gcnn_forward(cfg: Config, device) -> bool:
+    """True when the sampler and E_loc evaluate through the fused GCNN
+    forward: backend 'auto' on a CUDA device for an eligible GCNN. 'xla'
+    keeps the plain model; 'pallas' raises for a GCNN
+    (:func:`resolve_sampler_backend`)."""
+    return (cfg.sampler.backend == "auto"
+            and torch.device(device).type == "cuda"
+            and gcnn_kernel_eligible(cfg))
+
+
+def resolve_sampler_backend(cfg: Config, device) -> str:
+    """The sweep engine: 'torch' (the plain proposal loop over the
+    evaluation forward) or 'cuda' (the fused sweep kernel).
+
+    'auto' takes the kernel on a CUDA device for the plain real CNN with
+    flip or exchange moves. 'xla' is the plain loop; 'pallas' is the
+    kernel, or an error (as in the JAX package, also for a GCNN)."""
     b = cfg.sampler.backend
     ok = kernel_eligible(cfg)
     on_cuda = torch.device(device).type == "cuda"
     if b == "auto":
-        return "cuda" if ok and on_cuda else "torch"
+        return "cuda" if on_cuda and ok else "torch"
     if b == "xla":
         return "torch"
     if b == "pallas":
@@ -299,8 +393,8 @@ def resolve_sampler_backend(cfg: Config, device) -> str:
             raise ValueError(
                 "sampler backend 'pallas' (the CUDA sweep kernel) supports "
                 "only the plain real CNN: f32, lncosh, no residual skips, "
-                "periodic boundaries, one-site basis, no symmetry "
-                "projections, phase priors or jastrow")
+                "periodic boundaries, one-site basis, flip or exchange "
+                "moves, no symmetry projections, phase priors or jastrow")
         if not on_cuda:
             raise ValueError("sampler backend 'pallas' runs the CUDA sweep "
                              f"kernel; device is {device}")
@@ -331,8 +425,10 @@ def build(cfg: Config, device="cuda") -> Tuple[VMC, dict, Lattice]:
 
     params = model.init(cfg.run.seed, device=device)
     move = resolve_move(cfg)
+    eval_log_psi_fn = (fused_gcnn_log_psi(cfg, lattice)
+                       if uses_fused_gcnn_forward(cfg, device) else log_psi_fn)
     sampler = MetropolisSampler(
-        log_psi_fn,
+        eval_log_psi_fn,
         n_sites=lattice.n_sites,
         move=move,
         bonds=lattice.nn_bonds if move.startswith("exchange") else None,
@@ -356,5 +452,19 @@ def build(cfg: Config, device="cuda") -> Tuple[VMC, dict, Lattice]:
         n_sweeps=cfg.sampler.n_sweeps_per_step,
         sr=build_sr(cfg, lattice, ham, n_params, device=device),
         chunk_size=chunk_size,
+        eval_log_psi_fn=eval_log_psi_fn,
     )
     return vmc, params, lattice
+
+
+def fused_gcnn_log_psi(cfg: Config, lattice: Lattice):
+    """(params, s) -> C: the configured GCNN's log psi through the fused
+    forward (``kernels/gcnn_forward.py``); evaluation only."""
+    from qmcnn_tpu_torch.kernels.gcnn_forward import FusedLogPsi
+
+    m = cfg.model
+    return FusedLogPsi(
+        lattice_shape=tuple(lattice.shape), channels=tuple(m.channels),
+        kernel_size=m.kernel_size, complex_params=m.complex_params,
+        character=m.gcnn_character, activation=m.activation,
+        residual=m.residual, spin_flip_sector=m.spin_flip_sector)

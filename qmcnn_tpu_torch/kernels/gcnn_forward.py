@@ -1,0 +1,352 @@
+"""Fused GCNN forward: the CUDA kernel's wrapper, its plain version and the
+evaluation-only log psi built on them (port of
+``qmcnn_tpu/kernels/gcnn_pallas.py``).
+
+  * :func:`expand_gcnn_params` gathers the flat Flax-keyed GCNN parameters
+    into G-expanded, tap-major dense kernels (``GCNNWeights``);
+  * :func:`gcnn_group_sums` runs the stack and returns the per-element
+    readout sums S_g ``[B, 8]`` as a (re, im) pair. On a CUDA tensor it
+    launches the kernel (``csrc/gcnn_forward.cu``; that file's header note
+    gives the design and the bound) or raises; on a CPU tensor it runs
+    :func:`gcnn_group_sums_reference`, the plain PyTorch version with the
+    same contract. Nothing falls back silently;
+  * :class:`FusedLogPsi` is the counterpart of ``make_fused_log_psi``:
+    the character phase, the logmeanexp over G and the spin-flip pairing
+    run outside the kernel, and the expanded weights are reused until the
+    parameters change.
+
+Scope: evaluation only (the sampler's proposals and refresh, the local
+energy batch). The gradient and the SR Jacobian differentiate the plain
+model (``models/gcnn.py``). The kernel takes equal channel widths, float32,
+the bare GCNN (optionally spin-flip projected) and a block's activations
+within Hopper's shared memory (``builder.gcnn_kernel_eligible``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from qmcnn_tpu_torch.kernels.nvcc import CSRC, MAX_SMEM_BYTES, build_library
+from qmcnn_tpu_torch.models.cnn import _SKIP_SCALE, true_f32
+from qmcnn_tpu_torch.models.gcnn import (_group_kernel, _lift_kernel,
+                                         c4v_tables, conv_expanded,
+                                         effective_kernel)
+from qmcnn_tpu_torch.ops import cplx
+from qmcnn_tpu_torch.ops.cplx import C
+
+SOURCE = CSRC / "gcnn_forward.cu"
+G = 8
+#: threads per block are capped by the kernel's __launch_bounds__
+MAX_THREADS = 512
+_ACTIVATION_CODES = {"lncosh": 0, "selu": 1}
+
+_LIB: Dict[str, ctypes.CDLL] = {}
+
+
+def build():
+    """Compile the kernel library if needed: (library path, compiler log)."""
+    return build_library(SOURCE)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _LIB.get("gcnn")
+    if lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gcnn_forward_launch.argtypes = [vp] * 9 + [ci] * 11 + [vp]
+        lib.gcnn_forward_launch.restype = ci
+        _LIB["gcnn"] = lib
+    return lib
+
+
+class GCNNWeights(NamedTuple):
+    """G-expanded, tap-major dense kernels (the ``_im`` fields are None for
+    real parameters):
+      lift [k*k, 1, W]; layers [L-1, k*k, W, W]; biases [L, W] (G-tiled)."""
+
+    lift_re: torch.Tensor
+    lift_im: Optional[torch.Tensor]
+    w_re: torch.Tensor
+    w_im: Optional[torch.Tensor]
+    b_re: torch.Tensor
+    b_im: Optional[torch.Tensor]
+
+
+def expand_gcnn_params(params, kernel_size: int, complex_params: bool,
+                       prefix: str = "params/") -> GCNNWeights:
+    """Flat GCNN params under ``prefix`` -> :class:`GCNNWeights`.
+    ``kernel_size`` is the model's effective kernel. Raises for parameters
+    the bare GCNN does not have (priors, wrappers other than the spin-flip
+    projection)."""
+    k = kernel_size
+    _, _, elem_idx, tap_perm, _, _ = c4v_tables(k)
+    names = ["kernel_re", "bias_re"] + (["kernel_im", "bias_im"]
+                                        if complex_params else [])
+    n_layers = 0
+    while f"{prefix}GroupConv_{n_layers}/kernel_re" in params:
+        n_layers += 1
+    if not n_layers or len(params) != n_layers * len(names):
+        raise ValueError("the fused GCNN forward takes the bare GCNN "
+                         f"({prefix}GroupConv_i/{{{','.join(names)}}} only); "
+                         f"got keys {sorted(params)[:4]}...")
+
+    def leaf(i, name):
+        return params[f"{prefix}GroupConv_{i}/{name}"].detach().to(
+            torch.float32)
+
+    def expand(i, name):
+        w = leaf(i, name)
+        big = (_lift_kernel(w, tap_perm, k) if i == 0
+               else _group_kernel(w, elem_idx, tap_perm, k))
+        return big.reshape(k * k, big.shape[-2], big.shape[-1])
+
+    def stack(name):
+        layers = [expand(i, name) for i in range(1, n_layers)]
+        if layers:
+            return torch.stack(layers)
+        width = G * leaf(0, name).shape[-1]
+        return leaf(0, name).new_zeros((0, k * k, width, width))
+
+    lift_re = expand(0, "kernel_re")
+    w_re = stack("kernel_re")
+    b_re = torch.stack([leaf(i, "bias_re").repeat(G) for i in range(n_layers)])
+    if not complex_params:
+        return GCNNWeights(lift_re, None, w_re, None, b_re, None)
+    return GCNNWeights(
+        lift_re, expand(0, "kernel_im"), w_re, stack("kernel_im"), b_re,
+        torch.stack([leaf(i, "bias_im").repeat(G) for i in range(n_layers)]))
+
+
+def _check_shapes(x, weights: GCNNWeights, lattice_shape, channels,
+                  kernel_size, activation):
+    if len(lattice_shape) != 2:
+        raise ValueError(f"the fused GCNN forward needs a 2D lattice, got "
+                         f"{tuple(lattice_shape)}")
+    if len(set(channels)) != 1:
+        raise ValueError("the fused GCNN forward needs equal channel widths, "
+                         f"got {tuple(channels)}")
+    if activation not in _ACTIVATION_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    hw = int(np.prod(lattice_shape))
+    if x.dim() != 2 or x.shape[1] != hw or x.dtype != torch.float32:
+        raise ValueError(f"x must be [B, {hw}] float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    kk, width, n_layers = kernel_size ** 2, G * channels[0], len(channels)
+    want = {"lift_re": (kk, 1, width), "w_re": (n_layers - 1, kk, width, width),
+            "b_re": (n_layers, width)}
+    want.update({"lift_im": want["lift_re"], "w_im": want["w_re"],
+                 "b_im": want["b_re"]})
+    complex_params = weights.lift_im is not None
+    for name, shape in want.items():
+        w = getattr(weights, name)
+        if name.endswith("_im") and not complex_params:
+            if w is not None:
+                raise ValueError(f"{name} given for real parameters")
+            continue
+        if w is None or tuple(w.shape) != shape or w.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got "
+                             f"{None if w is None else tuple(w.shape)}")
+    return complex_params
+
+
+def gcnn_group_sums_reference(x: torch.Tensor, weights: GCNNWeights, *,
+                              lattice_shape: Sequence[int],
+                              channels: Sequence[int], kernel_size: int,
+                              activation: str = "lncosh",
+                              residual: bool = False) -> C:
+    """Plain PyTorch version of the kernel, same contract: the expanded
+    stack as circular ``F.conv2d`` layers in true float32, the complex ones
+    in the kernel's direct 4-product form (the model, ``GroupConv``, uses
+    3-product Karatsuba: a second plain implementation with other rounding).
+    Returns S_g [B, 8] (re, im)."""
+    complex_params = _check_shapes(x, weights, lattice_shape, channels,
+                                   kernel_size, activation)
+    k, width, n_layers = kernel_size, G * channels[0], len(channels)
+    act = cplx.ACTIVATIONS[activation][0 if complex_params else 1]
+    batch = x.shape[0]
+
+    def flax(w, cin):  # tap-major [k*k, Cin, W] -> [k, k, Cin, W]
+        return w.reshape(k, k, cin, width)
+
+    with true_f32():
+        z = x.reshape(batch, 1, *lattice_shape)
+        lr = flax(weights.lift_re, 1)
+        if complex_params:
+            li = flax(weights.lift_im, 1)
+            z = C(conv_expanded(z, lr), conv_expanded(z, li))
+        else:
+            z = conv_expanded(z, lr)
+        for i in range(n_layers):
+            z_in = z
+            if i > 0:
+                wr = flax(weights.w_re[i - 1], width)
+                if complex_params:
+                    wi = flax(weights.w_im[i - 1], width)
+                    z = C(conv_expanded(z.re, wr) - conv_expanded(z.im, wi),
+                          conv_expanded(z.re, wi) + conv_expanded(z.im, wr))
+                else:
+                    z = conv_expanded(z, wr)
+            br = weights.b_re[i].reshape(-1, 1, 1)
+            if complex_params:
+                z = act(C(z.re + br, z.im + weights.b_im[i].reshape(-1, 1, 1)))
+            else:
+                z = act(z + br)
+            if residual and 0 < i < n_layers - 1:
+                z = (z + z_in) * _SKIP_SCALE
+    z = cplx.as_c(z)
+    c = channels[-1]
+    return C(z.re.reshape(batch, G, c, -1).sum((2, 3)),
+             z.im.reshape(batch, G, c, -1).sum((2, 3)))
+
+
+def smem_bytes(hw: int, width: int, kk: int, complex_params: bool) -> int:
+    """Shared memory one block needs; mirrors ``smem_layout`` in the .cu
+    source, which checks that the two agree at every launch."""
+    def r4(v):
+        return (v + 3) // 4 * 4
+
+    parts = 2 if complex_params else 1
+    return 4 * (2 * parts * r4(hw * width) + r4(hw) + kk * hw)
+
+
+def launch_threads(hw: int, width: int) -> int:
+    """Threads per block: one per 4-site x 4-channel tile, in whole warps,
+    at most MAX_THREADS (the tiles then loop)."""
+    tiles = (hw + 3) // 4 * (width // 4)
+    return min(MAX_THREADS, max(32, (tiles + 31) // 32 * 32))
+
+
+def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
+                    lattice_shape: Sequence[int], channels: Sequence[int],
+                    kernel_size: int, activation: str = "lncosh",
+                    residual: bool = False) -> C:
+    """Per-group-element readout sums S_g [B, 8] (re, im) of the GCNN stack
+    on x [B, H*W] (see the module docstring)."""
+    if x.device.type == "cpu":
+        return gcnn_group_sums_reference(
+            x, weights, lattice_shape=lattice_shape, channels=channels,
+            kernel_size=kernel_size, activation=activation, residual=residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"gcnn_group_sums runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    lattice_shape = tuple(int(v) for v in lattice_shape)
+    complex_params = _check_shapes(x, weights, lattice_shape, channels,
+                                   kernel_size, activation)
+    dev = x.device
+    x = x.contiguous()
+    ws = GCNNWeights(*(None if w is None else w.contiguous()
+                       for w in weights))
+    for w in ws:
+        if w is not None and w.device != dev:
+            raise ValueError(f"weights on {w.device}, x on {dev}")
+    hw = int(np.prod(lattice_shape))
+    width = G * channels[0]
+    smem = smem_bytes(hw, width, kernel_size ** 2, complex_params)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the fused GCNN forward needs {smem} bytes of "
+                         f"shared memory per block at {hw} sites x width "
+                         f"{width}, above Hopper's {MAX_SMEM_BYTES}")
+    batch = x.shape[0]
+    out_re = torch.empty((batch, G), dtype=torch.float32, device=dev)
+    out_im = torch.empty((batch, G), dtype=torch.float32, device=dev)
+
+    def ptr(t):  # the _im pointers are NULL for real parameters
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().gcnn_forward_launch(
+            x.data_ptr(), *(ptr(w) for w in ws), out_re.data_ptr(),
+            out_im.data_ptr(), batch, lattice_shape[0], lattice_shape[1],
+            kernel_size, channels[0], len(channels), int(complex_params),
+            _ACTIVATION_CODES[activation], int(residual),
+            launch_threads(hw, width), smem, stream)
+    gcnn_group_sums.launches += 1
+    if err != 0:
+        raise RuntimeError(f"gcnn_group_sums launch failed: CUDA error {err}")
+    return C(out_re, out_im)
+
+
+#: launches of the CUDA kernel since the last reset (CPU calls, which run
+#: the plain version, do not count)
+gcnn_group_sums.launches = 0
+
+
+class FusedLogPsi:
+    """``(params, s) -> log psi(s)`` [B] of ``LogPsiGCNN`` (wrapped in
+    ``SpinFlipSymmetrized`` when ``spin_flip_sector`` is +-1) through
+    :func:`gcnn_group_sums`. Evaluation only: no autograd through the
+    kernel. Which configs may take it is decided once, by
+    ``builder.gcnn_kernel_eligible``; the wrapper checks shapes and device.
+
+    The G-expanded weights and the character phases are kept between calls:
+    the weights are gathered again only when ``params`` is another dict or
+    one of its tensors was changed in place (its version counter moved), so
+    the sampler's many calls between two parameter updates reuse them."""
+
+    def __init__(self, *, lattice_shape: Tuple[int, int],
+                 channels: Sequence[int], kernel_size: int,
+                 complex_params: bool, character: str = "A1",
+                 activation: str = "lncosh", residual: bool = False,
+                 spin_flip_sector: int = 0):
+        if spin_flip_sector not in (0, 1, -1):
+            raise ValueError("spin-flip sector must be 0, +1 or -1")
+        self.lattice_shape = tuple(int(v) for v in lattice_shape)
+        self.channels = tuple(channels)
+        self.k = effective_kernel(kernel_size, self.lattice_shape)
+        self.complex_params = complex_params
+        self.activation = activation
+        self.residual = residual
+        self.sector = spin_flip_sector
+        self.prefix = "params/inner/" if spin_flip_sector else "params/"
+        chi = c4v_tables(self.k)[4][character]
+        #: +i pi on S_g where chi(g) = -1; +i pi on the flipped half, sector -1
+        self._phase = torch.as_tensor(np.where(chi < 0, np.pi, 0.0),
+                                      dtype=torch.float32)
+        self._shift = torch.tensor([[0.0], [np.pi]], dtype=torch.float32)
+        self._consts: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self._stamp = None
+        self._leaves: tuple = ()
+        self._weights: Optional[GCNNWeights] = None
+
+    def weights(self, params) -> GCNNWeights:
+        """``expand_gcnn_params`` of ``params``, reused while neither the
+        dict nor a tensor in it changed. The cached tensors are held, so
+        their ids cannot be reused by new tensors."""
+        stamp = tuple((k, id(v), v._version) for k, v in params.items())
+        if stamp != self._stamp:
+            self._weights = expand_gcnn_params(params, self.k,
+                                               self.complex_params,
+                                               self.prefix)
+            self._stamp, self._leaves = stamp, tuple(params.values())
+        return self._weights
+
+    def _device_consts(self, device) -> Tuple[torch.Tensor, ...]:
+        consts = self._consts.get(device)
+        if consts is None:
+            consts = (self._phase.to(device), self._shift.to(device))
+            self._consts[device] = consts
+        return consts
+
+    def __call__(self, params, s: torch.Tensor) -> C:
+        weights = self.weights(params)
+        phase, shift = self._device_consts(s.device)
+        s_eval = torch.cat([s, -s], dim=0) if self.sector else s
+        with torch.no_grad():
+            s_g = gcnn_group_sums(
+                s_eval.to(torch.float32), weights,
+                lattice_shape=self.lattice_shape, channels=self.channels,
+                kernel_size=self.k, activation=self.activation,
+                residual=self.residual)
+            lp = cplx.logmeanexp(C(s_g.re, s_g.im + phase[None, :]), dim=1)
+            if self.sector:
+                pair = lp.reshape(2, s.shape[0])
+                if self.sector == -1:
+                    pair = C(pair.re, pair.im + shift)
+                lp = cplx.logmeanexp(pair, dim=0)
+        return lp
+

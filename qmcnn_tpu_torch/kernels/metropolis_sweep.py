@@ -22,58 +22,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from qmcnn_tpu_torch.kernels.nvcc import CSRC, MAX_SMEM_BYTES, build_library
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN, _tap_offsets, log_psi_apply
 
-PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "metropolis_sweep.cu"
-BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_SMEM_BYTES = 232448  # 227 KB: what one Hopper block may use
+SOURCE = CSRC / "metropolis_sweep.cu"
 MAX_LAYERS = 16
 
 _LIB: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
-                       "sweep kernel is built on the machine with the GPU")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel library if this source has not been built yet.
-    Returns (library path, compiler log; empty when already built)."""
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"metropolis_sweep-{digest}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial
-    return out, proc.stdout + proc.stderr
+def build():
+    """Compile the kernel library if needed: (library path, compiler log)."""
+    return build_library(SOURCE)
 
 
 def _lib() -> ctypes.CDLL:

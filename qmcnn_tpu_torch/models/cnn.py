@@ -183,7 +183,7 @@ class LogPsiCNN(nn.Module):
 
     def forward(self, s: torch.Tensor) -> C:
         batch = s.shape[0]
-        act = cplx.ACTIVATIONS[self.activation]
+        act = cplx.ACTIVATIONS[self.activation][1]
         x = s.reshape(batch, *self.lattice_shape, self.basis)
         x = x.movedim(-1, 1).to(torch.float32)
         with true_f32():

@@ -1,11 +1,9 @@
 """Complex arithmetic over explicit (re, im) float32 pairs.
 
-The port of ``qmcnn_tpu/ops/cplx.py``. Log-amplitudes and local energies are
-pairs of real tensors, exactly as in the JAX package, so every parameter is
-a real float32 leaf and the gradient / SR conventions are the simple
-real-parameter ones (no Wirtinger conjugation). This slice carries the
-pieces on the real-CNN training path: ``C``, ``cexp``, ``clog``,
-``lncosh_real``, ``selu_real`` and ``logmeanexp``.
+The port of ``qmcnn_tpu/ops/cplx.py``. Log-amplitudes, local energies and
+complex network weights are pairs of real tensors, exactly as in the JAX
+package, so every parameter is a real float32 leaf and the gradient / SR
+conventions are the simple real-parameter ones (no Wirtinger conjugation).
 """
 from __future__ import annotations
 
@@ -23,8 +21,31 @@ class C(NamedTuple):
     re: torch.Tensor
     im: torch.Tensor
 
-    def __sub__(self, o: "C") -> "C":
+    def __add__(self, o) -> "C":
+        o = as_c(o)
+        return C(self.re + o.re, self.im + o.im)
+
+    def __radd__(self, o) -> "C":
+        return as_c(o) + self
+
+    def __sub__(self, o) -> "C":
+        o = as_c(o)
         return C(self.re - o.re, self.im - o.im)
+
+    def __mul__(self, o) -> "C":
+        if isinstance(o, C):
+            return C(self.re * o.re - self.im * o.im,
+                     self.re * o.im + self.im * o.re)
+        return C(self.re * o, self.im * o)  # real scalar/tensor
+
+    def __rmul__(self, o) -> "C":
+        return self * o
+
+    def __neg__(self) -> "C":
+        return C(-self.re, -self.im)
+
+    def conj(self) -> "C":
+        return C(self.re, -self.im)
 
     def abs2(self) -> torch.Tensor:
         return self.re * self.re + self.im * self.im
@@ -41,6 +62,14 @@ class C(NamedTuple):
         return C(self.re.mean(dim), self.im.mean(dim))
 
 
+def as_c(x) -> C:
+    """Promote a real tensor/scalar (or pass through a C) to a C pair."""
+    if isinstance(x, C):
+        return x
+    x = torch.as_tensor(x)
+    return C(x, torch.zeros_like(x))
+
+
 def cexp(z: C) -> C:
     """exp(re + i im) = e^re (cos im, sin im)."""
     m = torch.exp(z.re)
@@ -52,20 +81,36 @@ def clog(z: C) -> C:
     return C(0.5 * torch.log(z.abs2()), torch.atan2(z.im, z.re))
 
 
+def lncosh(z: C) -> C:
+    """Stable log(cosh(z)) for a complex pair: with t = z sign(Re z),
+    log cosh z = t - log 2 + log(1 + e^{-2t}) and |e^{-2t}| <= 1."""
+    s = torch.where(z.re >= 0, 1.0, -1.0).to(z.re.dtype)
+    tr, ti = z.re * s, z.im * s
+    w = cexp(C(-2.0 * tr, -2.0 * ti))
+    lg = clog(C(1.0 + w.re, w.im))
+    return C(tr - LOG2 + lg.re, ti + lg.im)
+
+
 def lncosh_real(x: torch.Tensor) -> torch.Tensor:
     """Stable log(cosh(x)) = |x| - log 2 + log1p(e^{-2|x|})."""
     t = torch.abs(x)
     return t - LOG2 + torch.log1p(torch.exp(-2.0 * t))
 
 
+def selu_reim(z: C) -> C:
+    """SELU on re and im separately (keeps the GCNN's equivariance: the
+    map is elementwise)."""
+    return C(F.selu(z.re), F.selu(z.im))
+
+
 def selu_real(x: torch.Tensor) -> torch.Tensor:
     return F.selu(x)
 
 
-#: real activations by config name (the complex ones come with slice 2)
+#: activations by config name: (complex fn C -> C, real fn)
 ACTIVATIONS = {
-    "lncosh": lncosh_real,
-    "selu": selu_real,
+    "lncosh": (lncosh, lncosh_real),
+    "selu": (selu_reim, selu_real),
 }
 
 

@@ -8,17 +8,23 @@ batch. Proposals:
   * ``exchange`` — swap the spins of a random lattice bond. Aligned bonds
     propose the identity (always accepted, state unchanged); anti-aligned
     swaps flip both spins. Conserves total S^z.
+  * ``exchange_anti`` — swap a bond drawn uniformly from the anti-aligned
+    bonds only, with the Hastings correction n_anti(s)/n_anti(s') in the
+    acceptance rule; every proposal changes the state. Conserves S^z.
 
 Two sweep engines make the same decisions from the same noise: the plain
-torch loop (``backend='torch'``, any model) and the fused CUDA kernel
-(``backend='cuda'``, the plain real CNN; ``kernels/metropolis_sweep.py``).
+torch loop (``backend='torch'``, any model and move; its log psi may be the
+fused GCNN forward, ``kernels/gcnn_forward.py``) and the fused CUDA sweep
+kernel (``backend='cuda'``, the plain real CNN with flip or exchange moves;
+``kernels/metropolis_sweep.py``).
 
 Random draws: JAX's threefry streams are not reproduced. Every draw is a
 counter-based hash of (step key, proposal index t, global walker id), so a
 walker's stream does not depend on how walkers are split over devices or
 chunks — the contract of the reference sampler. Keys are 64-bit Python
 ints derived with :func:`fold_in`. Callers may inject ``noise=(choices,
-log_u)`` instead (the parity tests feed the JAX sampler's draws).
+log_u)`` instead (``(u_move, log_u)`` for exchange_anti; the parity tests
+feed the JAX sampler's draws).
 """
 from __future__ import annotations
 
@@ -72,11 +78,8 @@ def fold_in(key: int, data: int) -> int:
     return _mix64(key ^ _mix64(int(data) & _M64))
 
 
-def sweep_noise(step_key: int, walker_ids: torch.Tensor, n_props: int,
-                n_choices: int):
-    """(choices [n_props, M] int32, log_u [n_props, M] f32) on the device
-    of ``walker_ids``: at proposal t, walker w draws from a hash of
-    (fold_in(step_key, t), w)."""
+def _noise_hash(step_key: int, walker_ids: torch.Tensor, n_props: int):
+    """[n_props, M] int64 hash of (fold_in(step_key, t), walker id)."""
     dev = walker_ids.device
     keys = [fold_in(step_key, t) for t in range(n_props)]
     k_lo = torch.tensor([k & _M32 for k in keys], dtype=torch.int64,
@@ -84,10 +87,29 @@ def sweep_noise(step_key: int, walker_ids: torch.Tensor, n_props: int,
     k_hi = torch.tensor([k >> 32 for k in keys], dtype=torch.int64,
                         device=dev)[:, None]
     w = _mix32(walker_ids.to(torch.int64)[None, :] & _M32)
-    h = _mix32(_mix32(k_lo ^ w) ^ k_hi)
-    choices = (_mix32(h ^ 0x68E31DA4) % n_choices).to(torch.int32)
-    u = ((_mix32(h ^ 0xB5297A4D) >> 8).to(torch.float64) + 0.5) * 2.0 ** -24
-    return choices, torch.log(u).to(torch.float32)
+    return _mix32(_mix32(k_lo ^ w) ^ k_hi)
+
+
+def _uniform(h: torch.Tensor, salt: int) -> torch.Tensor:
+    """Uniform in (0, 1), float64, from 24 bits of a salted hash."""
+    return ((_mix32(h ^ salt) >> 8).to(torch.float64) + 0.5) * 2.0 ** -24
+
+
+def sweep_noise(step_key: int, walker_ids: torch.Tensor, n_props: int,
+                n_choices: Optional[int]):
+    """Noise for ``n_props`` proposals on the device of ``walker_ids``: at
+    proposal t, walker w draws from a hash of (fold_in(step_key, t), w).
+
+    Returns (choices [n_props, M] int32, log_u [n_props, M] f32) for flip
+    and exchange moves; with ``n_choices=None`` (exchange_anti) the first
+    entry is u_move [n_props, M] f32, a uniform in (0, 1) from the same
+    hash."""
+    h = _noise_hash(step_key, walker_ids, n_props)
+    if n_choices is None:
+        first = _uniform(h, 0x68E31DA4).to(torch.float32)
+    else:
+        first = (_mix32(h ^ 0x68E31DA4) % n_choices).to(torch.int32)
+    return first, torch.log(_uniform(h, 0xB5297A4D)).to(torch.float32)
 
 
 class WalkerState(NamedTuple):
@@ -126,12 +148,43 @@ def _propose(s: torch.Tensor, choice: torch.Tensor, move: str,
              bonds: Optional[torch.Tensor]) -> torch.Tensor:
     """Proposal s' for every walker. choice: [M] site (flip) or bond."""
     idx = torch.arange(s.shape[1], device=s.device)[None, :]
+    choice = choice.long()
     if move == "flip":
         return torch.where(idx == choice[:, None], -s, s)
     a = bonds[choice, 0][:, None]
     b = bonds[choice, 1][:, None]
     anti = s.gather(1, a) * s.gather(1, b) < 0
     return torch.where(((idx == a) | (idx == b)) & anti, -s, s)
+
+
+def _anti_mask(s: torch.Tensor, bonds: torch.Tensor) -> torch.Tensor:
+    """[M, n_bonds] bool: the bond is anti-aligned in the walker."""
+    return s[:, bonds[:, 0]] * s[:, bonds[:, 1]] < 0
+
+
+def _propose_exchange_anti(s: torch.Tensor, u: torch.Tensor,
+                           bonds: torch.Tensor):
+    """Swap one bond drawn uniformly (u [M] in [0, 1)) from the
+    anti-aligned bonds. Returns (s' [M, N], log_correction [M]) with the
+    Hastings term log[n_anti(s) / n_anti(s')]; when n_anti = 0 the proposal
+    is the identity and the term 0."""
+    anti = _anti_mask(s, bonds)                               # [M, B]
+    n_anti = anti.sum(dim=1)                                  # [M]
+    k_idx = torch.floor(u * torch.clamp(n_anti, min=1).to(torch.float32)
+                        ).to(torch.int64)
+    k_idx = torch.minimum(k_idx, torch.clamp(n_anti - 1, min=0))
+    ranks = torch.cumsum(anti.to(torch.int64), dim=1)         # 1-based
+    sel = anti & (ranks == (k_idx + 1)[:, None])
+    bond = torch.argmax(sel.to(torch.int8), dim=1)
+    idx = torch.arange(s.shape[1], device=s.device)[None, :]
+    on_bond = ((idx == bonds[bond, 0][:, None])
+               | (idx == bonds[bond, 1][:, None]))
+    valid = (n_anti > 0)[:, None]
+    s_prop = torch.where(on_bond & valid, -s, s)
+    n_anti_new = _anti_mask(s_prop, bonds).sum(dim=1)
+    log_corr = (torch.log(torch.clamp(n_anti, min=1).to(torch.float32))
+                - torch.log(torch.clamp(n_anti_new, min=1).to(torch.float32)))
+    return s_prop, torch.where(n_anti > 0, log_corr, 0.0)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -141,11 +194,12 @@ class MetropolisSampler:
     Args:
       log_psi_fn: ``(params, s [B, N]) -> C [B]`` log-amplitudes.
       n_sites: number of lattice sites.
-      move: 'flip' | 'exchange' ('exchange_anti' is a later slice).
+      move: 'flip' | 'exchange' | 'exchange_anti'.
       bonds: [n_bonds, 2] site pairs (required for exchange moves).
       sweep_size: proposals per sweep; defaults to n_sites.
-      backend: 'torch' (plain loop, every model) or 'cuda' (fused kernel;
-        plain real CNNs, checked by the builder).
+      backend: 'torch' (plain loop, every model and move) or 'cuda' (fused
+        sweep kernel; plain real CNNs with flip/exchange, checked by the
+        builder).
       lattice_shape: required for backend='cuda'.
     """
 
@@ -158,29 +212,33 @@ class MetropolisSampler:
     lattice_shape: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.move == "exchange_anti":
-            raise NotImplementedError(
-                "move 'exchange_anti' is not ported yet (ROADMAP.md)")
-        if self.move not in ("flip", "exchange"):
+        if self.move not in ("flip", "exchange", "exchange_anti"):
             raise ValueError(f"unknown move {self.move!r}")
-        if self.move == "exchange" and self.bonds is None:
+        if self.move.startswith("exchange") and self.bonds is None:
             raise ValueError("exchange moves require bonds")
         if self.backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.backend == "cuda" and self.lattice_shape is None:
             raise ValueError("backend='cuda' requires lattice_shape")
+        if self.backend == "cuda" and self.move == "exchange_anti":
+            raise ValueError("backend='cuda' (the sweep kernel) supports "
+                             "flip/exchange moves")
 
     @property
     def _sweep_size(self) -> int:
         return self.sweep_size or self.n_sites
 
     @property
-    def n_choices(self) -> int:
+    def n_choices(self) -> Optional[int]:
+        """Range of the integer draw; None for exchange_anti, whose draw is
+        a uniform."""
+        if self.move == "exchange_anti":
+            return None
         return self.n_sites if self.move == "flip" else len(self.bonds)
 
     def init_state(self, params, key: int, n_walkers: int,
                    device="cpu") -> WalkerState:
-        sector = "sz0" if self.move == "exchange" else None
+        sector = "sz0" if self.move.startswith("exchange") else None
         s = init_walkers(key, n_walkers, self.n_sites, sector=sector,
                          device=device)
         zeros = torch.zeros(n_walkers, dtype=torch.int32, device=device)
@@ -196,10 +254,16 @@ class MetropolisSampler:
     def _proposal_step(self, params, state: WalkerState,
                        choice: torch.Tensor, log_u: torch.Tensor,
                        bonds: Optional[torch.Tensor]) -> WalkerState:
-        """One Metropolis proposal for every walker from one noise row."""
-        s_new = _propose(state.s, choice.long(), self.move, bonds)
+        """One Metropolis proposal for every walker from one noise row
+        (choice: the site or bond, or u_move for exchange_anti)."""
+        log_corr = 0.0
+        if self.move == "exchange_anti":
+            s_new, log_corr = _propose_exchange_anti(state.s, choice, bonds)
+        else:
+            s_new = _propose(state.s, choice, self.move, bonds)
         log_psi_new = self.log_psi_fn(params, s_new)
-        accept = log_u < 2.0 * (log_psi_new.re - state.log_psi.re)
+        # accept with prob min(1, q(s'->s)/q(s->s') |psi'/psi|^2)
+        accept = log_u < 2.0 * (log_psi_new.re - state.log_psi.re) + log_corr
         return WalkerState(
             s=torch.where(accept[:, None], s_new, state.s),
             log_psi=C(torch.where(accept, log_psi_new.re, state.log_psi.re),
@@ -214,8 +278,8 @@ class MetropolisSampler:
         """Advance every walker by ``n_sweeps`` sweeps.
 
         walker_ids: [M] *global* walker indices (the streams are keyed by
-        them). ``noise=(choices, log_u)`` ([n_props, M] each) replaces the
-        generated draws.
+        them). ``noise=(choices, log_u)`` ([n_props, M] each; choices are
+        u_move for exchange_anti) replaces the generated draws.
         """
         n_props = n_sweeps * self._sweep_size
         if noise is None:

@@ -1,5 +1,5 @@
 """Stochastic reconfiguration (natural gradient), port of ``qmcnn_tpu/sr.py``
-(solvers 'pcg' and 'dense'; 'cg' and 'minsr' are later slices).
+(solvers 'pcg', 'dense' and single-device 'minsr'; 'cg' is a later slice).
 
 Solves (S + lambda I) delta = F where
   S_kk' = Re[<O_k* O_k'> - <O_k*><O_k'>],   O_k = d log psi / d theta_k,
@@ -12,6 +12,11 @@ for real parameters, with F the covariance gradient from
     Jacobi-preconditioned CG whose matvec is two [M, P] matmuls.
   * ``solver='dense'`` — builds S [P, P] and solves by Cholesky, with an
     eigh fallback when f32 Cholesky fails.
+  * ``solver='minsr'`` — the sample-space form for P >> M: with the
+    stacked centered scores O~ = [O_re; O_im] [2M, P] (real models drop
+    O_im) and the centered local energies eps, the push-through identity
+    gives delta = O~^T (O~ O~^T / M + shift)^-1 eps / M, the same delta as
+    'dense' from a [2M, 2M] Cholesky (Rende et al., arXiv:2310.05715).
 
 Flat parameter order equals ``jax.flatten_util.ravel_pytree``'s: keys
 sorted (``bias`` before ``kernel``, ``RealConv_10`` before ``RealConv_2``).
@@ -25,6 +30,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad, vmap
+
+from qmcnn_tpu_torch.models.cnn import true_f32
 
 Params = Dict[str, torch.Tensor]
 
@@ -158,6 +165,31 @@ def resolve_solver(solver: str, m_total: int, n_params: int,
     return "minsr" if parts * m_total <= n_params else "pcg"
 
 
+def _minsr_rows(op: JacobianSOperator, e_loc) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Stacked (score rows, centered residual) for the sample-space solve;
+    real models drop the identically-zero im rows (Gram [M, M])."""
+    if op.oc_im is None:
+        return op.oc_re, e_loc.re - e_loc.re.mean()
+    return (torch.cat([op.oc_re, op.oc_im], dim=0),
+            torch.cat([e_loc.re - e_loc.re.mean(),
+                       e_loc.im - e_loc.im.mean()]))
+
+
+def _minsr_delta(o: torch.Tensor, eps: torch.Tensor, shift,
+                 m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(delta [P], S delta [P]) with delta = O~^T (O~ O~^T / M + shift)^-1
+    eps / M, on one device. The Gram matmul runs in full float32."""
+    with true_f32():
+        gram = (o @ o.T) / m
+        gram = gram + shift * torch.eye(o.shape[0], dtype=o.dtype,
+                                        device=o.device)
+        y = chol_or_eigh_solve(gram, eps, shift)
+        delta = (y @ o) / m
+        s_delta = (o.T @ (o @ delta)) / m
+    return delta, s_delta
+
+
 def chol_or_eigh_solve(gram: torch.Tensor, rhs: torch.Tensor,
                        shift) -> torch.Tensor:
     """Solve (gram) y = rhs for a shifted-PSD gram, NaN-proof: Cholesky
@@ -181,8 +213,9 @@ class SR:
     """SR gradient transform plugged into the VMC step.
 
     Args:
-      solver: 'pcg' (Jacobi-preconditioned, materialized Jacobian) or
-        'dense' (Cholesky; small nets and the test oracle).
+      solver: 'pcg' (Jacobi-preconditioned, materialized Jacobian),
+        'dense' (Cholesky; small nets and the test oracle) or 'minsr'
+        (sample-space Cholesky; needs ``e_loc``).
       diag_shift0 / diag_shift_decay / diag_shift_min: lambda schedule.
       proportional_shift: shift = lambda * mean(diag(S)).
       cg_tol, cg_maxiter: pcg stopping criteria.
@@ -202,11 +235,11 @@ class SR:
     real_log_psi: bool = False
 
     def __post_init__(self):
-        if self.solver in ("cg", "minsr"):
+        if self.solver == "cg":
             raise NotImplementedError(
-                f"sr.solver={self.solver!r} is not ported yet (ROADMAP.md); "
-                "use 'pcg' or 'dense'")
-        if self.solver not in ("pcg", "dense"):
+                "sr.solver='cg' is not ported yet (ROADMAP.md); use 'pcg', "
+                "'dense' or 'minsr'")
+        if self.solver not in ("pcg", "dense", "minsr"):
             raise ValueError(f"unknown solver {self.solver!r}")
 
     def diag_shift(self, step: int) -> float:
@@ -215,7 +248,12 @@ class SR:
 
     def solve(self, log_psi_fn, params: Params, s: torch.Tensor,
               grads: Params, step: int, e_loc=None):
-        """Returns (natural-gradient params dict, iters, residual)."""
+        """Returns (natural-gradient params dict, iters, residual).
+        ``e_loc`` (a C pair) is required by 'minsr', which works on the raw
+        residuals; its iters are 0 and its residual is the parameter-space
+        ||(S + shift) delta - F|| / ||F||."""
+        if self.solver == "minsr" and e_loc is None:
+            raise ValueError("solver='minsr' needs e_loc")
         shift = torch.tensor(self.diag_shift(step), dtype=torch.float32,
                              device=s.device)
         op = make_jacobian_s(log_psi_fn, params, s,
@@ -224,6 +262,12 @@ class SR:
         if self.proportional_shift:
             shift = shift * torch.clamp(op.diag_s.mean(), min=1e-12)
         b, unravel = ravel(grads)
+        if self.solver == "minsr":
+            o, eps = _minsr_rows(op, e_loc)
+            delta, s_delta = _minsr_delta(o, eps, shift, op.m_local)
+            resid = torch.linalg.norm(s_delta + shift * delta - b) / \
+                torch.clamp(torch.linalg.norm(b), min=1e-30)
+            return unravel(delta), 0, resid
         if self.solver == "pcg":
             inv_diag = 1.0 / (op.diag_s + shift)
             r = pcg_flat(lambda v: op.matvec(v, shift), b, inv_diag,

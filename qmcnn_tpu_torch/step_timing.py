@@ -1,0 +1,100 @@
+"""Per-phase time of training steps on a CUDA device:
+
+  python -m qmcnn_tpu_torch.step_timing --config configs/j1j2_8x8_gcnn.yaml \
+      [--override section.key=value ...] [--therm 20] [--steps 3]
+
+Builds the config on ``cuda``, thermalizes ``--therm`` sweeps from the
+seeded walkers and times ``--steps`` training steps after one warm-up step,
+phase by phase: sample (refresh and sweeps), E_loc, gradient (the
+surrogate-loss backward, E_loc excluded), SR and update. Each phase ends
+with a device synchronize and is read on the host clock. Prints one JSON
+line: the config name, the card, the mean ms per step of each phase and
+their total.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from qmcnn_tpu_torch import configs as cfglib
+from qmcnn_tpu_torch.builder import build
+from qmcnn_tpu_torch.ops.local_energy import local_energy
+from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
+from qmcnn_tpu_torch.vmc import energy_and_grad
+
+PHASES = ("sample", "e_loc", "gradient", "sr", "update")
+
+
+def step_split(vmc, state, n_steps: int = 3) -> dict:
+    """Mean ms per step of each phase over ``n_steps`` steps after one
+    warm-up step, starting from ``state`` (params, walkers, step)."""
+    params, walkers = state.params, state.walkers
+    opt_state = vmc.optimizer.init(params)
+    ids = torch.arange(walkers.s.shape[0], device=walkers.s.device)
+    totals = dict.fromkeys(PHASES, 0.0)
+
+    def lap(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for i in range(n_steps + 1):
+        t0 = time.perf_counter()
+        w = vmc.sampler.refresh(params, vmc.sampler.reset_counters(walkers))
+        w = vmc.sampler.sample(params, w, fold_in(prng_key(7), i), ids,
+                               vmc.n_sweeps)
+        t_sample = lap(t0)
+        t0 = time.perf_counter()
+        local_energy(vmc.eval_log_psi_fn, params, vmc.ham, w.s, w.log_psi,
+                     chunk_size=vmc.chunk_size)
+        t_eloc = lap(t0)
+        t0 = time.perf_counter()
+        _, _, grads, e_loc = energy_and_grad(
+            vmc.log_psi_fn, vmc.ham, params, w, chunk_size=vmc.chunk_size,
+            eval_log_psi_fn=vmc.eval_log_psi_fn)
+        t_grad = lap(t0) - t_eloc
+        t0 = time.perf_counter()
+        if vmc.sr is not None:
+            grads, _, _ = vmc.sr.solve(vmc.log_psi_fn, params, w.s, grads,
+                                       state.step, e_loc=e_loc)
+        t_sr = lap(t0)
+        t0 = time.perf_counter()
+        upd, opt_state = vmc.optimizer.update(grads, opt_state)
+        params = {k: params[k] + upd[k] for k in params}
+        t_upd = lap(t0)
+        walkers = w
+        if i:  # the first step warms up
+            for k, v in zip(PHASES, (t_sample, t_eloc, t_grad, t_sr, t_upd)):
+                totals[k] += v / n_steps
+    return totals
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", required=True, help="YAML config path")
+    p.add_argument("--override", action="append", default=[],
+                   help="section.key=value (repeatable)")
+    p.add_argument("--therm", type=int, default=20,
+                   help="thermalization sweeps before the timed steps")
+    p.add_argument("--steps", type=int, default=3, help="timed steps")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("step_timing needs a CUDA device")
+    cfg = cfglib.load(args.config, tuple(args.override))
+    vmc, params, _ = build(cfg, device="cuda")
+    m = cfg.sampler.n_walkers
+    key = prng_key(cfg.run.seed + 100)
+    ids = torch.arange(m, device="cuda")
+    state = vmc.init_state(fold_in(key, 0), m, params, device="cuda")
+    state = vmc.thermalize(state, fold_in(key, 1), ids, args.therm)
+    ms = step_split(vmc, state, args.steps)
+    print(json.dumps({"config": cfg.name,
+                      "device": torch.cuda.get_device_name(0),
+                      "ms": ms, "total_ms": sum(ms.values())}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

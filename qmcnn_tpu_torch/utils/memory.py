@@ -9,8 +9,11 @@ device, or the host's physical memory for a CPU run.
 
 Model: peak memory of a batched conv forward ~ batch x (live-layer window
 of activations), ~2 layers for a forward-only pass and ~all layers for a
-backward pass (saved activations). The window constants are the JAX
-package's; they have not been recalibrated against PyTorch's allocator.
+backward pass (saved activations); a GCNN's width is G-expanded, complex
+stacks count two parts and a wider window, the spin-flip projection doubles
+the batch, and the per-sample gradients of the expanded group kernels add
+to the backward pass. The constants are the JAX package's; they have not
+been recalibrated against PyTorch's allocator.
 """
 from __future__ import annotations
 
@@ -39,24 +42,52 @@ class ModelFootprint:
     """Per-configuration activation cost of one log-psi forward."""
 
     n_sites: int
-    max_width: int
+    max_width: int        # widest layer's channel count (G-expanded: gcnn)
     n_layers: int
+    n_parts: int = 1      # 2 when activations are (re, im) pairs
+    sym_batch: int = 1    # internal batch blow-up (spin-flip wrapper: 2)
+    fwd_window: float = _FWD_WINDOW   # live layer-buffers per part
+    bwd_param_bytes: float = 0.0      # per-sample expanded-kernel grads
 
     def fwd_bytes(self) -> float:
         """Transient bytes per config of a forward-only pass."""
-        return _FWD_WINDOW * self.n_sites * self.max_width * 4.0
+        return (self.fwd_window * self.n_sites * self.max_width
+                * self.n_parts * self.sym_batch * 4.0)
 
     def bwd_bytes(self) -> float:
-        """Transient bytes per config of a value+grad pass."""
-        return self.n_layers * self.n_sites * self.max_width * 4.0 * 2.0
+        """Transient bytes per config of a value+grad pass: every layer's
+        saved activations, plus (group convs) the per-sample gradient of
+        every layer's G-expanded kernel."""
+        return (self.n_layers * self.n_sites * self.max_width
+                * self.n_parts * self.sym_batch * 4.0 * 2.0
+                + self.bwd_param_bytes)
 
 
 def model_footprint(cfg, n_sites: int) -> ModelFootprint:
-    """Footprint of the real CNN ansatz (the only model this port builds;
-    the JAX version also sizes complex, symmetrized and other families)."""
-    channels = tuple(cfg.model.channels) or (1,)
-    return ModelFootprint(n_sites=n_sites, max_width=max(channels),
-                          n_layers=len(channels))
+    """Footprint of the CNN and the square-lattice GCNN (the models this
+    port builds), with the JAX package's constants."""
+    m = cfg.model
+    channels = tuple(m.channels) or (1,)
+    gcnn = m.kind == "gcnn"
+    n_parts = 2 if m.complex_params else 1
+    bwd_param = 0.0
+    if gcnn:
+        # per-sample expanded-kernel gradients: sum over layers of
+        # G_in * G * k^2 * Cin * Cout floats (the lift layer has G_in = 1);
+        # 1.5: liveness beyond one buffer
+        taps = int(m.kernel_size or 3) ** 2
+        floats, cin = 0.0, 1
+        for cout in channels:
+            floats += (1 if cin == 1 else 8) * 8 * taps * cin * cout
+            cin = cout
+        bwd_param = floats * 4.0 * n_parts * 1.5
+    return ModelFootprint(
+        n_sites=n_sites, max_width=max(channels) * (8 if gcnn else 1),
+        n_layers=len(channels), n_parts=n_parts,
+        sym_batch=2 if m.spin_flip_sector else 1,
+        # complex conv stacks keep four real conv outputs live per layer
+        fwd_window=4.0 if m.complex_params else _FWD_WINDOW,
+        bwd_param_bytes=bwd_param)
 
 
 def _largest_pow2_divisor_leq(m: int, target: float) -> int:
@@ -80,6 +111,8 @@ def _persistent_bytes(cfg, n_params: Optional[int], m_local: int) -> float:
     parts = 1 if model_log_psi_is_real(cfg) else 2
     jac = float(m_local) * n_params * 4.0 * parts
     gram = 0.0
+    if cfg.sr.solver == "minsr":
+        gram = (parts * m_local) ** 2 * 4.0 * 3.0  # gram + Cholesky workspace
     if cfg.sr.solver == "dense":
         gram = float(n_params) ** 2 * 4.0 * 3.0
     return pad + jac + gram

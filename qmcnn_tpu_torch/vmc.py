@@ -10,6 +10,13 @@ O_k = d log psi / d theta_k and dE = E_loc - <E>, the gradient of the
 surrogate loss L = mean(Re[conj(dE) * log psi]). The true energy
 derivative is 2F; the factor is absorbed into the learning rate, as in the
 JAX package, so config learning rates carry over unchanged.
+
+Two log-amplitude functions: ``log_psi_fn`` is the differentiable model
+(the surrogate loss and the SR Jacobian), ``eval_log_psi_fn`` the
+evaluation-only forward that the sampler and the local energy use (the
+fused GCNN kernel where the builder finds it eligible, else the model
+itself). The stored walker log psi and the E_loc ratios both come from the
+latter, so they are consistent.
 """
 from __future__ import annotations
 
@@ -50,10 +57,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
-                    chunk_size: Optional[int] = None):
-    """(e_mean C, e_var, grads dict, e_loc C[M]) from the walkers."""
-    e_loc = local_energy(log_psi_fn, params, ham, walkers.s, walkers.log_psi,
-                         chunk_size=chunk_size)
+                    chunk_size: Optional[int] = None,
+                    eval_log_psi_fn: Optional[Callable[..., C]] = None):
+    """(e_mean C, e_var, grads dict, e_loc C[M]) from the walkers. E_loc
+    uses ``eval_log_psi_fn`` (None: the model, ``log_psi_fn``), the
+    gradient ``log_psi_fn``."""
+    if eval_log_psi_fn is None:
+        eval_log_psi_fn = log_psi_fn
+    e_loc = local_energy(eval_log_psi_fn, params, ham, walkers.s,
+                         walkers.log_psi, chunk_size=chunk_size)
     e_mean = e_loc.mean()
     e_var = (e_loc - e_mean).abs2().mean()
     centered = e_loc - e_mean
@@ -84,6 +96,12 @@ class VMC:
     n_sweeps: int = 1
     sr: Optional[Any] = None
     chunk_size: Optional[int] = None
+    #: evaluation-only forward of the sampler and E_loc (None: log_psi_fn)
+    eval_log_psi_fn: Optional[Callable[..., C]] = None
+
+    def __post_init__(self):
+        if self.eval_log_psi_fn is None:
+            object.__setattr__(self, "eval_log_psi_fn", self.log_psi_fn)
 
     def init_state(self, key: int, n_walkers: int, params,
                    device="cpu") -> TrainState:
@@ -102,7 +120,7 @@ class VMC:
                                       n_sweeps=self.n_sweeps, noise=noise)
         e_mean, e_var, grads, e_loc = energy_and_grad(
             self.log_psi_fn, self.ham, params, walkers,
-            chunk_size=self.chunk_size)
+            chunk_size=self.chunk_size, eval_log_psi_fn=self.eval_log_psi_fn)
         sr_iters = 0
         sr_residual = torch.zeros((), device=walkers.s.device)
         if self.sr is not None:

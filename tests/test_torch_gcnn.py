@@ -1,0 +1,396 @@
+"""PyTorch port, slice 2: the square-lattice GCNN (models/gcnn.py) and the
+fused GCNN forward's plain version (kernels/gcnn_forward.py), each against
+the JAX package on equal inputs.
+
+The JAX Pallas kernel runs as tests/test_gcnn_pallas.py runs it
+(``interpret=True``), on the same 4x4 cases and with its tolerances:
+1e-4 (float32; the fused forward takes the direct 4-product complex form
+where the model takes Karatsuba), 1e-3 on the deep residual stack (rounding
+compounds with depth), and sign-changing characters compared in normalized
+amplitudes (exact nodes make log psi unbounded there)."""
+import dataclasses
+import os
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qmcnn_tpu.kernels import gcnn_pallas as jk
+from qmcnn_tpu.models import gcnn as jg
+from qmcnn_tpu.models.cnn import log_psi_apply as j_apply
+from qmcnn_tpu.utils.transfer import _flatten
+from qmcnn_tpu_torch import builder as tb
+from qmcnn_tpu_torch import configs as tcfg
+from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+from qmcnn_tpu_torch.models import gcnn as tg
+from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
+from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                            params_from_jax, transfer_params)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GCNN_CFG = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")
+FIXTURE = os.path.join(ROOT, "runs", "j1j2_8x8_d12_fix.csv.params.npz")
+H = W = 4
+N = H * W
+M = 24
+
+
+def _spins(seed, m=M, n=N):
+    rng = np.random.default_rng(seed)
+    return (2.0 * rng.integers(0, 2, (m, n)) - 1.0).astype(np.float32)
+
+
+def _build(channels=(3, 3), complex_params=True, activation="lncosh",
+           residual=False, character="A1", spin_flip=0, param_scale=0.3):
+    """JAX and port models with equal (bias-perturbed) parameters."""
+    kw = dict(lattice_shape=(H, W), channels=channels, kernel_size=3,
+              complex_params=complex_params, param_scale=param_scale,
+              character=character, activation=activation, residual=residual)
+    j_inner = jg.LogPsiGCNN(**kw)
+    jm = (jg.SpinFlipSymmetrized(inner=j_inner, sector=spin_flip)
+          if spin_flip else j_inner)
+    v = jm.init(jax.random.key(0), jnp.ones((1, N), jnp.float32))
+    # zero biases and an even lncosh make the inner net even under s -> -s
+    # (the sector -1 projection would vanish): perturb the biases
+    v = jax.tree_util.tree_map_with_path(
+        lambda path, x: x + 0.1 * jax.random.normal(
+            jax.random.key(zlib.crc32(str(path).encode())), x.shape)
+        if "bias" in str(path) else x, v)
+    t_inner = tg.LogPsiGCNN(**kw)
+    tm = tg.SpinFlipSymmetrized(t_inner, spin_flip) if spin_flip else t_inner
+    flat = {k: np.asarray(x) for k, x in _flatten(v).items()}
+    return dict(jm=jm, v=v, tm=tm, p=params_from_jax(flat), kw=kw,
+                spin_flip=spin_flip)
+
+
+CASES = [
+    dict(),
+    dict(activation="selu"),
+    dict(complex_params=False),
+    dict(complex_params=False, activation="selu"),
+    dict(channels=(2, 2, 2, 2), activation="selu", residual=True, tol=1e-3),
+    dict(character="B1", param_scale=0.1, amp=True),
+    dict(activation="selu", spin_flip=1, tol=5e-4),
+    dict(character="B2", spin_flip=-1, param_scale=0.1, amp=True),
+]
+IDS = ["-".join(f"{k}={v}" for k, v in kw.items()) or "default"
+       for kw in CASES]
+
+
+def _norm_amp(re, im):
+    re, im = np.asarray(re), np.asarray(im)
+    mag = np.exp(re - np.max(re[np.isfinite(re)]))
+    return (np.where(mag > 0, mag * np.cos(im), 0.0),
+            np.where(mag > 0, mag * np.sin(im), 0.0))
+
+
+def _assert_log_psi_close(got, want, tol, amp):
+    if amp:
+        for g, w in zip(_norm_amp(got.re, got.im),
+                        _norm_amp(want.re, want.im)):
+            np.testing.assert_allclose(g, w, atol=1e-3)
+        return
+    np.testing.assert_allclose(np.asarray(got.re), np.asarray(want.re),
+                               rtol=tol, atol=tol)
+    dphi = np.asarray(got.im) - np.asarray(want.im)
+    dphi = (dphi + np.pi) % (2 * np.pi) - np.pi
+    np.testing.assert_allclose(dphi, 0.0, atol=tol)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_c4v_tables_equal_jax(k):
+    for a, b in zip(tg.c4v_tables(k), jg.c4v_tables(k)):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for name in a:
+                np.testing.assert_array_equal(a[name], b[name])
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_kernel_expansions_equal_jax(k):
+    _, _, elem_idx, tap_perm, _, _ = tg.c4v_tables(k)
+    rng = np.random.default_rng(k)
+    lift = rng.normal(size=(k, k, 1, 3)).astype(np.float32)
+    group = rng.normal(size=(8, k, k, 3, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tg._lift_kernel(torch.from_numpy(lift), tap_perm, k).numpy(),
+        np.asarray(jg._lift_kernel(jnp.asarray(lift), tap_perm, k)))
+    np.testing.assert_array_equal(
+        tg._group_kernel(torch.from_numpy(group), elem_idx, tap_perm,
+                         k).numpy(),
+        np.asarray(jg._group_kernel(jnp.asarray(group), elem_idx, tap_perm,
+                                    k)))
+
+
+@pytest.mark.parametrize("kw", CASES, ids=IDS)
+def test_model_matches_jax(kw):
+    kw = dict(kw)
+    tol, amp = kw.pop("tol", 1e-4), kw.pop("amp", False)
+    c = _build(**kw)
+    s = _spins(1)
+    want = j_apply(c["jm"], c["v"], s)
+    got = t_apply(c["tm"], c["p"], torch.from_numpy(s))
+    _assert_log_psi_close(got, want, tol, amp)
+    assert sorted(c["p"]) == sorted(c["tm"].init(0))
+
+
+@pytest.mark.parametrize("kw", CASES, ids=IDS)
+def test_fused_plain_version_matches_jax_pallas(kw):
+    """gcnn_group_sums (CPU: its plain version) against JAX _group_sums,
+    and FusedLogPsi against make_fused_log_psi, both interpreted."""
+    kw = dict(kw)
+    tol, amp = kw.pop("tol", 1e-4), kw.pop("amp", False)
+    c = _build(**kw)
+    m = c["kw"]
+    s = _spins(2)
+    fast = jk.make_fused_log_psi(
+        lattice_shape=(H, W), channels=m["channels"], kernel_size=3,
+        complex_params=m["complex_params"], character=m["character"],
+        activation=m["activation"], residual=m["residual"],
+        spin_flip_sector=c["spin_flip"], block=8, interpret=True)
+    args = dict(lattice_shape=(H, W), channels=m["channels"], kernel_size=3,
+                complex_params=m["complex_params"], character=m["character"],
+                activation=m["activation"], residual=m["residual"],
+                spin_flip_sector=c["spin_flip"])
+    before = k2.gcnn_group_sums.launches
+    got = k2.FusedLogPsi(**args)(c["p"], torch.from_numpy(s))
+    assert k2.gcnn_group_sums.launches == before  # CPU: the plain version
+    _assert_log_psi_close(got, fast(c["v"], s), tol, amp)
+    # the readout sums themselves, on the evaluated (spin-flip doubled) batch
+    inner_v = c["v"]["params"]["inner"] if c["spin_flip"] else c["v"][
+        "params"]
+    lift, layers, biases = jk.expand_gcnn_params(
+        {"params": inner_v}, 3, m["complex_params"])
+    prefix = "params/inner/" if c["spin_flip"] else "params/"
+    ws = k2.expand_gcnn_params(c["p"], 3, m["complex_params"], prefix)
+    np.testing.assert_array_equal(ws.lift_re.numpy(), np.asarray(lift[0]))
+    for i, (w_re, w_im) in enumerate(layers):
+        np.testing.assert_array_equal(ws.w_re[i].numpy(), np.asarray(w_re))
+        if m["complex_params"]:
+            np.testing.assert_array_equal(ws.w_im[i].numpy(),
+                                          np.asarray(w_im))
+    np.testing.assert_array_equal(ws.b_re.numpy(),
+                                  np.stack([np.asarray(b) for b, _ in biases]))
+    zeros = lambda a: jnp.zeros_like(a)  # noqa: E731
+    w_stack = jnp.stack([a for a, _ in layers])
+    sg_j = jk._group_sums(
+        s, lift[0], lift[1] if m["complex_params"] else zeros(lift[0]),
+        w_stack, jnp.stack([b for _, b in layers]) if m["complex_params"]
+        else zeros(w_stack), jnp.stack([a for a, _ in biases]),
+        jnp.stack([b for _, b in biases]) if m["complex_params"]
+        else jnp.zeros((len(biases), lift[0].shape[-1])),
+        lattice_shape=(H, W), channels=m["channels"], kernel_size=3,
+        complex_params=m["complex_params"], activation=m["activation"],
+        residual=m["residual"], block=8, interpret=True,
+        dtype_name="float32")
+    sg_t = k2.gcnn_group_sums(torch.from_numpy(s), ws, lattice_shape=(H, W),
+                              channels=m["channels"], kernel_size=3,
+                              activation=m["activation"],
+                              residual=m["residual"])
+    for a, b in ((sg_t.re, sg_j.re), (sg_t.im, sg_j.im)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=tol,
+                                   atol=tol * 10)
+
+
+def test_fixture_matches_jax():
+    """The committed depth-12 snapshot (C = 10 x 12, selu, residual, A1,
+    spin-flip +1) in float32: 8 configurations within rtol 1e-4 (float32,
+    another summation order over a 12-layer stack)."""
+    flat = load_checkpoint_params(FIXTURE)
+    kw = dict(lattice_shape=(8, 8), channels=(10,) * 12, kernel_size=3,
+              complex_params=True, param_scale=1.0, init_mode="fan_in",
+              activation="selu", residual=True, character="A1")
+    jm = jg.SpinFlipSymmetrized(inner=jg.LogPsiGCNN(**kw), sector=1)
+    tm = tg.SpinFlipSymmetrized(tg.LogPsiGCNN(**kw), 1)
+    nested = {}
+    for key, val in flat.items():
+        d = nested
+        *head, last = key.split("/")
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = jnp.asarray(val)
+    s = _spins(3, m=8, n=64)
+    s[:, :32] = np.abs(s[:, :32])
+    s[:, 32:] = -np.abs(s[:, 32:])  # the S^z = 0 sector
+    rng = np.random.default_rng(4)
+    s = np.stack([rng.permutation(row) for row in s])
+    want = j_apply(jm, nested, s)
+    got = t_apply(tm, params_from_jax(flat), torch.from_numpy(s))
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
+                               rtol=1e-4)
+    fused = k2.FusedLogPsi(spin_flip_sector=1, **{
+        k: v for k, v in kw.items()
+        if k not in ("param_scale", "init_mode")})(params_from_jax(flat),
+                                                   torch.from_numpy(s))
+    np.testing.assert_allclose(fused.re.numpy(), np.asarray(want.re),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("character", ["A1", "A2", "B1", "B2"])
+def test_space_group_characters(character):
+    """psi(g.s) = chi(g) psi(s) for every C4v element, and translation
+    invariance, in amplitudes normalized to the batch (sign-changing
+    characters have exact nodes where log psi is unbounded). atol 1e-4:
+    float32 rounding of the eight exp(S_g) terms that cancel near a node."""
+    c = _build(character=character, param_scale=0.1)
+    chars = tg.c4v_tables(3)[4][character]
+    s = torch.from_numpy(_spins(5, m=6))
+    base = t_apply(c["tm"], c["p"], s)
+    scale = float(base.re.max())
+
+    def amp(lp):
+        mag = np.exp(lp.re.numpy() - scale)
+        return mag * np.exp(1j * lp.im.numpy())
+
+    grid = s.reshape(-1, H, W)
+    for g, (r, m) in enumerate(tg.c4v_tables(3)[5]):
+        moved = t_apply(c["tm"], c["p"],
+                        tg.grid_transform(grid, int(r), int(m)).reshape(-1, N))
+        np.testing.assert_allclose(amp(moved), chars[g] * amp(base),
+                                   atol=1e-4)
+    shifted = t_apply(c["tm"], c["p"],
+                      torch.roll(grid, (1, 2), (1, 2)).reshape(-1, N))
+    np.testing.assert_allclose(amp(shifted), amp(base), atol=1e-4)
+
+
+def test_fused_forward_rejects():
+    c = _build()
+    args = dict(lattice_shape=(H, W), channels=(3, 3), kernel_size=3,
+                complex_params=True)
+    s = torch.from_numpy(_spins(6, m=4))
+    with pytest.raises(ValueError, match="equal channel"):
+        k2.FusedLogPsi(**{**args, "channels": (2, 4)})(c["p"], s)
+    with pytest.raises(ValueError, match="spin-flip sector"):
+        k2.FusedLogPsi(**args, spin_flip_sector=2)
+    with pytest.raises(ValueError, match="bare GCNN"):  # a prior's leaf
+        k2.FusedLogPsi(**args)({**c["p"], "params/PhaseBias_0/theta": s[0]},
+                                s)
+    ws = k2.expand_gcnn_params(c["p"], 3, True)
+    with pytest.raises(ValueError, match="2D lattice"):
+        k2.gcnn_group_sums(s, ws, lattice_shape=(2, 2, 4), channels=(3, 3),
+                           kernel_size=3)
+    with pytest.raises(ValueError):  # neither a CPU nor a CUDA tensor
+        k2.gcnn_group_sums(s.to("meta"), ws, lattice_shape=(H, W),
+                           channels=(3, 3), kernel_size=3)
+
+
+def test_fused_forward_reuses_expanded_weights():
+    """The expanded weights are gathered once per parameter state: reused
+    for the same tensors (in any dict), gathered again after an in-place
+    change or for new tensors, and the result stays the model's."""
+    c = _build()
+    f = k2.FusedLogPsi(lattice_shape=(H, W), channels=(3, 3), kernel_size=3,
+                       complex_params=True)
+    s = torch.from_numpy(_spins(7, m=6))
+    p = {k: v.clone() for k, v in c["p"].items()}
+    first = f.weights(p)
+    assert f.weights(p) is first and f.weights(dict(p)) is first
+    key = "params/GroupConv_1/kernel_im"
+    p[key].add_(0.05)  # in place: the version counter moves
+    moved = f.weights(p)
+    assert moved is not first
+    np.testing.assert_array_equal(
+        moved.w_im.numpy(), k2.expand_gcnn_params(p, 3, True).w_im.numpy())
+    fresh = {**p, key: p[key] * 2.0}  # a new tensor under the same key
+    assert f.weights(fresh) is not moved
+    for params in (p, fresh):
+        got, want = f(params, s), t_apply(c["tm"], params, s)
+        np.testing.assert_allclose(got.re.numpy(), want.re.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def _gcnn_cfg(*over):
+    return tcfg.load(GCNN_CFG, over)
+
+
+def test_gcnn_eligibility():
+    cfg = _gcnn_cfg()
+    assert tb.gcnn_kernel_eligible(cfg) and not tb.kernel_eligible(cfg)
+    assert tb.uses_fused_gcnn_forward(cfg, "cuda")
+    assert not tb.uses_fused_gcnn_forward(cfg, "cpu")
+    # the sweep engine is the plain proposal loop either way
+    assert tb.resolve_sampler_backend(cfg, "cuda") == "torch"
+    assert tb.resolve_sampler_backend(cfg, "cpu") == "torch"
+    xla = _gcnn_cfg("sampler.backend=xla")
+    assert tb.resolve_sampler_backend(xla, "cuda") == "torch"
+    assert not tb.uses_fused_gcnn_forward(xla, "cuda")
+    with pytest.raises(ValueError):
+        tb.resolve_sampler_backend(_gcnn_cfg("sampler.backend=pallas"),
+                                   "cuda")
+    for over in (("model.channels=[8,4]",), ("model.compute_dtype=bfloat16",),
+                 ("model.jastrow=true",), ("model.phase_bias=marshall",),
+                 ("lattice.geometry=triangular",)):
+        cfg = _gcnn_cfg(*over)
+        assert not tb.gcnn_kernel_eligible(cfg), over
+        assert not tb.uses_fused_gcnn_forward(cfg, "cuda"), over
+        assert tb.resolve_sampler_backend(cfg, "cuda") == "torch"
+    for over in (("model.compute_dtype=bfloat16",), ("model.jastrow=true",),
+                 ("lattice.geometry=triangular",)):
+        cfg = _gcnn_cfg(*over)
+        with pytest.raises(NotImplementedError):
+            tb.build_model(cfg, tb.build_lattice(cfg))
+    deep = tcfg.load(os.path.join(ROOT, "configs", "j1j2_8x8_gcnn_deep.yaml"))
+    assert tb.gcnn_kernel_eligible(deep)
+
+
+@pytest.mark.parametrize("name,fits", [
+    ("j1j2_8x8_gcnn", True), ("j1j2_8x8_gcnn_deep", True),
+    ("j1j2_8x8_gcnn_res8", True), ("j1j2_10x10_gcnn", True),
+    ("j1j2_10x10_gcnn_deep", True), ("j1j2_12x12_gcnn_deep", True),
+    ("j1j2_16x16_gcnn_deep", False)])
+def test_gcnn_eligibility_needs_shared_memory(name, fits):
+    """A config whose block of activations exceeds Hopper's shared memory
+    (16x16 at W = 80: 337,920 bytes) is not eligible, so 'auto' keeps the
+    plain model on CUDA instead of sending it to a kernel that raises."""
+    cfg = tcfg.load(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    m = cfg.model
+    smem = k2.smem_bytes(int(np.prod(cfg.lattice.shape)), 8 * m.channels[0],
+                         9, m.complex_params)
+    assert (smem <= k2.MAX_SMEM_BYTES) == fits
+    assert tb.gcnn_kernel_eligible(cfg) == fits
+    assert tb.uses_fused_gcnn_forward(cfg, "cuda") == fits
+    assert tb.resolve_sampler_backend(cfg, "cuda") == "torch"
+
+
+def test_warm_start_from_fixture_is_bit_exact():
+    over = ("model.channels=[10,10,10,10,10,10,10,10,10,10,10,10]",
+            "model.activation=selu", "model.init_mode=fan_in",
+            "model.param_scale=1.0", "model.residual=true")
+    cfg = _gcnn_cfg(*over)
+    model = tb.build_model(cfg, tb.build_lattice(cfg))
+    fresh = model.init(0)
+    source = load_checkpoint_params(FIXTURE)
+    merged, n_copied, n_fresh = transfer_params(fresh, source)
+    assert (n_copied, n_fresh) == (48, 0)
+    for k, v in source.items():
+        np.testing.assert_array_equal(merged[k].numpy(), v)
+    # fresh init draws the same shapes as the snapshot
+    assert {k: tuple(v.shape) for k, v in fresh.items()} == {
+        k: v.shape for k, v in source.items()}
+
+
+@pytest.mark.parametrize("config", ["j1j2_8x8_gcnn", "j1j2_8x8_gcnn_deep"])
+@pytest.mark.parametrize("mem_gib", [0.5, 8, 80])
+def test_gcnn_auto_chunking_matches_jax(config, mem_gib):
+    from qmcnn_tpu import builder as jb
+    from qmcnn_tpu import configs as jcfg
+    from qmcnn_tpu.utils import memory as jmem
+    from qmcnn_tpu_torch.utils import memory as tmem
+
+    path = os.path.join(ROOT, "configs", f"{config}.yaml")
+    over = ("run.n_devices=1",)
+    jc, tc = jcfg.load(path, over), tcfg.load(path, over)
+    jl, tl = jb.build_lattice(jc), tb.build_lattice(tc)
+    jh, th = jb.build_hamiltonian(jc, jl), tb.build_hamiltonian(tc, tl)
+    mem, n_params = int(mem_gib * 2**30), 18656
+    assert dataclasses.asdict(tmem.model_footprint(tc, tl.n_sites)) == \
+        dataclasses.asdict(jmem.model_footprint(jc, jl.n_sites))
+    assert tmem.auto_chunk_size(tc, tl, th, n_params, mem_bytes=mem) \
+        == jmem.auto_chunk_size(jc, jl, jh, n_params, hbm_bytes=mem)
+    assert tmem.auto_jacobian_chunk(tc, tl, th, n_params, mem_bytes=mem) \
+        == jmem.auto_jacobian_chunk(jc, jl, jh, n_params, hbm_bytes=mem)

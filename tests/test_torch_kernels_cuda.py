@@ -1,20 +1,25 @@
-"""PyTorch port: the CUDA sweep kernel against its plain PyTorch version on
-the card. Imports no JAX, so it runs on a GPU machine without it:
+"""PyTorch port: the CUDA kernels (the Metropolis sweep, the fused GCNN
+forward) against their plain PyTorch versions on the card. Imports no JAX,
+so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Without a CUDA device every test skips (the kernel has no CPU mode; the
-plain version's parity with JAX is tests/test_torch_sweep.py). Decisions
-must be equal; log psi within rtol 1e-5 (float32, the kernel sums in
-another order than cuDNN)."""
+Without a CUDA device every test skips (the kernels have no CPU mode; the
+plain versions' parity with JAX is tests/test_torch_sweep.py and
+tests/test_torch_gcnn.py). Sweep decisions must be equal; log psi within
+rtol 1e-5 (float32, the kernel sums in another order than cuDNN). GCNN
+readout sums within rtol/atol 1e-4, 1e-3 for residual stacks deeper than 3
+layers (float32; rounding compounds with depth)."""
 import numpy as np
 import pytest
 import torch
 
+from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
 from qmcnn_tpu_torch.lattice import Lattice
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN
+from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN
 from qmcnn_tpu_torch.sampler.metropolis import (init_walkers, prng_key,
                                                 sweep_noise)
 
@@ -95,3 +100,89 @@ def test_shared_memory_limit_raises():
     with pytest.raises(ValueError, match="shared memory"):
         k1.metropolis_sweep(params, s, torch.zeros(2, device=dev),
                             lattice_shape=(64, 64), n_props=0)
+
+
+# (lattice, C per group element, layers, complex, activation, residual,
+# batch): W = 8C of 64, 80 and 96; real and complex; lncosh and selu; a
+# residual stack; site counts off the 4-site tile; batches that fit no
+# block size; a single-layer net
+GCNN_CASES = {
+    "w64_l3_lncosh_complex": ((8, 8), 8, 3, True, "lncosh", False, 37),
+    "w80_l5_selu_residual": ((8, 8), 10, 5, True, "selu", True, 19),
+    "w96_l2_selu_real": ((6, 6), 12, 2, False, "selu", False, 33),
+    "w64_l2_lncosh_real_5x5": ((5, 5), 8, 2, False, "lncosh", False, 5),
+    "w80_l1_complex": ((4, 4), 10, 1, True, "lncosh", False, 3),
+}
+
+
+def _gcnn_setup(name, dev):
+    shape, c, n_layers, cplx, act, residual, batch = GCNN_CASES[name]
+    model = LogPsiGCNN(shape, channels=(c,) * n_layers, kernel_size=3,
+                       complex_params=cplx, param_scale=1.0,
+                       init_mode="fan_in", activation=act, residual=residual)
+    params = model.init(3, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+              if "bias" in k else v for k, v in params.items()}
+    x = init_walkers(prng_key(5), batch, int(np.prod(shape)), device=dev)
+    ws = k2.expand_gcnn_params(params, 3, cplx)
+    kw = dict(lattice_shape=shape, channels=(c,) * n_layers, kernel_size=3,
+              activation=act, residual=residual)
+    return params, x, ws, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GCNN_CASES))
+def test_gcnn_kernel_matches_plain_version(name):
+    dev = _card()
+    _, x, ws, kw = _gcnn_setup(name, dev)
+    before = k2.gcnn_group_sums.launches
+    got = k2.gcnn_group_sums(x, ws, **kw)
+    torch.cuda.synchronize()
+    assert k2.gcnn_group_sums.launches == before + 1
+    want = k2.gcnn_group_sums_reference(x, ws, **kw)
+    tol = 1e-3 if kw["residual"] and len(kw["channels"]) > 3 else 1e-4
+    for a, b in ((got.re, want.re), (got.im, want.im)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=tol, atol=tol)
+    again = k2.gcnn_group_sums(x, ws, **kw)  # the readout is deterministic
+    assert torch.equal(again.re, got.re) and torch.equal(again.im, got.im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("character,sector", [("A1", 1), ("B1", -1)])
+def test_gcnn_fused_log_psi_matches_model(character, sector):
+    """The fused log psi against the plain model (spin-flip projected), in
+    amplitudes normalized to the batch for a sign-changing character."""
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized
+
+    dev = _card()
+    kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8), kernel_size=3,
+              complex_params=True, param_scale=0.1, character=character)
+    model = SpinFlipSymmetrized(LogPsiGCNN(**kw), sector)
+    params = model.init(6, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+              if "bias" in k else v for k, v in params.items()}
+    s = init_walkers(prng_key(8), 41, 64, sector="sz0", device=dev)
+    kw.pop("param_scale")
+    got = k2.FusedLogPsi(spin_flip_sector=sector, **kw)(params, s)
+    want = log_psi_apply(model, params, s)
+    scale = float(want.re.max())
+
+    def amp(lp):
+        return (torch.exp(lp.re - scale) * torch.exp(1j * lp.im)).cpu()
+
+    np.testing.assert_allclose(amp(got).numpy(), amp(want).numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gcnn_shared_memory_limit_raises():
+    dev = _card()
+    _, _, ws, _ = _gcnn_setup("w64_l3_lncosh_complex", dev)
+    x = init_walkers(prng_key(0), 2, 16 * 16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.gcnn_group_sums(x, ws, lattice_shape=(16, 16), channels=(8,) * 3,
+                           kernel_size=3)

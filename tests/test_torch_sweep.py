@@ -228,3 +228,112 @@ def test_eligibility():
         resolve_sampler_backend(
             configs.apply_overrides(_cfg(), ("sampler.backend=pallas",)),
             "cpu")
+
+
+# -- exchange_anti: anti-aligned bond proposals with the Hastings term -------
+
+def _jax_anti_noise(step_key, m, n_props):
+    """The JAX sampler's draws for exchange_anti: per proposal t and walker
+    w, key = fold_in(fold_in(step_key, t), w) split into (k_move, k_accept);
+    u_move = uniform(k_move), log_u = log(uniform(k_accept))."""
+    def row(t):
+        k_t = jax.random.fold_in(step_key, t)
+        keys = jax.vmap(lambda w: jax.random.fold_in(k_t, w))(jnp.arange(m))
+        k_move, k_acc = jax.vmap(lambda k: tuple(jax.random.split(k, 2)))(
+            keys)
+        return (jax.vmap(jax.random.uniform)(k_move),
+                jnp.log(jax.vmap(jax.random.uniform)(k_acc)))
+
+    u, lu = zip(*(row(t) for t in range(n_props)))
+    return t(np.stack(u)), t(np.stack(lu))
+
+
+def test_exchange_anti_proposal_matches_jax():
+    from qmcnn_tpu.sampler.metropolis import _propose_exchange_anti as j_prop
+
+    lat = JLattice((4, 4))
+    rng = np.random.default_rng(3)
+    base = np.array([1.0] * 8 + [-1.0] * 8, np.float32)
+    s = np.stack([rng.permutation(base) for _ in range(20)])
+    s[0] = 1.0   # no anti-aligned bond: the guarded identity proposal
+    keys = jax.random.split(jax.random.key(2), 20)
+    u = jax.vmap(jax.random.uniform)(keys)
+    s_j, corr_j = j_prop(jnp.asarray(s), keys, lat.nn_bonds)
+    bonds = torch.as_tensor(np.asarray(lat.nn_bonds, np.int64))
+    s_t, corr_t = tsm._propose_exchange_anti(t(s), t(u), bonds)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_array_equal(corr_t.numpy(), np.asarray(corr_j))
+    assert torch.equal(s_t[0], t(s[0])) and float(corr_t[0]) == 0.0
+    assert torch.equal(s_t.sum(1), t(s).sum(1))
+    assert bool(((s_t != t(s)).sum(1)[1:] == 2).all())  # one real swap each
+
+
+def test_exchange_anti_sampler_matches_jax():
+    """A complex, spin-flip projected 4x4 GCNN sampled with exchange_anti:
+    the port's sampler fed the JAX draws matches JAX walker for walker."""
+    from qmcnn_tpu.models.gcnn import LogPsiGCNN as JG
+    from qmcnn_tpu.models.gcnn import SpinFlipSymmetrized as JSF
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN as TG
+    from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized as TSF
+
+    kw = dict(lattice_shape=(4, 4), channels=(2, 2), complex_params=True,
+              param_scale=0.3)
+    jm, tm = JSF(inner=JG(**kw), sector=1), TSF(TG(**kw), 1)
+    v = jm.init(jax.random.key(0), jnp.ones((1, 16), jnp.float32))
+    p = params_from_jax({k: np.asarray(x) for k, x in _flatten(v).items()})
+    lat = JLattice((4, 4))
+    m, n_props = 16, 32
+    js = JSampler(lambda q, x: j_apply(jm, q, x), n_sites=16,
+                  move="exchange_anti", bonds=lat.nn_bonds)
+    state = js.init_state(v, jax.random.key(1), m)
+    key = jax.random.key(9)
+    want = js.sample(v, state, key, jnp.arange(m), n_sweeps=2)
+    ts = tsm.MetropolisSampler(lambda q, x: t_apply(tm, q, x), n_sites=16,
+                               move="exchange_anti", bonds=lat.nn_bonds)
+    zeros = torch.zeros(m, dtype=torch.int32)
+    tstate = tsm.WalkerState(
+        s=t(state.s), log_psi=C(t(state.log_psi.re), t(state.log_psi.im)),
+        n_accept=zeros, n_prop=zeros)
+    got = ts.sample(p, tstate, 0, torch.arange(m), 2,
+                    noise=_jax_anti_noise(key, m, n_props))
+    np.testing.assert_array_equal(got.s.numpy(), np.asarray(want.s))
+    np.testing.assert_array_equal(got.n_accept.numpy(),
+                                  np.asarray(want.n_accept))
+    np.testing.assert_allclose(got.log_psi.re.numpy(),
+                               np.asarray(want.log_psi.re), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(got.s.sum(1), t(state.s).sum(1))  # S^z conserved
+    assert 0 < int(got.n_accept.sum()) < m * n_props
+    # the generated draws run too, and start in the S^z = 0 sector
+    fresh = ts.init_state(p, tsm.prng_key(4), m)
+    assert bool((fresh.s.sum(1) == 0).all())
+    out = ts.sample(p, fresh, tsm.prng_key(5), torch.arange(m), 1)
+    assert bool((out.s.sum(1) == 0).all())
+
+
+def test_exchange_anti_noise_shares_the_hash():
+    ids = torch.arange(48)
+    u, lu = tsm.sweep_noise(tsm.prng_key(6), ids, 30, None)
+    _, lu_int = tsm.sweep_noise(tsm.prng_key(6), ids, 30, 7)
+    assert u.dtype == torch.float32 and tuple(u.shape) == (30, 48)
+    assert torch.equal(lu, lu_int)
+    assert bool(((u > 0) & (u < 1)).all())
+    assert abs(float(u.double().mean()) - 0.5) < 0.02
+    u2, _ = tsm.sweep_noise(tsm.prng_key(6), ids[5:20], 30, None)
+    assert torch.equal(u[:, 5:20], u2)
+
+
+def test_sweep_kernel_rejects_exchange_anti():
+    """The CUDA sweep serves flip and exchange only: with exchange_anti
+    'auto' takes the plain torch sweep and 'pallas' raises, as in JAX."""
+    anti = configs.apply_overrides(_cfg(), ("sampler.move=exchange_anti",))
+    assert kernel_eligible(_cfg()) and not kernel_eligible(anti)
+    assert resolve_sampler_backend(anti, "cuda") == "torch"
+    with pytest.raises(ValueError):
+        resolve_sampler_backend(
+            configs.apply_overrides(anti, ("sampler.backend=pallas",)),
+            "cuda")
+    with pytest.raises(ValueError):
+        tsm.MetropolisSampler(lambda q, x: x, n_sites=16,
+                              move="exchange_anti", bonds=np.zeros((1, 2)),
+                              backend="cuda", lattice_shape=(4, 4))

@@ -1,5 +1,6 @@
-"""PyTorch port, slice 1: the train loop and CLI, the files it writes, the
-warm-start transfer, and the port's import isolation."""
+"""PyTorch port: the train loop and CLI (the CNN path of slice 1, the GCNN
+path of slice 2), the files it writes, the warm-start transfer, and the
+port's import isolation."""
 import csv
 import importlib
 import json
@@ -139,9 +140,9 @@ def test_helpers_match_jax():
 
 
 def test_unported_options_raise(tmp_path):
-    for ov in (("model.kind=gcnn",), ("sr.solver=minsr",),
+    for ov in (("model.kind=rbm",), ("sr.solver=cg",),
                ("model.complex_params=true",), ("run.ckpt_dir=x",),
-               ("sampler.move=exchange_anti",),
+               ("model.compute_dtype=bfloat16",), ("model.jastrow=true",),
                ("optimizer.ema_decay=0.9",)):
         cfg = tcfg.load(HEIS, SMALL + ov)
         with pytest.raises(NotImplementedError):
@@ -165,7 +166,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 18
+    assert int(out.stdout.split()[0]) >= 21
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):
@@ -201,3 +202,48 @@ def test_auto_chunking_matches_jax(mem_gib):
                                     mem_bytes=mem) \
         == jmem.auto_jacobian_chunk(jc, j_lat, j_ham, n_params,
                                     hbm_bytes=mem)
+
+
+GCNN = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")
+GCNN_SMALL = ("lattice.shape=[4,4]", "model.channels=[2,2]",
+              "sampler.n_walkers=32", "sampler.n_therm_sweeps=4",
+              "run.n_steps=2", "run.log_every=1", "run.chunk_size=16",
+              "run.validate_against_ed=true")
+
+
+def test_gcnn_cli_cpu_snapshot_loads_in_jax(tmp_path, capsys):
+    """The GCNN config through the CLI on the CPU (exchange_anti, minSR):
+    finite rows with sr_iters 0, the ED check, and a snapshot under
+    params/inner/ that the JAX package reads with equal log psi."""
+    from qmcnn_tpu.models.gcnn import LogPsiGCNN as JG
+    from qmcnn_tpu.models.gcnn import SpinFlipSymmetrized as JSF
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN as TG
+    from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized as TSF
+
+    out = str(tmp_path / "gcnn.csv")
+    ttrain.main(["--config", GCNN, "--device", "cpu",
+                 "--override", f"run.csv_path={out}",
+                 *[x for ov in GCNN_SMALL for x in ("--override", ov)]])
+    text = capsys.readouterr().out
+    assert "relative error" in text
+    with open(out, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["step"]) for r in rows] == [1, 2]
+    for r in rows:
+        assert np.isfinite(float(r["energy_re"]))
+        assert 0.0 < float(r["accept"]) <= 1.0
+        assert float(r["sr_iters"]) == 0.0
+    flat = jtransfer.load_checkpoint_params(out + ".params.npz")
+    assert all(k.startswith("params/inner/GroupConv_") for k in flat)
+    assert len(flat) == 8
+    kw = dict(lattice_shape=(4, 4), channels=(2, 2), kernel_size=3,
+              complex_params=True)
+    s = (2.0 * np.random.default_rng(1).integers(0, 2, (8, 16)) - 1.0
+         ).astype(np.float32)
+    want = j_apply(JSF(inner=JG(**kw), sector=1), _unflatten(flat), s)
+    got = t_apply(TSF(TG(**kw), 1), ttransfer.params_from_jax(flat),
+                  torch.from_numpy(s))
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
+                               rtol=1e-4, atol=1e-4)
+    dphi = (got.im.numpy() - np.asarray(want.im) + np.pi) % (2 * np.pi) - np.pi
+    np.testing.assert_allclose(dphi, 0.0, atol=1e-4)

@@ -194,7 +194,134 @@ def test_resolve_and_real_flags():
         c_j, c_t = jcfg.load(BASE, ov), tcfg.load(BASE, ov)
         assert tb.model_log_psi_is_real(c_t) == jb.model_log_psi_is_real(c_j)
     with pytest.raises(NotImplementedError):
-        TSR(solver="minsr")
+        TSR(solver="cg")
+    assert TSR(solver="minsr").solver == "minsr"
     cfg = dataclasses.replace(tcfg.load(BASE), sr=dataclasses.replace(
         tcfg.load(BASE).sr, enabled=False))
     assert tb.build_sr(cfg) is None
+
+
+# -- the GCNN path: minSR and one full step with exchange_anti moves -----------
+
+GCNN = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")
+GCNN_SMALL = ("lattice.shape=[4,4]", "model.channels=[2,2]",
+              "sampler.n_walkers=32", "run.chunk_size=16")
+
+
+def _anti_noise(step_key, m, n_props):
+    """The JAX sampler's exchange_anti draws (u_move, log_u) per proposal:
+    key fold_in(fold_in(step_key, t), w), split into (move, accept)."""
+    u, lu = [], []
+    for i in range(n_props):
+        k_t = jax.random.fold_in(step_key, i)
+        keys = jax.vmap(lambda w: jax.random.fold_in(k_t, w))(jnp.arange(m))
+        k_move, k_acc = jax.vmap(lambda k: tuple(jax.random.split(k, 2)))(
+            keys)
+        u.append(np.asarray(jax.vmap(jax.random.uniform)(k_move)))
+        lu.append(np.asarray(jnp.log(jax.vmap(jax.random.uniform)(k_acc))))
+    return t(np.stack(u)), t(np.stack(lu))
+
+
+@pytest.fixture(scope="module")
+def gcnn_pair():
+    """A complex, spin-flip projected 4x4 j1j2 GCNN (exchange_anti, minSR)
+    built by both packages, with equal params and thermalized JAX walkers."""
+    jc = jcfg.load(GCNN, GCNN_SMALL)
+    vmc_j, params_j, _ = jb.build(jc)
+    state_j = vmc_j.init_state(jax.random.key(3), 32, params_j)
+    state_j = vmc_j.thermalize(state_j, jax.random.key(4), jnp.arange(32),
+                               n_sweeps=3)
+    vmc_t, _, _ = tb.build(tcfg.load(GCNN, GCNN_SMALL), device="cpu")
+    params_t = params_from_jax(flat_np(params_j))
+    w = state_j.walkers
+    walkers_t = TWalkers(s=t(w.s), log_psi=C(t(w.log_psi.re),
+                                             t(w.log_psi.im)),
+                         n_accept=torch.zeros(32, dtype=torch.int32),
+                         n_prop=torch.zeros(32, dtype=torch.int32))
+    return dict(vmc_j=vmc_j, params_j=params_j, state_j=state_j,
+                vmc_t=vmc_t, params_t=params_t, walkers_t=walkers_t)
+
+
+@pytest.mark.parametrize("proportional", [False, True])
+def test_minsr_matches_jax(gcnn_pair, proportional):
+    """minSR delta for the complex GCNN (the J_im block is kept): rtol 1e-4
+    (float32 Jacobian, Gram and Cholesky)."""
+    p = gcnn_pair
+    _, _, g_j, eloc_j, _ = j_energy_and_grad(
+        p["vmc_j"].log_psi_fn, p["vmc_j"].ham, p["params_j"],
+        p["state_j"].walkers)
+    kw = dict(solver="minsr", real_log_psi=False, diag_shift0=0.5,
+              proportional_shift=proportional)
+    d_j, it_j, res_j = JSR(**kw).solve(
+        p["vmc_j"].log_psi_fn, p["params_j"], p["state_j"].walkers.s, g_j,
+        jnp.asarray(2), e_loc=eloc_j)
+    d_t, it_t, res_t = TSR(**kw).solve(
+        p["vmc_t"].log_psi_fn, p["params_t"], p["walkers_t"].s,
+        params_from_jax(flat_np(g_j)), 2,
+        e_loc=C(t(eloc_j.re), t(eloc_j.im)))
+    want = flat_np(d_j)
+    assert sorted(want) == sorted(d_t)
+    scale = max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        np.testing.assert_allclose(d_t[k].numpy(), v, rtol=1e-4,
+                                   atol=1e-4 * scale, err_msg=k)
+    assert it_t == int(it_j) == 0
+    # the residual of an exact solve is float32 rounding in both packages
+    assert float(res_t) < 1e-3 and float(res_j) < 1e-3
+    with pytest.raises(ValueError, match="e_loc"):
+        TSR(**kw).solve(p["vmc_t"].log_psi_fn, p["params_t"],
+                        p["walkers_t"].s, params_from_jax(flat_np(g_j)), 2)
+
+
+def test_gcnn_full_step_matches(gcnn_pair):
+    """One VMC.step of the 4x4 j1j2 GCNN config (exchange_anti, minSR, SGD
+    with clip and a cosine schedule) from equal params and walkers, with
+    JAX's draws injected: equal walkers, energy and params."""
+    p = gcnn_pair
+    vmc_j, state_j = p["vmc_j"], p["state_j"]
+    key = jax.random.key(11)
+    new_j, m_j = vmc_j.step(state_j, key, jnp.arange(32))
+    vmc_t = p["vmc_t"]
+    assert vmc_t.sampler.move == "exchange_anti"
+    assert vmc_t.sr.solver == "minsr" and not vmc_t.sr.real_log_psi
+    state_t = TrainState(params=p["params_t"],
+                         opt_state=vmc_t.optimizer.init(p["params_t"]),
+                         walkers=p["walkers_t"], step=0)
+    new_t, m_t = vmc_t.step(state_t, 0, torch.arange(32),
+                            noise=_anti_noise(key, 32, 16))
+    np.testing.assert_array_equal(new_t.walkers.s.numpy(),
+                                  np.asarray(new_j.walkers.s))
+    assert float(m_t.energy_re) == pytest.approx(float(m_j.energy_re),
+                                                 rel=1e-5)
+    assert float(m_t.energy_im) == pytest.approx(float(m_j.energy_im),
+                                                 abs=1e-4)
+    assert float(m_t.accept_rate) == pytest.approx(float(m_j.accept_rate))
+    assert m_t.sr_iters == 0 and np.isfinite(float(m_t.sr_residual))
+    for k, v in flat_np(new_j.params).items():
+        np.testing.assert_allclose(new_t.params[k].numpy(), v, rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_gcnn_eval_forward_feeds_sampler_and_e_loc(gcnn_pair):
+    """``fused_gcnn_log_psi`` (here its plain version on the CPU) gives
+    the model's log psi, so E_loc through it equals E_loc through the
+    model; the gradient keeps the differentiable model."""
+    p = gcnn_pair
+    cfg = tcfg.load(GCNN, GCNN_SMALL)
+    fused = tb.fused_gcnn_log_psi(cfg, tb.build_lattice(cfg))
+    s = p["walkers_t"].s
+    a = fused(p["params_t"], s)
+    b = p["vmc_t"].log_psi_fn(p["params_t"], s)
+    np.testing.assert_allclose(a.re.numpy(), b.re.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    w = p["walkers_t"]._replace(log_psi=a)
+    kw = dict(chunk_size=16)
+    e1, _, g1, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
+                                     p["params_t"], w, eval_log_psi_fn=fused,
+                                     **kw)
+    e2, _, g2, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
+                                     p["params_t"], w, **kw)
+    assert float(e1.re) == pytest.approx(float(e2.re), rel=1e-5)
+    for k in g2:
+        np.testing.assert_allclose(g1[k].numpy(), g2[k].numpy(), rtol=1e-3,
+                                   atol=1e-6)
