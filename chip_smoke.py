@@ -34,8 +34,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 its own architecture (M=512), whose tail energy must sit
                 within 0.01/site of the -0.497679/site its JAX run reached;
   5. timings  — CUDA-event times of each kernel, its plain version and its
-                bound at the main path's shapes, and the per-phase split of
-                a training step of each path (``qmcnn_tpu_torch.step_timing``);
+                bounds at the main path's shapes (``bound_ms``: the least
+                work as f32-accurate 3xTF32 on the tensor cores, or the
+                bytes; ``fp32_bound_ms``: the same work on the FP32 cores),
+                the GCNN kernel's configurations per block, and the
+                per-phase split of a training step of each path
+                (``qmcnn_tpu_torch.step_timing``);
   6. report   — one JSON line of kernel records, the card line, and the
                 final ``{"ok": true, ...}`` line.
 
@@ -63,8 +67,12 @@ E_SITE_D12 = -0.497679
 D12_MODEL = ("model.channels=[" + ",".join(["10"] * 12) + "]",
              "model.activation=selu", "model.init_mode=fan_in",
              "model.param_scale=1.0", "model.residual=true")
-#: card peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM rate
+#: card peaks (H100 SXM data sheet): FP32 outside the tensor cores, dense
+#: TF32 on the tensor cores, HBM rate
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+#: TF32 passes of an f32-accurate product (3xTF32: hi*hi + hi*lo + lo*hi)
+TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -170,8 +178,21 @@ def compare_kernel(case, n_sweeps: int = 2) -> dict:
     return {"max_abs_err": max_abs}
 
 
+def bounds(flop: float, n_bytes: float):
+    """(bound ms, 'operations' | 'bytes', FP32-core bound ms): the least
+    time of f32-accurate work on the tensor cores (TF32_PASSES TF32 passes
+    of ``flop`` at the dense TF32 peak) or of the bytes at the memory rate,
+    whichever is larger, and the same with ``flop`` on the FP32 cores."""
+    tc_ms = TF32_PASSES * flop / TF32_FLOPS * 1e3
+    fp32_ms = flop / FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(tc_ms, bytes_ms), "operations" if tc_ms >= bytes_ms
+            else "bytes", max(fp32_ms, bytes_ms))
+
+
 def time_sweep(case, card: str) -> dict:
-    """Kernel, plain version and torch sampler ms per sweep, and the bound."""
+    """Kernel, plain version and torch sampler ms per sweep, and the
+    bounds."""
     import torch
     from qmcnn_tpu_torch.kernels.metropolis_sweep import (metropolis_sweep,
                                                           sweep_reference)
@@ -203,16 +224,15 @@ def time_sweep(case, card: str) -> dict:
     flop = m * n * forward_flop(p, n)
     n_bytes = 4 * (2 * m * n + 3 * m + 3 * n * m
                    + sum(v.numel() for v in p.values()))
-    ops_ms = flop / FP32_FLOPS * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms, bound_by, fp32_ms = bounds(flop, n_bytes)
     print(f"  {case['name']} ({card}): kernel {ms:.4f} ms/sweep, plain "
           f"version {plain_ms:.4f} ms/sweep, torch sampler {torch_ms:.4f} "
-          f"ms/sweep, bound {bound_ms:.4f} ms ({flop:.3e} FLOP at "
-          f"{FP32_FLOPS:.3g} FP32 FLOP/s; bytes {bytes_ms:.5f} ms)")
+          f"ms/sweep, bound {bound_ms:.4f} ms ({flop:.3e} FLOP x "
+          f"{TF32_PASSES} at {TF32_FLOPS:.3g} TF32 FLOP/s, {bound_by}); "
+          f"FP32-core bound {fp32_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "torch_sampler_ms": torch_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fp32_bound_ms": fp32_ms}
 
 
 def step_split(cfg, state, card: str, label: str) -> dict:
@@ -251,16 +271,14 @@ def gcnn_flop(hw: int, width: int, n_layers: int, cplx: bool,
 
 
 def gcnn_bound(ws, hw: int, width: int, n_layers: int, batch: int):
-    """(bound ms, 'operations' | 'bytes', FLOP): the larger of FLOP over the
-    FP32 peak and bytes (x read once, weights once, S_g written once) over
-    the memory rate."""
+    """(bound ms, 'operations' | 'bytes', FP32-core bound ms, FLOP) of
+    :func:`bounds`, with bytes = x read once, weights once, S_g written
+    once."""
     cplx = ws.lift_im is not None
     flop = gcnn_flop(hw, width, n_layers, cplx, batch)
     n_bytes = 4 * (batch * hw + batch * 16
                    + sum(w.numel() for w in ws if w is not None))
-    ops_ms, bytes_ms = flop / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(ops_ms, bytes_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", flop)
+    return (*bounds(flop, n_bytes), flop)
 
 
 def gcnn_case(model_kw: dict, batch: int, seed: int, device, params=None,
@@ -414,7 +432,7 @@ def expected_k2_launches(cfg) -> dict:
 
 def time_gcnn(ws, x, kw, card: str, label: str) -> dict:
     """K2 and its plain version (cuDNN, TF32 off) ms per call, and the
-    bound, at one shape."""
+    bounds, at one shape."""
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 
     batch = x.shape[0]
@@ -424,14 +442,22 @@ def time_gcnn(ws, x, kw, card: str, label: str) -> dict:
                        reps=reps)
     hw = x.shape[1]
     width, n_layers = 8 * kw["channels"][0], len(kw["channels"])
-    bound_ms, bound_by, flop = gcnn_bound(ws, hw, width, n_layers, batch)
+    bound_ms, bound_by, fp32_ms, flop = gcnn_bound(ws, hw, width, n_layers,
+                                                   batch)
+    cplx = ws.lift_im is not None
+    n_cfg = k2.configs_per_block(hw, width, 9, cplx)
     print(f"  {label} B={batch} ({card}): kernel {ms:.4f} ms, plain (cuDNN, "
           f"TF32 off) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({flop:.3e} FLOP, Karatsuba count, {bound_by}); kernel at "
-          f"{flop / ms / 1e9:.2f} TFLOP/s of that work = "
-          f"{100 * bound_ms / ms:.1f}% of the bound")
+          f"({flop:.3e} FLOP, Karatsuba count, x {TF32_PASSES} TF32 passes, "
+          f"{bound_by}) = {100 * bound_ms / ms:.1f}% of it; FP32-core bound "
+          f"{fp32_ms:.4f} ms = {100 * fp32_ms / ms:.1f}%; kernel at "
+          f"{flop / ms / 1e9:.2f} TFLOP/s of that work; {n_cfg} "
+          f"configurations x {hw} sites per block, "
+          f"{k2.launch_threads(hw, width, n_cfg)} threads, "
+          f"{k2.smem_bytes(hw, width, 9, cplx, n_cfg)} bytes of shared "
+          f"memory")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "fp32_bound_ms": fp32_ms}
 
 
 def gcnn_main_path(card: str, out_dir: Path) -> dict:
@@ -732,6 +758,7 @@ def main() -> int:
         "plain_ms": t_flag["plain_ms"],
         "bound_ms": t_flag["bound_ms"],
         "bound_by": t_flag["bound_by"],
+        "fp32_bound_ms": t_flag["fp32_bound_ms"],
         "library_ms": None,
     }
     rec2 = {
@@ -745,13 +772,15 @@ def main() -> int:
         "plain_ms": t_eloc["plain_ms"],
         "bound_ms": t_eloc["bound_ms"],
         "bound_by": t_eloc["bound_by"],
+        "fp32_bound_ms": t_eloc["fp32_bound_ms"],
         "library_ms": None,
     }
     print(f"    tfim16 shape: kernel {t_tfim['ms']:.4f} ms/sweep, plain "
           f"{t_tfim['plain_ms']:.4f}, bound {t_tfim['bound_ms']:.5f} "
           f"({card})")
     print(f"    K2 sweep shape: kernel {t_swp['ms']:.4f} ms, plain "
-          f"{t_swp['plain_ms']:.4f}, bound {t_swp['bound_ms']:.4f} ({card})")
+          f"{t_swp['plain_ms']:.4f}, bound {t_swp['bound_ms']:.4f}, FP32-core "
+          f"bound {t_swp['fp32_bound_ms']:.4f} ({card})")
     print(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rec, rec2]}))
     print(card)

@@ -1,51 +1,83 @@
 // Fused evaluation-only forward of the square-lattice LogPsiGCNN, CUDA C++
-// for sm_90a.
+// for sm_90a, with the group convolutions on the tensor cores in
+// error-compensated TF32 (3xTF32).
 //
 // Replaces the Pallas TPU kernel `kernel` built by `_make_kernel`
-// (qmcnn_tpu/kernels/gcnn_pallas.py, launched by `_group_sums` behind
+// (qmcnn_tpu/kernels/gcnn_pallas.py:259, launched by `_group_sums` behind
 // `make_fused_log_psi`). For each configuration x [H*W] in {-1, +1} it runs
 //   z_0 = act(lift(x) + b_0),
 //   z_l = act(gconv(z_{l-1}, W_l) + b_l)   (l = 1 .. L-1),
 //   z_l <- (z_l + z_{l-1}) / sqrt(2)       (residual, 0 < l < L-1),
 // and writes the per-group-element readout S_g = sum_{p,c} z_{L-1}[p, g*C+c]
-// (re, im) for g = 0..7. The group convolutions arrive G-expanded by the
-// wrapper: a circular k x k convolution with W = 8*C channels in and out,
-// tap-major weights [k*k, W, W]. Complex layers take the direct 4-product
-// form (re = xr*wr - xi*wi, im = xr*wi + xi*wr); the lift layer has Cin = 1
-// and a real input, so 2 products. The activation is complex lncosh (the
-// formula of ops/cplx.lncosh), real lncosh, or selu on re and im.
+// (re, im) for g = 0..7. The group convolutions arrive G-expanded: a
+// circular k x k convolution with W = 8*C channels in and out. Complex
+// layers take the direct 4-product form (re = xr*wr - xi*wi,
+// im = xr*wi + xi*wr); the lift layer has Cin = 1 and a real input. The
+// activation is complex lncosh (the formula of ops/cplx.lncosh), real
+// lncosh, or selu on re and im.
 //
-// Design. One thread block per configuration; the grid covers any batch.
-// The activations of one configuration, [H*W, W] complex f32, live in
-// shared memory as two ping-pong buffers (channel-contiguous per site), so
-// the residual reads the layer's own input buffer. Each thread owns a
-// register tile of 4 sites x 4 output channels (complex) and walks the
-// reduction over (tap, input channel): per 4 input channels it reads 4
-// float4 activation vectors per part from shared memory, and per input
-// channel one float4 of weights per part from global memory (the expanded
-// weights of a 12-layer W = 80 stack are 4.1 MB and stay in L2; neighbouring
-// threads read neighbouring words). Circular padding is index arithmetic:
-// a [k*k, H*W] table of source sites, built per block. The layer epilogue
-// (bias, activation, residual) runs on the f32 accumulators. The readout
-// is one warp per group element with a fixed-order shuffle tree, so the
-// result is deterministic.
+// Design. A block holds n_cfg configurations (as many as shared memory
+// takes, chosen by the wrapper), their activations [n_cfg*H*W rows, W]
+// per part in two ping-pong buffers; a row is padded to W + 4 words so the
+// rows of an mma fragment spread over the banks. Circular padding is a
+// [k*k, rows] table of source rows. The lift (Cin = 1, ~0.4% of the work)
+// runs on the CUDA cores. Each group layer is one GEMM,
+//   [yr | yi] = sum_taps gather_t([xr | xi]) . [[wr, wi], [-wi, wr]],
+// rows = sites of the block's configurations, K = k*k*W, N = W, issued as
+// mma.sync.m16n8k8 TF32 by warps that each own up to kRowTiles 16-row
+// tiles x kColTiles 8-column tiles and walk the whole K; a warp splits an
+// activation once for its kColTiles column tiles. A fragments come from
+// the activation buffer through the source-row table (the tap shift is a
+// row gather); B fragments come from global memory (L2-resident, and
+// shared in L1 by the warps of the other row tiles) in a fragment-native
+// layout the wrapper builds once per parameter update
+// (`pack_group_weights`: per tap, k step, column tile and lane one 16-byte
+// word of hi/lo pairs). Every product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+// with x = hi + lo in TF32 parts: the weights split by the wrapper (both
+// parts rounded to nearest), an activation on load (hi rounded to nearest
+// as cvt.rna.tf32.f32 rounds, lo = x - hi exactly, of which the tensor
+// cores read the top 11 bits: hi + lo within 2^-21 of x). A TF32 product is
+// exact in f32. The tensor cores truncate their sums, so each k step (8
+// input channels) sums into fresh registers that are added to the f32
+// accumulators with round-to-nearest; summed over a whole K in one
+// accumulator the truncation drifts toward zero (1e-4 relative after 12
+// layers). So the sums keep the f32 contract of the TPU kernel's
+// Precision.HIGHEST. The main loop has no branch (ragged tiles are
+// computed on clamped rows and dropped), so the compiler schedules a k
+// step as one block. The epilogue (bias, activation, residual) runs on
+// the accumulator fragments; the readout is one warp per (configuration,
+// group element) with a fixed-order shuffle tree, so the result is
+// bitwise repeatable.
 //
-// Bound. The work is FP32 FMA bound against 4*H*W input bytes and 64
-// output bytes per configuration; nothing but the weights leaves the SM
-// between layers. The least arithmetic for the function is 2*9*H*W*W*2
-// FLOP for a complex lift and, per complex group layer, 3 real products
-// (Karatsuba) = 6*9*H*W*W^2 FLOP plus 4*H*W*W additions; this kernel's
-// direct form spends 8*9*H*W*W^2, a third more, to avoid Karatsuba's
-// cancellation. Tensor cores (TF32/bf16 wgmma), several configurations per
-// block and TMA-fed weight tiles are later work.
+// Bound. Per configuration the least work is 2*9*H*W*W*parts FLOP for the
+// lift and, per complex group layer, 3 real products (Karatsuba) =
+// 6*9*H*W*W^2 FLOP plus 4*H*W*W additions, against 4*H*W bytes in and 64
+// out: operations bound. On the tensor cores an f32-accurate product costs
+// three TF32 passes, so the bound is 3 x that FLOP count at the 495 TFLOP/s
+// dense TF32 peak (about 2.5x the 67 TFLOP/s of the FP32 cores). This
+// kernel spends 4/3 of it (the direct form, to avoid Karatsuba's
+// cancellation) through mma.sync, which reaches only part of the wgmma
+// rate, and the instructions beside the mma (split, per-step sums, loads,
+// activations) compete with it for issue slots.
+//
+// Why mma.sync and not wgmma. The A operand of a layer is the activation
+// buffer gathered by tap: row p of tap t is site nbr[t][p], which is no
+// strided tile a wgmma shared-memory descriptor can address, and staging
+// each tap's gathered tile would need shared memory the n_cfg buffers use.
+// mma.sync takes A from registers loaded by any address. Next: wgmma with
+// A from registers and the weight tiles fed by TMA into a small ring (it
+// runs asynchronously beside the split and the sums), Karatsuba (3 complex
+// products instead of 4) on the tensor cores, and one lattice tiled across
+// a cluster for configurations above one block's shared memory (16x16 at
+// W = 80).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kTS = 4;  // sites per thread tile
-constexpr int kTC = 4;  // output channels per thread tile
+constexpr int kMaxThreads = 384;
+constexpr int kRowTiles = 2;  // 16-row mma tiles per warp task, at most
+constexpr int kColTiles = 4;  // 8-column mma tiles per warp task
 constexpr int kGroup = 8;
 constexpr float kSkipScale = 0.7071067811865476f;
 constexpr float kLog2 = 0.6931471805599453f;
@@ -57,24 +89,23 @@ enum Activation { kLncosh = 0, kSelu = 1 };
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
 struct Layout {
-  int plane, parts, x_off, nbr_off, total_bytes;
+  int rows, stride, plane, parts, x_off, src_off, total_bytes;
 };
 
-// Shared memory of one block, in 4-byte words: buffers [2][parts][plane],
-// the input spins, then the [k*k, H*W] source-site table.
+// Shared memory of one block, in 4-byte words: buffers [2][parts][plane]
+// (plane = rows x (W + 4) words, rows = n_cfg*H*W), the input spins, then
+// the [k*k, rows] table of source rows.
 __host__ __device__ inline Layout smem_layout(int hw, int width, int kk,
-                                              bool cplx) {
+                                              bool cplx, int n_cfg) {
   Layout l;
-  l.plane = round4(hw * width);
+  l.rows = n_cfg * hw;
+  l.stride = width + 4;
+  l.plane = l.rows * l.stride;
   l.parts = cplx ? 2 : 1;
   l.x_off = 2 * l.parts * l.plane;
-  l.nbr_off = l.x_off + round4(hw);
-  l.total_bytes = 4 * (l.nbr_off + kk * hw);
+  l.src_off = l.x_off + round4(l.rows);
+  l.total_bytes = 4 * (l.src_off + kk * l.rows);
   return l;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
 __device__ __forceinline__ float selu_f(float x) {
@@ -112,224 +143,291 @@ __device__ __forceinline__ void activate(float& re, float& im) {
   }
 }
 
-// Bias, activation and residual on one thread's tile, stored to o_* at
-// sites p0.. and channels co0..co0+3; r_re == nullptr means no residual.
-template <bool CPLX, int ACT>
-__device__ __forceinline__ void epilogue(
-    float (&acc_re)[kTS][kTC], float (&acc_im)[kTS][kTC],
-    const float* __restrict__ bias_re, const float* __restrict__ bias_im,
-    float* o_re, float* o_im, const float* r_re, const float* r_im, int p0,
-    int co0, int hw, int width) {
-  float br[kTC], bi[kTC];
-#pragma unroll
-  for (int c = 0; c < kTC; ++c) {
-    br[c] = bias_re[co0 + c];
-    bi[c] = CPLX ? bias_im[co0 + c] : 0.0f;
-  }
-#pragma unroll
-  for (int s = 0; s < kTS; ++s) {
-    const int p = p0 + s;
-    if (p < hw) {
-      float zr[kTC], zi[kTC];
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        zr[c] = acc_re[s][c] + br[c];
-        zi[c] = CPLX ? acc_im[s][c] + bi[c] : 0.0f;
-        activate<CPLX, ACT>(zr[c], zi[c]);
-      }
-      const int off = p * width + co0;
-      if (r_re != nullptr) {
-        const float4 rr = *reinterpret_cast<const float4*>(r_re + off);
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) zr[c] = (zr[c] + comp(rr, c)) * kSkipScale;
-        if (CPLX) {
-          const float4 ri = *reinterpret_cast<const float4*>(r_im + off);
-#pragma unroll
-          for (int c = 0; c < kTC; ++c)
-            zi[c] = (zi[c] + comp(ri, c)) * kSkipScale;
-        }
-      }
-      *reinterpret_cast<float4*>(o_re + off) =
-          make_float4(zr[0], zr[1], zr[2], zr[3]);
-      if (CPLX)
-        *reinterpret_cast<float4*>(o_im + off) =
-            make_float4(zi[0], zi[1], zi[2], zi[3]);
-    }
-  }
+// x rounded to TF32 (the low 13 mantissa bits zero), to nearest with ties
+// away from zero: cvt.rna.tf32.f32 for finite x, in two integer operations
+// (the conversion unit runs at a quarter of their rate)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi is x rounded to TF32, lo = x - hi exactly (in f32);
+// the tensor cores read lo's top 11 significant bits, so hi + lo holds x
+// within 2^-21 relative, with the sign of the error at random
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b on one 16x8x8 tile: a row-major 16x8, b column-major 8x8
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, small terms first; b = (hi b0, hi b1, lo b0, lo b1)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint4& b) {
+  mma_tf32(d, a_lo, b.x, b.y);
+  mma_tf32(d, a_hi, b.z, b.w);
+  mma_tf32(d, a_hi, b.x, b.y);
+}
+
+__device__ __forceinline__ uint4 negate(const uint4& b) {
+  const uint32_t s = 0x80000000u;
+  return make_uint4(b.x ^ s, b.y ^ s, b.z ^ s, b.w ^ s);
+}
+
+// A fragment of one 16x8 tile in TF32 hi/lo parts: rows g and g+8 at the
+// word offsets o0, o1 (source row * stride + 2 tig). The k order within a
+// step is permuted so that a lane's k = tig and tig + 4 are the channels
+// 2 tig and 2 tig + 1, one 8-byte load (the packed weights follow it).
+__device__ __forceinline__ void load_a(const float* src, int o0, int o1,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 v0 = *reinterpret_cast<const float2*>(src + o0);
+  const float2 v1 = *reinterpret_cast<const float2*>(src + o1);
+  tf32_split(v0.x, hi[0], lo[0]);
+  tf32_split(v1.x, hi[1], lo[1]);
+  tf32_split(v0.y, hi[2], lo[2]);
+  tf32_split(v1.y, hi[3], lo[3]);
 }
 
 template <bool CPLX, int ACT>
-__global__ void __launch_bounds__(kMaxThreads) gcnn_forward_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 1) gcnn_forward_kernel(
     const float* __restrict__ x, const float* __restrict__ lift_re,
-    const float* __restrict__ lift_im, const float* __restrict__ w_re,
-    const float* __restrict__ w_im, const float* __restrict__ b_re,
+    const float* __restrict__ lift_im, const uint4* __restrict__ wf_re,
+    const uint4* __restrict__ wf_im, const float* __restrict__ b_re,
     const float* __restrict__ b_im, float* __restrict__ out_re,
-    float* __restrict__ out_im, int height, int width_lat, int ksize,
-    int channels, int n_layers, int residual) {
+    float* __restrict__ out_im, int batch, int n_cfg, int height,
+    int width_lat, int ksize, int channels, int n_layers, int residual) {
   extern __shared__ __align__(16) float smem[];
   const int hw = height * width_lat;
   const int width = kGroup * channels;
   const int kk = ksize * ksize;
   const int half = (ksize - 1) / 2;
-  const Layout lay = smem_layout(hw, width, kk, CPLX);
-  float* buf0_re = smem;
-  float* buf0_im = smem + lay.plane;  // used only when CPLX
-  float* buf1_re = smem + lay.parts * lay.plane;
-  float* buf1_im = buf1_re + lay.plane;
+  const Layout lay = smem_layout(hw, width, kk, CPLX, n_cfg);
+  const int stride = lay.stride, plane = lay.plane, max_rows = lay.rows;
+  float* const buf0 = smem;  // re plane; the im plane follows it
+  float* const buf1 = smem + lay.parts * plane;
   float* x_s = smem + lay.x_off;
-  int* nbr_s = reinterpret_cast<int*>(smem + lay.nbr_off);
-  const size_t cfg = blockIdx.x;
+  int* src_s = reinterpret_cast<int*>(smem + lay.src_off);
+  const size_t cfg0 = static_cast<size_t>(blockIdx.x) * n_cfg;
+  const int n_here = min(n_cfg, batch - static_cast<int>(cfg0));
+  const int rows = n_here * hw;
   const int tid = threadIdx.x;
 
-  for (int p = tid; p < hw; p += blockDim.x) x_s[p] = x[cfg * hw + p];
-  // y[i, j] += x[(i + a - half) mod H, (j + b - half) mod W] w[a, b]
-  for (int i = tid; i < kk * hw; i += blockDim.x) {
-    const int t = i / hw, p = i - t * hw;
+  for (int i = tid; i < rows; i += blockDim.x) x_s[i] = x[cfg0 * hw + i];
+  // y[i, j] += x[(i + a - half) mod H, (j + b - half) mod W] w[a, b]: the
+  // source row of tap t for each row (configuration, site) of the block
+  for (int i = tid; i < kk * rows; i += blockDim.x) {
+    const int t = i / rows, row = i - t * rows;
+    const int p = row % hw;
     const int a = t / ksize, b = t - a * ksize;
     const int r = p / width_lat, c = p - r * width_lat;
-    nbr_s[i] = ((r + a - half + height) % height) * width_lat +
-               (c + b - half + width_lat) % width_lat;
+    src_s[t * max_rows + row] =
+        row - p + ((r + a - half + height) % height) * width_lat +
+        (c + b - half + width_lat) % width_lat;
   }
   __syncthreads();
 
-  const int n_ct = width / kTC;
-  const int n_tiles = n_ct * ((hw + kTS - 1) / kTS);
-
-  // layer 0: the lift, real input and Cin = 1
-  for (int tile = tid; tile < n_tiles; tile += blockDim.x) {
-    const int co0 = (tile % n_ct) * kTC, p0 = (tile / n_ct) * kTS;
-    float acc_re[kTS][kTC], acc_im[kTS][kTC];
-#pragma unroll
-    for (int s = 0; s < kTS; ++s)
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) acc_re[s][c] = acc_im[s][c] = 0.0f;
+  // layer 0: the lift on the CUDA cores, one output element per step
+  for (int i = tid; i < rows * width; i += blockDim.x) {
+    const int row = i / width, co = i - row * width;
+    float zr = 0.0f, zi = 0.0f;
     for (int t = 0; t < kk; ++t) {
-      const float4 wr =
-          __ldg(reinterpret_cast<const float4*>(lift_re + t * width + co0));
-      float4 wi = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (CPLX)
-        wi = __ldg(reinterpret_cast<const float4*>(lift_im + t * width + co0));
-#pragma unroll
-      for (int s = 0; s < kTS; ++s) {
-        const int p = min(p0 + s, hw - 1);
-        const float xv = x_s[nbr_s[t * hw + p]];
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) {
-          acc_re[s][c] = fmaf(xv, comp(wr, c), acc_re[s][c]);
-          if (CPLX) acc_im[s][c] = fmaf(xv, comp(wi, c), acc_im[s][c]);
-        }
-      }
+      const float xv = x_s[src_s[t * max_rows + row]];
+      zr = fmaf(xv, __ldg(lift_re + t * width + co), zr);
+      if (CPLX) zi = fmaf(xv, __ldg(lift_im + t * width + co), zi);
     }
-    epilogue<CPLX, ACT>(acc_re, acc_im, b_re, b_im, buf0_re, buf0_im,
-                        nullptr, nullptr, p0, co0, hw, width);
+    zr += __ldg(b_re + co);
+    if (CPLX) zi += __ldg(b_im + co);
+    activate<CPLX, ACT>(zr, zi);
+    buf0[row * stride + co] = zr;
+    if (CPLX) buf0[plane + row * stride + co] = zi;
   }
   __syncthreads();
 
-  // layers 1 .. L-1: G-expanded group convolutions, W -> W channels
+  // layers 1 .. L-1 on the tensor cores. Warp tasks: a group of row tiles
+  // (balanced over the block's rows) x kColTiles column tiles.
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n_row_tiles = (rows + 15) / 16;
+  const int n_row_groups = (n_row_tiles + kRowTiles - 1) / kRowTiles;
+  const int group_tiles = (n_row_tiles + n_row_groups - 1) / n_row_groups;
+  const int n_col_tiles = width / 8;
+  const int n_col_groups = (n_col_tiles + kColTiles - 1) / kColTiles;
+  const int n_tasks = n_row_groups * n_col_groups;
+  const int k_steps = width / 8;  // per tap
+  const int n_steps = kk * k_steps;
+  const size_t layer_words = static_cast<size_t>(n_steps) * n_col_tiles * 32;
   for (int l = 1; l < n_layers; ++l) {
-    const bool odd = l & 1;
-    const float* in_re = odd ? buf0_re : buf1_re;
-    const float* in_im = odd ? buf0_im : buf1_im;
-    float* o_re = odd ? buf1_re : buf0_re;
-    float* o_im = odd ? buf1_im : buf0_im;
-    const size_t layer_off = static_cast<size_t>(l - 1) * kk * width * width;
-    const float* wl_re = w_re + layer_off;
-    const float* wl_im = CPLX ? w_im + layer_off : nullptr;
+    const float* in = (l & 1) ? buf0 : buf1;
+    float* out = (l & 1) ? buf1 : buf0;
+    const uint4* wl_re = wf_re + (l - 1) * layer_words;
+    const uint4* wl_im = CPLX ? wf_im + (l - 1) * layer_words : nullptr;
+    const float* bl_re = b_re + l * width;
+    const float* bl_im = CPLX ? b_im + l * width : nullptr;
     const bool skip = residual && l < n_layers - 1;
-    for (int tile = tid; tile < n_tiles; tile += blockDim.x) {
-      const int co0 = (tile % n_ct) * kTC, p0 = (tile / n_ct) * kTS;
-      float acc_re[kTS][kTC], acc_im[kTS][kTC];
+    for (int task = warp; task < n_tasks; task += n_warps) {
+      const int rg = task / n_col_groups;
+      const int rt0 = rg * group_tiles;
+      const int n_rt = min(group_tiles, n_row_tiles - rt0);
+      const int ct0 = (task - rg * n_col_groups) * kColTiles;
+      const int n_ct = min(kColTiles, n_col_tiles - ct0);
+      float acc_re[kRowTiles][kColTiles][4];
+      float acc_im[kRowTiles][kColTiles][4];
 #pragma unroll
-      for (int s = 0; s < kTS; ++s)
+      for (int r = 0; r < kRowTiles; ++r)
 #pragma unroll
-        for (int c = 0; c < kTC; ++c) acc_re[s][c] = acc_im[s][c] = 0.0f;
+        for (int c = 0; c < kColTiles; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc_re[r][c][j] = acc_im[r][c][j] = 0.0f;
+
+      // the main loop has no branch on the tile counts, so that it stays
+      // one block for the scheduler: tiles past the task's rows (clamped)
+      // or columns (the last column tile again) are computed and dropped
+      int col[kColTiles];
+#pragma unroll
+      for (int c = 0; c < kColTiles; ++c)
+        col[c] = min(ct0 + c, n_col_tiles - 1) * 32 + lane;
       for (int t = 0; t < kk; ++t) {
-        int q[kTS];
+        // word offsets of this lane's A elements: rows g and g + 8 of
+        // each tile (clamped into the block's rows), columns 2 tig, +1
+        int off[kRowTiles][2];
 #pragma unroll
-        for (int s = 0; s < kTS; ++s)
-          q[s] = nbr_s[t * hw + min(p0 + s, hw - 1)] * width;
-        const float* wt_re = wl_re + static_cast<size_t>(t) * width * width + co0;
-        const float* wt_im =
-            CPLX ? wl_im + static_cast<size_t>(t) * width * width + co0 : nullptr;
-        for (int ci = 0; ci < width; ci += 4) {
-          float4 xr[kTS], xi[kTS];
+        for (int r = 0; r < kRowTiles; ++r)
 #pragma unroll
-          for (int s = 0; s < kTS; ++s) {
-            xr[s] = *reinterpret_cast<const float4*>(in_re + q[s] + ci);
-            if (CPLX) xi[s] = *reinterpret_cast<const float4*>(in_im + q[s] + ci);
+          for (int h = 0; h < 2; ++h) {
+            const int row = min((rt0 + r) * 16 + g + 8 * h, rows - 1);
+            off[r][h] = src_s[t * max_rows + row] * stride + 2 * tig;
           }
+        for (int ks = 0; ks < k_steps; ++ks) {
+          const size_t step =
+              static_cast<size_t>(t * k_steps + ks) * n_col_tiles * 32;
+          uint4 wr[kColTiles], wi[kColTiles];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 wr = __ldg(
-                reinterpret_cast<const float4*>(wt_re + (ci + j) * width));
-            float4 wi = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int c = 0; c < kColTiles; ++c) {
+            wr[c] = __ldg(wl_re + step + col[c]);
+            wi[c] = CPLX ? __ldg(wl_im + step + col[c]) : wr[c];
+          }
+          const int c0 = ks * 8;
+#pragma unroll
+          for (int r = 0; r < kRowTiles; ++r) {
+            uint32_t ar_hi[4], ar_lo[4], ai_hi[4], ai_lo[4];
+            load_a(in + c0, off[r][0], off[r][1], ar_hi, ar_lo);
             if (CPLX)
-              wi = __ldg(
-                  reinterpret_cast<const float4*>(wt_im + (ci + j) * width));
+              load_a(in + plane + c0, off[r][0], off[r][1], ai_hi, ai_lo);
+            // each k step sums into fresh registers, added to the
+            // accumulators in f32 round-to-nearest: the tensor cores
+            // truncate their sums, which over a whole K in one accumulator
+            // drifts toward zero
 #pragma unroll
-            for (int s = 0; s < kTS; ++s) {
-              const float ar = comp(xr[s], j);
+            for (int c = 0; c < kColTiles; ++c) {
+              float pr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              float pi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_3xtf32(pr, ar_hi, ar_lo, wr[c]);
               if (CPLX) {
-                const float ai = comp(xi[s], j);
+                mma_3xtf32(pr, ai_hi, ai_lo, negate(wi[c]));
+                mma_3xtf32(pi, ar_hi, ar_lo, wi[c]);
+                mma_3xtf32(pi, ai_hi, ai_lo, wr[c]);
+              }
 #pragma unroll
-                for (int c = 0; c < kTC; ++c) {
-                  acc_re[s][c] = fmaf(ar, comp(wr, c), acc_re[s][c]);
-                  acc_re[s][c] = fmaf(-ai, comp(wi, c), acc_re[s][c]);
-                  acc_im[s][c] = fmaf(ar, comp(wi, c), acc_im[s][c]);
-                  acc_im[s][c] = fmaf(ai, comp(wr, c), acc_im[s][c]);
-                }
-              } else {
-#pragma unroll
-                for (int c = 0; c < kTC; ++c)
-                  acc_re[s][c] = fmaf(ar, comp(wr, c), acc_re[s][c]);
+              for (int j = 0; j < 4; ++j) {
+                acc_re[r][c][j] += pr[j];
+                if (CPLX) acc_im[r][c][j] += pi[j];
               }
             }
           }
         }
       }
-      epilogue<CPLX, ACT>(acc_re, acc_im, b_re + l * width,
-                          CPLX ? b_im + l * width : nullptr, o_re, o_im,
-                          skip ? in_re : nullptr, skip ? in_im : nullptr, p0,
-                          co0, hw, width);
+
+      // epilogue: the accumulator fragment holds rows g, g + 8 and columns
+      // 2 tig, 2 tig + 1 of each tile
+#pragma unroll
+      for (int r = 0; r < kRowTiles; ++r) {
+#pragma unroll
+        for (int c = 0; c < kColTiles; ++c) {
+          if (r < n_rt && c < n_ct) {
+            const int col = (ct0 + c) * 8 + 2 * tig;
+            const float br0 = __ldg(bl_re + col), br1 = __ldg(bl_re + col + 1);
+            const float bi0 = CPLX ? __ldg(bl_im + col) : 0.0f;
+            const float bi1 = CPLX ? __ldg(bl_im + col + 1) : 0.0f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = (rt0 + r) * 16 + g + 8 * h;
+              if (row < rows) {
+                float zr0 = acc_re[r][c][2 * h] + br0;
+                float zr1 = acc_re[r][c][2 * h + 1] + br1;
+                float zi0 = CPLX ? acc_im[r][c][2 * h] + bi0 : 0.0f;
+                float zi1 = CPLX ? acc_im[r][c][2 * h + 1] + bi1 : 0.0f;
+                activate<CPLX, ACT>(zr0, zi0);
+                activate<CPLX, ACT>(zr1, zi1);
+                const int o = row * stride + col;
+                if (skip) {
+                  const float2 rr = *reinterpret_cast<const float2*>(in + o);
+                  zr0 = (zr0 + rr.x) * kSkipScale;
+                  zr1 = (zr1 + rr.y) * kSkipScale;
+                  if (CPLX) {
+                    const float2 ri =
+                        *reinterpret_cast<const float2*>(in + plane + o);
+                    zi0 = (zi0 + ri.x) * kSkipScale;
+                    zi1 = (zi1 + ri.y) * kSkipScale;
+                  }
+                }
+                *reinterpret_cast<float2*>(out + o) = make_float2(zr0, zr1);
+                if (CPLX)
+                  *reinterpret_cast<float2*>(out + plane + o) =
+                      make_float2(zi0, zi1);
+              }
+            }
+          }
+        }
+      }
     }
     __syncthreads();
   }
 
   // readout: S_g = sum over sites and the C channels of element g, one
-  // warp per element, lanes in a fixed order, then a shuffle tree
-  const bool last_odd = (n_layers - 1) & 1;
-  const float* f_re = last_odd ? buf1_re : buf0_re;
-  const float* f_im = last_odd ? buf1_im : buf0_im;
-  const int lane = tid & 31, n_warps = blockDim.x >> 5;
+  // warp per (configuration, element), lanes in a fixed order, then a
+  // shuffle tree
+  const float* f = ((n_layers - 1) & 1) ? buf1 : buf0;
   const int per_g = hw * channels;
-  for (int g = tid >> 5; g < kGroup; g += n_warps) {
+  for (int task = warp; task < n_here * kGroup; task += n_warps) {
+    const int c = task / kGroup, e = task - c * kGroup;
     float sr = 0.0f, si = 0.0f;
     for (int i = lane; i < per_g; i += 32) {
-      const int p = i / channels, c = i - p * channels;
-      const int idx = p * width + g * channels + c;
-      sr += f_re[idx];
-      if (CPLX) si += f_im[idx];
+      const int p = i / channels, ch = i - p * channels;
+      const int idx = (c * hw + p) * stride + e * channels + ch;
+      sr += f[idx];
+      if (CPLX) si += f[plane + idx];
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sr += __shfl_down_sync(0xffffffffu, sr, off);
-      si += __shfl_down_sync(0xffffffffu, si, off);
+    for (int o = 16; o > 0; o >>= 1) {
+      sr += __shfl_down_sync(0xffffffffu, sr, o);
+      si += __shfl_down_sync(0xffffffffu, si, o);
     }
     if (lane == 0) {
-      out_re[cfg * kGroup + g] = sr;
-      out_im[cfg * kGroup + g] = CPLX ? si : 0.0f;
+      out_re[(cfg0 + c) * kGroup + e] = sr;
+      out_im[(cfg0 + c) * kGroup + e] = CPLX ? si : 0.0f;
     }
   }
 }
 
 template <bool CPLX, int ACT>
 int launch(const float* x, const float* lift_re, const float* lift_im,
-           const float* w_re, const float* w_im, const float* b_re,
+           const uint4* wf_re, const uint4* wf_im, const float* b_re,
            const float* b_im, float* out_re, float* out_im, int batch,
-           int height, int width_lat, int ksize, int channels, int n_layers,
-           int residual, int threads, int smem_bytes, cudaStream_t stream) {
+           int n_cfg, int height, int width_lat, int ksize, int channels,
+           int n_layers, int residual, int threads, int smem_bytes,
+           cudaStream_t stream) {
   const int hw = height * width_lat;
-  const Layout lay = smem_layout(hw, kGroup * channels, ksize * ksize, CPLX);
+  const Layout lay =
+      smem_layout(hw, kGroup * channels, ksize * ksize, CPLX, n_cfg);
   if (lay.total_bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -337,34 +435,41 @@ int launch(const float* x, const float* lift_re, const float* lift_im,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch > 0) {
-    gcnn_forward_kernel<CPLX, ACT><<<batch, threads, smem_bytes, stream>>>(
-        x, lift_re, lift_im, w_re, w_im, b_re, b_im, out_re, out_im, height,
-        width_lat, ksize, channels, n_layers, residual);
+    const int blocks = (batch + n_cfg - 1) / n_cfg;
+    gcnn_forward_kernel<CPLX, ACT><<<blocks, threads, smem_bytes, stream>>>(
+        x, lift_re, lift_im, wf_re, wf_im, b_re, b_im, out_re, out_im, batch,
+        n_cfg, height, width_lat, ksize, channels, n_layers, residual);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the forward of `batch` configurations on `stream`; returns
-// cudaGetLastError() (0 = success). activation: 0 lncosh, 1 selu.
+// Launches the forward of `batch` configurations, n_cfg per block, on
+// `stream`; returns cudaGetLastError() (0 = success). activation:
+// 0 lncosh, 1 selu. wf_* are the packed group-layer weights
+// [L-1, k*k, W/8, W/8, 32 lanes] of 16-byte (hi b0, hi b1, lo b0, lo b1).
 extern "C" int gcnn_forward_launch(
     const float* x, const float* lift_re, const float* lift_im,
-    const float* w_re, const float* w_im, const float* b_re,
-    const float* b_im, float* out_re, float* out_im, int batch, int height,
-    int width_lat, int ksize, int channels, int n_layers, int complex_params,
-    int activation, int residual, int threads, int smem_bytes,
-    void* stream) {
+    const void* wf_re, const void* wf_im, const float* b_re,
+    const float* b_im, float* out_re, float* out_im, int batch, int n_cfg,
+    int height, int width_lat, int ksize, int channels, int n_layers,
+    int complex_params, int activation, int residual, int threads,
+    int smem_bytes, void* stream) {
   if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads ||
       channels < 1 || n_layers < 1 || ksize < 1 || ksize % 2 == 0 ||
-      ksize > height || ksize > width_lat || batch < 0 ||
+      ksize > height || ksize > width_lat || batch < 0 || n_cfg < 1 ||
+      n_cfg * height * width_lat > (1 << 20) ||
       (activation != kLncosh && activation != kSelu))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QMCNN_GCNN_LAUNCH(CP, AC)                                            \
-  return launch<CP, AC>(x, lift_re, lift_im, w_re, w_im, b_re, b_im, out_re, \
-                        out_im, batch, height, width_lat, ksize, channels,   \
-                        n_layers, residual, threads, smem_bytes, s)
+  const uint4* fr = static_cast<const uint4*>(wf_re);
+  const uint4* fi = static_cast<const uint4*>(wf_im);
+#define QMCNN_GCNN_LAUNCH(CP, AC)                                           \
+  return launch<CP, AC>(x, lift_re, lift_im, fr, fi, b_re, b_im, out_re,   \
+                        out_im, batch, n_cfg, height, width_lat, ksize,    \
+                        channels, n_layers, residual, threads, smem_bytes, \
+                        s)
   if (complex_params) {
     if (activation == kSelu) QMCNN_GCNN_LAUNCH(true, kSelu);
     QMCNN_GCNN_LAUNCH(true, kLncosh);

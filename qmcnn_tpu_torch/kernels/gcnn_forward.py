@@ -10,6 +10,9 @@ evaluation-only log psi built on them (port of
     gives the design and the bound) or raises; on a CPU tensor it runs
     :func:`gcnn_group_sums_reference`, the plain PyTorch version with the
     same contract. Nothing falls back silently;
+  * :func:`tf32_split` and :func:`pack_group_weights` give the kernel's own
+    weight layout (TF32 hi/lo parts in mma fragment order), built once per
+    parameter state and cached beside ``GCNNWeights`` (:func:`packed_weights`);
   * :class:`FusedLogPsi` is the counterpart of ``make_fused_log_psi``:
     the character phase, the logmeanexp over G and the spin-flip pairing
     run outside the kernel, and the expanded weights are reused until the
@@ -24,6 +27,7 @@ within Hopper's shared memory (``builder.gcnn_kernel_eligible``).
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +44,13 @@ from qmcnn_tpu_torch.ops.cplx import C
 SOURCE = CSRC / "gcnn_forward.cu"
 G = 8
 #: threads per block are capped by the kernel's __launch_bounds__
-MAX_THREADS = 512
+MAX_THREADS = 384
+#: a warp task of the tensor-core layers: at most ROW_TILES 16-row tiles x
+#: COL_TILES 8-column tiles (kRowTiles, kColTiles in the .cu source)
+ROW_TILES = 2
+COL_TILES = 4
+#: rows (configurations x sites) one block takes at most
+MAX_ROWS = 256
 _ACTIVATION_CODES = {"lncosh": 0, "selu": 1}
 
 _LIB: Dict[str, ctypes.CDLL] = {}
@@ -57,7 +67,7 @@ def _lib() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gcnn_forward_launch.argtypes = [vp] * 9 + [ci] * 11 + [vp]
+        lib.gcnn_forward_launch.argtypes = [vp] * 9 + [ci] * 12 + [vp]
         lib.gcnn_forward_launch.restype = ci
         _LIB["gcnn"] = lib
     return lib
@@ -203,21 +213,97 @@ def gcnn_group_sums_reference(x: torch.Tensor, weights: GCNNWeights, *,
              z.im.reshape(batch, G, c, -1).sum((2, 3)))
 
 
-def smem_bytes(hw: int, width: int, kk: int, complex_params: bool) -> int:
-    """Shared memory one block needs; mirrors ``smem_layout`` in the .cu
-    source, which checks that the two agree at every launch."""
-    def r4(v):
-        return (v + 3) // 4 * 4
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``w`` = hi + lo with both parts TF32 (the low 13 mantissa
+    bits zero): hi is ``w`` rounded to nearest with ties away from zero, as
+    PTX ``cvt.rna.tf32.f32`` rounds, and lo the same rounding of the exact
+    remainder ``w - hi``. hi + lo is within 2^-22 of ``w``, relative."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def pack_group_weights(w: torch.Tensor) -> torch.Tensor:
+    """Tap-major group-layer weights [L-1, k*k, W, W] (in, out) -> the
+    kernel's fragment layout [L-1, k*k, W/8, W/8, 8, 4, 4]: per layer, tap,
+    k step (8 input channels), column tile (8 output channels) and lane
+    (g, t) = (lane // 4, lane % 4) of an m16n8k8 B fragment, the words
+    (hi b0, hi b1, lo b0, lo b1) with b0 = w[8 ks + 2 t, 8 nt + g] and
+    b1 = w[8 ks + 2 t + 1, 8 nt + g]. (The fragment's k = t and t + 4 are
+    taken as channels 2 t and 2 t + 1, so that the kernel loads a lane's
+    two activations of a row as one 8-byte word.)"""
+    n, kk, width, _ = w.shape
+    t = w.reshape(n, kk, width // 8, 4, 2, width // 8, 8)
+    hi, lo = tf32_split(t.permute(0, 1, 2, 5, 6, 3, 4))
+    return torch.cat([hi, lo], dim=-1).contiguous()
+
+
+class PackedWeights(NamedTuple):
+    """The kernel's own copy of the group-layer weights
+    (:func:`pack_group_weights` of ``w_re`` and ``w_im``; ``frag_im`` is
+    None for real parameters)."""
+
+    frag_re: torch.Tensor
+    frag_im: Optional[torch.Tensor]
+
+
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PACKED_SLOTS = 4
+
+
+def packed_weights(weights: GCNNWeights) -> PackedWeights:
+    """:func:`pack_group_weights` of ``weights``, reused while its tensors
+    are the same and unchanged (their version counters), so the split runs
+    once per parameter update. Keeps the last few weight sets; holding the
+    source tensors keeps their ids from being reused."""
+    src = (weights.w_re, weights.w_im)
+    stamp = tuple((id(w), w._version) for w in src if w is not None)
+    hit = _PACKED.get(stamp)
+    if hit is not None:
+        _PACKED.move_to_end(stamp)
+        return hit[1]
+    packed = PackedWeights(*(None if w is None else pack_group_weights(w)
+                             for w in src))
+    _PACKED[stamp] = (src, packed)
+    while len(_PACKED) > _PACKED_SLOTS:
+        _PACKED.popitem(last=False)
+    return packed
+
+
+def smem_bytes(hw: int, width: int, kk: int, complex_params: bool,
+               n_cfg: int = 1) -> int:
+    """Shared memory of a block of ``n_cfg`` configurations; mirrors
+    ``smem_layout`` in the .cu source, which checks that the two agree at
+    every launch: two activation buffers of n_cfg * hw rows per part, a
+    row padded to ``width + 4`` words, the spins, and a [kk, rows] table
+    of source rows."""
     parts = 2 if complex_params else 1
-    return 4 * (2 * parts * r4(hw * width) + r4(hw) + kk * hw)
+    rows = n_cfg * hw
+    return 4 * (2 * parts * rows * (width + 4) + (rows + 3) // 4 * 4
+                + kk * rows)
 
 
-def launch_threads(hw: int, width: int) -> int:
-    """Threads per block: one per 4-site x 4-channel tile, in whole warps,
-    at most MAX_THREADS (the tiles then loop)."""
-    tiles = (hw + 3) // 4 * (width // 4)
-    return min(MAX_THREADS, max(32, (tiles + 31) // 32 * 32))
+def configs_per_block(hw: int, width: int, kk: int,
+                      complex_params: bool) -> int:
+    """Configurations per block: as many as shared memory takes, up to
+    MAX_ROWS rows (at least 1; the wrapper raises if 1 does not fit)."""
+    n = max(1, MAX_ROWS // hw)
+    while n > 1 and smem_bytes(hw, width, kk, complex_params,
+                               n) > MAX_SMEM_BYTES:
+        n -= 1
+    return n
+
+
+def launch_threads(hw: int, width: int, n_cfg: int) -> int:
+    """Threads per block: one warp per task of the tensor-core layers
+    (ceil(row tiles / ROW_TILES) row groups x ceil(column tiles /
+    COL_TILES)), at most MAX_THREADS (the tasks then loop)."""
+    row_tiles = (n_cfg * hw + 15) // 16
+    tasks = (-(-row_tiles // ROW_TILES)) * (-(-(width // 8) // COL_TILES))
+    return min(MAX_THREADS, 32 * tasks)
 
 
 def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
@@ -244,12 +330,14 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
         if w is not None and w.device != dev:
             raise ValueError(f"weights on {w.device}, x on {dev}")
     hw = int(np.prod(lattice_shape))
-    width = G * channels[0]
-    smem = smem_bytes(hw, width, kernel_size ** 2, complex_params)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"the fused GCNN forward needs {smem} bytes of "
-                         f"shared memory per block at {hw} sites x width "
+    width, kk = G * channels[0], kernel_size ** 2
+    if smem_bytes(hw, width, kk, complex_params) > MAX_SMEM_BYTES:
+        raise ValueError(f"the fused GCNN forward needs "
+                         f"{smem_bytes(hw, width, kk, complex_params)} bytes "
+                         f"of shared memory per block at {hw} sites x width "
                          f"{width}, above Hopper's {MAX_SMEM_BYTES}")
+    n_cfg = configs_per_block(hw, width, kk, complex_params)
+    packed = packed_weights(weights)
     batch = x.shape[0]
     out_re = torch.empty((batch, G), dtype=torch.float32, device=dev)
     out_im = torch.empty((batch, G), dtype=torch.float32, device=dev)
@@ -260,11 +348,14 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().gcnn_forward_launch(
-            x.data_ptr(), *(ptr(w) for w in ws), out_re.data_ptr(),
-            out_im.data_ptr(), batch, lattice_shape[0], lattice_shape[1],
-            kernel_size, channels[0], len(channels), int(complex_params),
+            x.data_ptr(), ptr(ws.lift_re), ptr(ws.lift_im),
+            ptr(packed.frag_re), ptr(packed.frag_im), ptr(ws.b_re),
+            ptr(ws.b_im), out_re.data_ptr(), out_im.data_ptr(), batch, n_cfg,
+            lattice_shape[0], lattice_shape[1], kernel_size, channels[0],
+            len(channels), int(complex_params),
             _ACTIVATION_CODES[activation], int(residual),
-            launch_threads(hw, width), smem, stream)
+            launch_threads(hw, width, n_cfg),
+            smem_bytes(hw, width, kk, complex_params, n_cfg), stream)
     gcnn_group_sums.launches += 1
     if err != 0:
         raise RuntimeError(f"gcnn_group_sums launch failed: CUDA error {err}")

@@ -1,6 +1,7 @@
 """PyTorch port, slice 2: the square-lattice GCNN (models/gcnn.py) and the
 fused GCNN forward's plain version (kernels/gcnn_forward.py), each against
-the JAX package on equal inputs.
+the JAX package on equal inputs; and the kernel's 3xTF32 product scheme
+(its TF32 hi/lo split and fragment weight layout) emulated on the CPU.
 
 The JAX Pallas kernel runs as tests/test_gcnn_pallas.py runs it
 (``interpret=True``), on the same 4x4 cases and with its tolerances:
@@ -9,6 +10,7 @@ where the model takes Karatsuba), 1e-3 on the deep residual stack (rounding
 compounds with depth), and sign-changing characters compared in normalized
 amplitudes (exact nodes make log psi unbounded there)."""
 import dataclasses
+import functools
 import os
 import zlib
 
@@ -26,7 +28,10 @@ from qmcnn_tpu_torch import builder as tb
 from qmcnn_tpu_torch import configs as tcfg
 from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 from qmcnn_tpu_torch.models import gcnn as tg
+from qmcnn_tpu_torch.models.cnn import _SKIP_SCALE, true_f32
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
+from qmcnn_tpu_torch.ops import cplx
+from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                             params_from_jax, transfer_params)
 
@@ -143,7 +148,7 @@ def test_model_matches_jax(kw):
 def test_fused_plain_version_matches_jax_pallas(kw):
     """gcnn_group_sums (CPU: its plain version) against JAX _group_sums,
     and FusedLogPsi against make_fused_log_psi, both interpreted."""
-    kw = dict(kw)
+    kw_in, kw = kw, dict(kw)
     tol, amp = kw.pop("tol", 1e-4), kw.pop("amp", False)
     c = _build(**kw)
     m = c["kw"]
@@ -161,7 +166,23 @@ def test_fused_plain_version_matches_jax_pallas(kw):
     got = k2.FusedLogPsi(**args)(c["p"], torch.from_numpy(s))
     assert k2.gcnn_group_sums.launches == before  # CPU: the plain version
     _assert_log_psi_close(got, fast(c["v"], s), tol, amp)
-    # the readout sums themselves, on the evaluated (spin-flip doubled) batch
+    # the readout sums themselves
+    ws, sg_j, sums_kw = _jax_group_sums(CASES.index(kw_in))
+    sg_t = k2.gcnn_group_sums(torch.from_numpy(s), ws, **sums_kw)
+    for a, b in ((sg_t.re, sg_j[0]), (sg_t.im, sg_j[1])):
+        np.testing.assert_allclose(a.numpy(), b, rtol=tol, atol=tol * 10)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_group_sums(i):
+    """Case i of CASES: the port's expanded weights, checked element by
+    element against JAX ``expand_gcnn_params``, and JAX ``_group_sums``
+    (interpreted, float32) on ``_spins(2)`` as a numpy (re, im) pair, and
+    the keywords of ``gcnn_group_sums``."""
+    kw = {k: v for k, v in CASES[i].items() if k not in ("tol", "amp")}
+    c = _build(**kw)
+    m = c["kw"]
+    s = _spins(2)
     inner_v = c["v"]["params"]["inner"] if c["spin_flip"] else c["v"][
         "params"]
     lift, layers, biases = jk.expand_gcnn_params(
@@ -188,13 +209,147 @@ def test_fused_plain_version_matches_jax_pallas(kw):
         complex_params=m["complex_params"], activation=m["activation"],
         residual=m["residual"], block=8, interpret=True,
         dtype_name="float32")
-    sg_t = k2.gcnn_group_sums(torch.from_numpy(s), ws, lattice_shape=(H, W),
-                              channels=m["channels"], kernel_size=3,
-                              activation=m["activation"],
-                              residual=m["residual"])
-    for a, b in ((sg_t.re, sg_j.re), (sg_t.im, sg_j.im)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=tol,
+    sums_kw = dict(lattice_shape=(H, W), channels=m["channels"],
+                   kernel_size=3, activation=m["activation"],
+                   residual=m["residual"])
+    return ws, (np.asarray(sg_j.re), np.asarray(sg_j.im)), sums_kw
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).numpy()
+
+
+def test_tf32_split():
+    """hi and lo carry TF32 values (the low 13 mantissa bits zero), hi is
+    round-to-nearest, ties away from zero, at 11 significant bits (an
+    independent frexp formula), and hi + lo is x within 2^-22 relative."""
+    rng = np.random.default_rng(9)
+    x = (rng.normal(size=4096) * 10.0 ** rng.uniform(-6, 6, 4096)).astype(
+        np.float32)
+    ties = np.float32(1.0) + np.float32(2.0 ** -11) * np.arange(1, 8, 2)
+    x = np.concatenate([x, ties, -ties, [0.0, 1.0, -3.5]]).astype(np.float32)
+    hi, lo = k2.tf32_split(torch.from_numpy(x))
+    assert not (_bits(hi) & 0x1FFF).any() and not (_bits(lo) & 0x1FFF).any()
+    m, e = np.frexp(x.astype(np.float64))
+    want = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5) * 2.0 ** (e - 11)
+    np.testing.assert_array_equal(hi.numpy().astype(np.float64), want)
+    total = hi.numpy().astype(np.float64) + lo.numpy().astype(np.float64)
+    assert (np.abs(total - x) <= 2.0 ** -22 * np.abs(x)).all()
+
+
+def test_pack_group_weights_layout():
+    """The kernel's B fragments: word (hi b0, hi b1, lo b0, lo b1) of lane
+    4 g + t at (layer, tap, k step ks, column tile nt) holds the TF32 parts
+    of w[8 ks + 2 t, 8 nt + g] and w[8 ks + 2 t + 1, 8 nt + g]."""
+    rng = np.random.default_rng(10)
+    w = torch.from_numpy(rng.normal(size=(2, 9, 24, 24)).astype(np.float32))
+    frag = k2.pack_group_weights(w).numpy()
+    assert frag.shape == (2, 9, 3, 3, 8, 4, 4)
+    hi, lo = (v.numpy() for v in k2.tf32_split(w))
+    for l, t, ks, nt, g, tg_ in ((0, 0, 0, 0, 0, 0), (1, 8, 2, 1, 7, 3),
+                                 (1, 4, 1, 2, 3, 2), (0, 5, 2, 0, 5, 1)):
+        ci, co = 8 * ks + 2 * tg_, 8 * nt + g
+        np.testing.assert_array_equal(
+            frag[l, t, ks, nt, g, tg_],
+            [hi[l, t, ci, co], hi[l, t, ci + 1, co], lo[l, t, ci, co],
+             lo[l, t, ci + 1, co]])
+    # every weight appears once in each part
+    np.testing.assert_array_equal(np.sort(frag[..., :2].ravel()),
+                                  np.sort(hi.ravel()))
+    np.testing.assert_array_equal(np.sort(frag[..., 2:].ravel()),
+                                  np.sort(lo.ravel()))
+
+
+def test_packed_weights_follow_parameter_updates():
+    """The kernel's packed weights are split once per weight state: reused
+    for the same unchanged tensors, packed again after an in-place change
+    or for new tensors."""
+    c = _build()
+    ws = k2.expand_gcnn_params(c["p"], 3, True)
+    first = k2.packed_weights(ws)
+    assert k2.packed_weights(ws) is first
+    assert k2.packed_weights(k2.GCNNWeights(*ws)) is first  # same tensors
+    np.testing.assert_array_equal(first.frag_re.numpy(),
+                                  k2.pack_group_weights(ws.w_re).numpy())
+    ws.w_im.mul_(0.5)  # in place: the version counter moves
+    moved = k2.packed_weights(ws)
+    assert moved is not first
+    np.testing.assert_array_equal(moved.frag_im.numpy(),
+                                  k2.pack_group_weights(ws.w_im).numpy())
+    real = k2.expand_gcnn_params(_build(complex_params=False)["p"], 3, False)
+    assert k2.packed_weights(real).frag_im is None
+
+
+def _conv_3xtf32(a, w):
+    """conv(a_lo, w_hi) + conv(a_hi, w_lo) + conv(a_hi, w_hi): the
+    kernel's three TF32 passes (each product exact in f32). The weights
+    are split by ``tf32_split``; an activation's hi is its TF32 rounding
+    and its lo the remainder as the tensor cores read it, truncated to
+    TF32."""
+    a_hi = k2.tf32_split(a)[0]
+    bits = (a - a_hi).contiguous().view(torch.int32)
+    a_lo = (bits & -0x2000).view(torch.float32)
+    w_hi, w_lo = k2.tf32_split(w)
+    return (tg.conv_expanded(a_lo, w_hi) + tg.conv_expanded(a_hi, w_lo)
+            + tg.conv_expanded(a_hi, w_hi))
+
+
+def _group_sums_3xtf32(x, weights, *, lattice_shape, channels, kernel_size,
+                       activation, residual):
+    """``gcnn_group_sums_reference`` with every group layer's convolution
+    taken in the kernel's 3xTF32 scheme (the lift stays f32)."""
+    complex_params = weights.lift_im is not None
+    k, width, n_layers = kernel_size, k2.G * channels[0], len(channels)
+    act = cplx.ACTIVATIONS[activation][0 if complex_params else 1]
+    batch = x.shape[0]
+
+    def flax(w, cin):
+        return w.reshape(k, k, cin, width)
+
+    with true_f32():
+        z = x.reshape(batch, 1, *lattice_shape)
+        lift = [tg.conv_expanded(z, flax(weights.lift_re, 1))]
+        if complex_params:
+            lift.append(tg.conv_expanded(z, flax(weights.lift_im, 1)))
+        z = C(*lift) if complex_params else lift[0]
+        for i in range(n_layers):
+            z_in = z
+            if i > 0:
+                wr = flax(weights.w_re[i - 1], width)
+                if complex_params:
+                    wi = flax(weights.w_im[i - 1], width)
+                    z = C(_conv_3xtf32(z.re, wr) - _conv_3xtf32(z.im, wi),
+                          _conv_3xtf32(z.re, wi) + _conv_3xtf32(z.im, wr))
+                else:
+                    z = _conv_3xtf32(z, wr)
+            br = weights.b_re[i].reshape(-1, 1, 1)
+            if complex_params:
+                z = act(C(z.re + br, z.im + weights.b_im[i].reshape(-1, 1, 1)))
+            else:
+                z = act(z + br)
+            if residual and 0 < i < n_layers - 1:
+                z = (z + z_in) * _SKIP_SCALE
+    z = cplx.as_c(z)
+    c = channels[-1]
+    return C(z.re.reshape(batch, k2.G, c, -1).sum((2, 3)),
+             z.im.reshape(batch, k2.G, c, -1).sum((2, 3)))
+
+
+@pytest.mark.parametrize("kw", CASES, ids=IDS)
+def test_3xtf32_group_sums_keep_f32(kw):
+    """The kernel's product scheme, emulated, against the f32 plain version
+    and JAX ``_group_sums`` (interpreted, float32), with the stated
+    tolerances of the parity test above: the split keeps the f32
+    contract."""
+    tol = kw.get("tol", 1e-4)
+    ws, sg_j, args = _jax_group_sums(CASES.index(kw))
+    s = torch.from_numpy(_spins(2))
+    got = _group_sums_3xtf32(s, ws, **args)
+    plain = k2.gcnn_group_sums_reference(s, ws, **args)
+    for a, b, j in ((got.re, plain.re, sg_j[0]), (got.im, plain.im, sg_j[1])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
                                    atol=tol * 10)
+        np.testing.assert_allclose(a.numpy(), j, rtol=tol, atol=tol * 10)
 
 
 def test_fixture_matches_jax():
@@ -355,6 +510,21 @@ def test_gcnn_eligibility_needs_shared_memory(name, fits):
     assert tb.gcnn_kernel_eligible(cfg) == fits
     assert tb.uses_fused_gcnn_forward(cfg, "cuda") == fits
     assert tb.resolve_sampler_backend(cfg, "cuda") == "torch"
+
+
+@pytest.mark.parametrize("shape,channels,n_cfg", [
+    ((8, 8), 8, 3), ((8, 8), 10, 2), ((10, 10), 8, 2), ((12, 12), 10, 1),
+    ((4, 4), 3, 16)])
+def test_gcnn_configs_per_block(shape, channels, n_cfg):
+    """A block takes as many configurations as shared memory holds (up to
+    MAX_ROWS rows), in whole warps of at most MAX_THREADS threads."""
+    hw, width = shape[0] * shape[1], 8 * channels
+    assert k2.configs_per_block(hw, width, 9, True) == n_cfg
+    assert k2.smem_bytes(hw, width, 9, True, n_cfg) <= k2.MAX_SMEM_BYTES
+    assert (n_cfg + 1) * hw > k2.MAX_ROWS or k2.smem_bytes(
+        hw, width, 9, True, n_cfg + 1) > k2.MAX_SMEM_BYTES
+    threads = k2.launch_threads(hw, width, n_cfg)
+    assert threads % 32 == 0 and 32 <= threads <= k2.MAX_THREADS
 
 
 def test_warm_start_from_fixture_is_bit_exact():

@@ -10,7 +10,8 @@ plain versions' parity with JAX is tests/test_torch_sweep.py and
 tests/test_torch_gcnn.py). Sweep decisions must be equal; log psi within
 rtol 1e-5 (float32, the kernel sums in another order than cuDNN). GCNN
 readout sums within rtol/atol 1e-4, 1e-3 for residual stacks deeper than 3
-layers (float32; rounding compounds with depth)."""
+layers (float32, the kernel's 3xTF32 tensor-core products summed in
+another order; rounding compounds with depth)."""
 import numpy as np
 import pytest
 import torch
@@ -104,14 +105,21 @@ def test_shared_memory_limit_raises():
 
 # (lattice, C per group element, layers, complex, activation, residual,
 # batch): W = 8C of 64, 80 and 96; real and complex; lncosh and selu; a
-# residual stack; site counts off the 4-site tile; batches that fit no
-# block size; a single-layer net
+# residual stack; a single-layer net; site counts that fill no 16-row mma
+# tile (25, 36, 100, 144); blocks of 1 to 7 configurations (10x10 at W = 64
+# takes 2, 12x12 at W = 80 takes 1, 8x8 at W = 64 takes 3); and batches
+# that are no multiple of the block's configuration count
 GCNN_CASES = {
     "w64_l3_lncosh_complex": ((8, 8), 8, 3, True, "lncosh", False, 37),
     "w80_l5_selu_residual": ((8, 8), 10, 5, True, "selu", True, 19),
     "w96_l2_selu_real": ((6, 6), 12, 2, False, "selu", False, 33),
     "w64_l2_lncosh_real_5x5": ((5, 5), 8, 2, False, "lncosh", False, 5),
     "w80_l1_complex": ((4, 4), 10, 1, True, "lncosh", False, 3),
+    "w64_l3_lncosh_complex_10x10": ((10, 10), 8, 3, True, "lncosh", False,
+                                    7),
+    "w80_l3_selu_complex_12x12": ((12, 12), 10, 3, True, "selu", False, 5),
+    "w64_l3_lncosh_complex_b1000": ((8, 8), 8, 3, True, "lncosh", False,
+                                    1000),
 }
 
 
