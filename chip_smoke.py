@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   3. kernels  — each kernel against its plain PyTorch version on the card
                 (TF32 off): the fused Metropolis sweep at the flagship
                 shapes (10x10, C=16^3, k=3, M=2048, trained fixture params)
-                and at the tfim16 shape (N=16, C=(12,12), k=5); the fused
+                and at the tfim16 shape (N=16, C=(12,12), k=5), and its
+                recompute forward bitwise the same on a permuted batch, a
+                sub-batch and a longer batch (several walkers share a
+                block); the fused
                 GCNN forward at the j1j2_8x8_gcnn shapes (W=64, L=3,
                 lncosh, complex, B=2048), at the depth-12 fixture
                 (W=80, L=12, selu, residual, B=512, trained params), with
@@ -24,8 +27,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 runs/ab_cnn_float32.csv.params.npz (5 steps after the
                 config's 100 thermalization sweeps; the tail energy must sit
                 within 0.01/site of the -0.6705/site the JAX run that wrote
-                the fixture reached), a few steps of configs/tfim16_sgd.yaml
-                (flip moves, 1D, the ED check), and configs/j1j2_8x8_gcnn.yaml
+                the fixture reached; the sweep kernel serves the sweeps,
+                the refreshes and E_loc, at the expected count per step),
+                a few steps of configs/tfim16_sgd.yaml (flip moves, 1D, the
+                ED check, the same count), and configs/j1j2_8x8_gcnn.yaml
                 at full width (M=1024, exchange_anti, minSR; 3 steps after 20
                 thermalization sweeps; the fused GCNN forward must run on
                 every evaluation, at the expected count per step, and match
@@ -36,8 +41,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   5. timings  — CUDA-event times of each kernel, its plain version and its
                 bounds at the main path's shapes (``bound_ms``: the least
                 work as f32-accurate 3xTF32 on the tensor cores, or the
-                bytes; ``fp32_bound_ms``: the same work on the FP32 cores),
-                the GCNN kernel's configurations per block, and the
+                bytes; ``fp32_bound_ms``: the same work on the FP32 cores):
+                the sweep kernel per sweep and as the recompute forward of
+                the heis10x10_sr E_loc batch (411,648 configurations) beside
+                the cuDNN model on the same batch (its log psi within rtol
+                1e-5), the kernels' blocks, and the
                 per-phase split of a training step of each path
                 (``qmcnn_tpu_torch.step_timing``);
   6. report   — one JSON line of kernel records, the card line, and the
@@ -178,6 +186,46 @@ def compare_kernel(case, n_sweeps: int = 2) -> dict:
     return {"max_abs_err": max_abs}
 
 
+def check_position_invariance(case) -> None:
+    """The recompute forward gives a configuration's log psi bitwise the
+    same in any slot of a block and at any batch size: a permuted batch, a
+    sub-batch and a batch three configurations longer give the same bits."""
+    import torch
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
+
+    p, lat, s = case["params"], case["lattice"], case["s"]
+    zeros = torch.zeros(s.shape[0] + 3, device=s.device)
+
+    def recompute(x):
+        return metropolis_sweep(p, x, zeros[:x.shape[0]],
+                                lattice_shape=lat.shape, n_props=0)[1]
+
+    full = recompute(s)
+    perm = torch.randperm(s.shape[0], generator=torch.Generator().manual_seed(
+        0)).to(s.device)
+    results = {"permuted": torch.equal(recompute(s[perm]), full[perm]),
+               "sub-batch": torch.equal(recompute(s[3:8]), full[3:8]),
+               "longer batch": torch.equal(
+                   recompute(torch.cat([s[:3], s]))[3:], full)}
+    print(f"  {case['name']} {case['move']}: recompute bitwise equal "
+          f"({', '.join(f'{k} {v}' for k, v in results.items())})")
+    check(all(results.values()), f"{case['name']}: log psi depends on the "
+          f"slot or the batch size: {results}")
+
+
+def cnn_model(params, lattice):
+    """The LogPsiCNN of a plain real CNN's params (channels and kernel read
+    from them), on the params' device."""
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import conv_layers
+    from qmcnn_tpu_torch.models.cnn import LogPsiCNN
+
+    layers = conv_layers(params, lattice.shape)
+    model = LogPsiCNN(lattice.shape,
+                      channels=[int(k.shape[-1]) for k, _ in layers],
+                      kernel_size=tuple(layers[0][0].shape[:-2]))
+    return model.to(layers[0][0].device)
+
+
 def bounds(flop: float, n_bytes: float):
     """(bound ms, 'operations' | 'bytes', FP32-core bound ms): the least
     time of f32-accurate work on the tensor cores (TF32_PASSES TF32 passes
@@ -196,7 +244,7 @@ def time_sweep(case, card: str) -> dict:
     import torch
     from qmcnn_tpu_torch.kernels.metropolis_sweep import (metropolis_sweep,
                                                           sweep_reference)
-    from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
     from qmcnn_tpu_torch.ops.cplx import C
     from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler,
                                                     WalkerState, sweep_noise)
@@ -206,13 +254,10 @@ def time_sweep(case, card: str) -> dict:
     kw = dict(lattice_shape=lat.shape, move=case["move"], bonds=case["bonds"])
     noise = sweep_noise(case["key"], case["ids"], n, case["n_choices"])
     ms = cuda_ms(lambda: metropolis_sweep(p, s, lp, n_props=n, noise=noise,
-                                          **kw), reps=5)
+                                          **kw), reps=10)
     plain_ms = cuda_ms(lambda: sweep_reference(p, s, lp, n_props=n,
                                                noise=noise, **kw), reps=2)
-    channels = [int(v.shape[-1]) for k, v in sorted(p.items())
-                if k.endswith("/kernel")]
-    ksz = tuple(p["params/RealConv_0/kernel"].shape[:-2])
-    model = LogPsiCNN(lat.shape, channels=channels, kernel_size=ksz)
+    model = cnn_model(p, lat)
     sampler = MetropolisSampler(lambda q, x: log_psi_apply(model, q, x),
                                 n_sites=n, move=case["move"],
                                 bonds=case["bonds"], backend="torch")
@@ -233,6 +278,43 @@ def time_sweep(case, card: str) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "torch_sampler_ms": torch_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "fp32_bound_ms": fp32_ms}
+
+
+def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
+    """The sweep kernel's recompute forward (``FusedCNNLogPsi``, the
+    evaluation forward of E_loc) at the E_loc batch of heis10x10_sr against
+    the cuDNN model (TF32 off; the plain version of the recompute mode) on
+    the same configurations: log psi within rtol 1e-5, both times, and the
+    bounds (configurations read once, log psi written once)."""
+    import torch
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
+
+    n = lattice.n_sites
+    x = init_walkers(prng_key(31), batch, n, sector="sz0", device="cuda")
+    model = cnn_model(params, lattice)
+    fused = FusedCNNLogPsi(lattice_shape=lattice.shape)
+    with torch.no_grad():
+        got = fused(params, x).re.double()
+        want = log_psi_apply(model, params, x).re.double()
+    rel = float(((got - want).abs() / want.abs()).max())
+    del got, want
+    ms = cuda_ms(lambda: fused(params, x), reps=5)
+    with torch.no_grad():
+        cudnn_ms = cuda_ms(lambda: log_psi_apply(model, params, x), reps=5)
+    flop = batch * forward_flop(params, n)
+    n_bytes = 4 * (batch * n + batch + sum(v.numel() for v in params.values()))
+    bound_ms, bound_by, fp32_ms = bounds(flop, n_bytes)
+    print(f"  recompute forward at the E_loc batch B={batch} ({card}): kernel "
+          f"{ms:.4f} ms, cuDNN model (TF32 off) {cudnn_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({flop:.3e} FLOP x {TF32_PASSES}, {bound_by}) "
+          f"= {100 * bound_ms / ms:.1f}% of it; FP32-core bound "
+          f"{fp32_ms:.4f} ms = {100 * fp32_ms / ms:.1f}%; log psi max rel "
+          f"err vs cuDNN {rel:.3e}")
+    check(rel <= 1e-5, f"recompute forward at B={batch}: rel err {rel}")
+    return {"ms": ms, "cudnn_ms": cudnn_ms, "bound_ms": bound_ms,
+            "fp32_bound_ms": fp32_ms, "max_rel_err": rel}
 
 
 def step_split(cfg, state, card: str, label: str) -> dict:
@@ -413,17 +495,24 @@ def compare_gcnn_log_psi(name: str, model, params, x, fused_kw: dict,
     check(float(dphi.abs().max()) <= 1e-3, f"{name}: phases differ")
 
 
-def expected_k2_launches(cfg) -> dict:
-    """K2 launches of one training step (refresh, every proposal, every
-    E_loc chunk) and of the whole train() run."""
+def expected_launches(cfg, vmc) -> dict:
+    """Launches of the kernel behind ``vmc``'s evaluation forward in one
+    training step (the refresh; the sweeps: one launch of the fused sweep,
+    or one per proposal of the torch loop; one per E_loc chunk) and in the
+    whole train() run (the initial refresh, then a refresh and the sweeps
+    per thermalization chunk)."""
     import numpy as np
     from qmcnn_tpu_torch.train import therm_chunks
 
     m = cfg.sampler.n_walkers
     sweep = cfg.sampler.sweep_size or int(np.prod(cfg.lattice.shape))
-    chunks = -(-m // (cfg.run.chunk_size or m))
-    per_step = 1 + cfg.sampler.n_sweeps_per_step * sweep + chunks
-    therm = sum(1 + n * sweep for _, n in
+
+    def sweeps(n):
+        return 1 if vmc.sampler.backend == "cuda" else n * sweep
+
+    chunks = -(-m // (vmc.chunk_size or m))
+    per_step = 1 + sweeps(cfg.sampler.n_sweeps_per_step) + chunks
+    therm = sum(1 + sweeps(n) for _, n in
                 therm_chunks(cfg.sampler.n_therm_sweeps,
                              cfg.run.therm_sweeps_per_dispatch))
     return {"per_step": per_step,
@@ -479,7 +568,8 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
     cfg = configs.load(str(GCNN_CONFIG), (
         "sampler.n_therm_sweeps=20", "run.n_steps=3", "run.log_every=1",
         f"run.csv_path={csv}"))
-    want = expected_k2_launches(cfg)
+    vmc, _, _ = build(cfg, device="cuda")
+    want = expected_launches(cfg, vmc)
     k1.metropolis_sweep.launches = 0
     k2.gcnn_group_sums.launches = 0
     t0 = time.perf_counter()
@@ -500,8 +590,8 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
     check(launches > 0, "gcnn: the training path never launched K2")
     check(launches == want["run"], f"gcnn: {launches} K2 launches, "
           f"expected {want['run']}")
+    check(k1_launches == 0, "gcnn: the GCNN path launched the sweep kernel")
 
-    vmc, _, _ = build(cfg, device="cuda")
     ids = torch.arange(cfg.sampler.n_walkers, device="cuda")
     k2.gcnn_group_sums.launches = 0
     new, mt = vmc.step(state, prng_key(17), ids)
@@ -582,9 +672,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
     from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
     from qmcnn_tpu_torch.lattice import chain, square
+    from qmcnn_tpu_torch.sampler.metropolis import prng_key
     from qmcnn_tpu_torch.models.cnn import LogPsiCNN
     from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
     from qmcnn_tpu_torch.train import train
@@ -633,6 +725,8 @@ def main() -> int:
                                   3, dev),
     }
     errs = {k: compare_kernel(c)["max_abs_err"] for k, c in cases.items()}
+    for k in ("flagship_flip", "tfim16_flip"):
+        check_position_invariance(cases[k])
 
     print("[3] fused GCNN forward vs plain version (TF32 off)", flush=True)
     t0 = time.perf_counter()
@@ -682,6 +776,12 @@ def main() -> int:
     cfg = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"), (
         f"run.init_from={FIXTURE}", "run.n_steps=5", "run.log_every=1",
         f"run.csv_path={csv}"))
+    vmc, _, _ = build(cfg, device="cuda")
+    check(isinstance(vmc.eval_log_psi_fn, k1.FusedCNNLogPsi)
+          and vmc.sampler.backend == "cuda",
+          "heis10x10_sr: the sweep kernel does not serve the sampler and "
+          "E_loc")
+    want = expected_launches(cfg, vmc)
     k1.metropolis_sweep.launches = 0
     t0 = time.perf_counter()
     state, logger = train(cfg, device="cuda")
@@ -693,30 +793,43 @@ def main() -> int:
     tail, _ = logger.tail_energy()
     e_site = tail / sq.n_sites
     print(f"    heis10x10_sr: {time.perf_counter() - t0:.1f} s, kernel "
-          f"launches {launches}, E/site tail {e_site:.5f} (fixture "
-          f"{E_SITE_FIXTURE}), accept {acc.tolist()}, sr_iters "
-          f"{hist['sr_iters']}")
+          f"launches {launches} (expected {want['run']}), E/site tail "
+          f"{e_site:.5f} (fixture {E_SITE_FIXTURE}), accept {acc.tolist()}, "
+          f"sr_iters {hist['sr_iters']}")
     check(np.isfinite(e).all(), "non-finite energies")
     check(((acc > 0) & (acc < 1)).all(), "accept rate outside (0, 1)")
     check(min(hist["sr_iters"]) > 0, "SR ran no iterations")
-    check(launches > 0, "the training path never launched the kernel")
+    check(launches == want["run"], f"{launches} sweep-kernel launches, "
+          f"expected {want['run']}")
     check(abs(e_site - E_SITE_FIXTURE) <= 0.01,
           f"E/site {e_site} not within 0.01 of {E_SITE_FIXTURE}")
+    k1.metropolis_sweep.launches = 0
+    vmc.step(state, prng_key(17), torch.arange(cfg.sampler.n_walkers,
+                                               device="cuda"))
+    torch.cuda.synchronize()
+    per_step = k1.metropolis_sweep.launches
+    print(f"    one more step: sweep-kernel launches {per_step} (expected "
+          f"{want['per_step']}: refresh, sweep, E_loc chunks)")
+    check(per_step == want["per_step"], f"{per_step} sweep-kernel launches "
+          f"in a step, expected {want['per_step']}")
 
     print("[4] main path: tfim16_sgd training", flush=True)
     csv_t = out_dir / "tfim16_sgd.csv"
     cfg_t = configs.load(str(ROOT / "configs" / "tfim16_sgd.yaml"), (
         "run.n_steps=20", "run.log_every=5", f"run.csv_path={csv_t}"))
-    before = k1.metropolis_sweep.launches
+    want_t = expected_launches(cfg_t, build(cfg_t, device="cuda")[0])
+    k1.metropolis_sweep.launches = 0
     t0 = time.perf_counter()
     _, logger_t = train(cfg_t, device="cuda")
+    launches_t = k1.metropolis_sweep.launches
     e_t = np.asarray(logger_t.history["energy_re"])
     rel = logger_t.history["rel_err"]
     print(f"    tfim16_sgd: {time.perf_counter() - t0:.1f} s, kernel "
-          f"launches {k1.metropolis_sweep.launches - before}, rel_err "
+          f"launches {launches_t} (expected {want_t['run']}), rel_err "
           f"{[round(r, 4) for r in rel]}")
     check(np.isfinite(e_t).all(), "tfim16: non-finite energies")
-    check(k1.metropolis_sweep.launches > before, "tfim16: no kernel launch")
+    check(launches_t == want_t["run"], f"tfim16: {launches_t} kernel "
+          f"launches, expected {want_t['run']}")
     # 20 plain-SGD steps barely leave the near-uniform init (E = -h N =
     # -16, rel_err 0.216): hold the tail to the variational bound and to
     # that starting point
@@ -736,6 +849,13 @@ def main() -> int:
     print(f"[5] timings ({card})", flush=True)
     t_flag = time_sweep(cases["flagship_exchange"], card)
     t_tfim = time_sweep(cases["tfim16_flip"], card)
+    n_conn = vmc.ham.n_conn
+    t_x = time_e_loc_batch(flagship, sq, 2048 * (n_conn + 1), card)
+    print(f"  sweep kernel: {k1.walkers_per_block(100, 9, [1, 16, 16, 16])} "
+          f"walkers x 100 sites per block, "
+          f"{k1.launch_threads(100, [1, 16, 16, 16], 8)} threads, "
+          f"{k1.smem_bytes(100, 9, [1, 16, 16, 16], 8)} bytes of shared "
+          f"memory at the flagship")
     step_split(cfg, state, card, "heis10x10_sr")
     t_eloc = time_gcnn(*gcnn_case(main_kw, 256 * 256 * 2, 26, dev)[1:], card,
                        "K2 at the E_loc chunk shape (256 x 256 x 2)")
@@ -760,6 +880,11 @@ def main() -> int:
         "bound_by": t_flag["bound_by"],
         "fp32_bound_ms": t_flag["fp32_bound_ms"],
         "library_ms": None,
+        "e_loc_ms": t_x["ms"],
+        "e_loc_cudnn_ms": t_x["cudnn_ms"],
+        "e_loc_bound_ms": t_x["bound_ms"],
+        "e_loc_fp32_bound_ms": t_x["fp32_bound_ms"],
+        "e_loc_max_rel_err": t_x["max_rel_err"],
     }
     rec2 = {
         "name": "gcnn_group_sums",
@@ -776,8 +901,8 @@ def main() -> int:
         "library_ms": None,
     }
     print(f"    tfim16 shape: kernel {t_tfim['ms']:.4f} ms/sweep, plain "
-          f"{t_tfim['plain_ms']:.4f}, bound {t_tfim['bound_ms']:.5f} "
-          f"({card})")
+          f"{t_tfim['plain_ms']:.4f}, bound {t_tfim['bound_ms']:.5f}, "
+          f"FP32-core bound {t_tfim['fp32_bound_ms']:.5f} ({card})")
     print(f"    K2 sweep shape: kernel {t_swp['ms']:.4f} ms, plain "
           f"{t_swp['plain_ms']:.4f}, bound {t_swp['bound_ms']:.4f}, FP32-core "
           f"bound {t_swp['fp32_bound_ms']:.4f} ({card})")

@@ -314,14 +314,14 @@ def resolve_move(cfg: Config) -> str:
     return "exchange"
 
 
-def kernel_eligible(cfg: Config) -> bool:
-    """The CUDA sweep computes the plain real, f32, lncosh, skip-free,
-    periodic CNN on a one-site-basis grid with flip or exchange moves: the
-    JAX eligibility rule plus the activation, residual, pbc and move checks
-    it lacks."""
+def cnn_forward_eligible(cfg: Config) -> bool:
+    """The CUDA sweep kernel's forward computes the plain real, f32,
+    lncosh, skip-free, periodic CNN on a one-site-basis grid, with one
+    walker's activations and the weights within a block's shared memory:
+    the JAX eligibility rule (without its move condition) plus the
+    activation, residual, pbc and shared-memory checks it lacks."""
     m = cfg.model
-    return (m.kind == "cnn"
-            and resolve_move(cfg) in ("flip", "exchange")
+    if not (m.kind == "cnn"
             and m.lanczos_alpha is None
             and not m.complex_params
             and not m.translation_average
@@ -335,7 +335,25 @@ def kernel_eligible(cfg: Config) -> bool:
             and cfg.lattice.geometry not in ("honeycomb", "kagome")
             and m.activation == "lncosh"
             and not m.residual
-            and cfg.lattice.pbc)
+            and cfg.lattice.pbc):
+        return False
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import smem_bytes
+    from qmcnn_tpu_torch.kernels.nvcc import MAX_SMEM_BYTES
+
+    shape = tuple(cfg.lattice.shape)
+    ksz = m.kernel_size
+    if isinstance(ksz, int):
+        ksz = (ksz,) * len(shape)
+    taps = math.prod(min(k, n) for k, n in zip(ksz, shape))
+    return smem_bytes(math.prod(shape), taps,
+                      [1] + list(m.channels)) <= MAX_SMEM_BYTES
+
+
+def kernel_eligible(cfg: Config) -> bool:
+    """The CUDA sweep runs an eligible CNN forward
+    (:func:`cnn_forward_eligible`) with flip or exchange moves."""
+    return (resolve_move(cfg) in ("flip", "exchange")
+            and cnn_forward_eligible(cfg))
 
 
 def gcnn_kernel_eligible(cfg: Config) -> bool:
@@ -374,6 +392,15 @@ def uses_fused_gcnn_forward(cfg: Config, device) -> bool:
             and gcnn_kernel_eligible(cfg))
 
 
+def uses_fused_cnn_forward(cfg: Config, device) -> bool:
+    """True when the sampler and E_loc evaluate the CNN through the sweep
+    kernel's recompute forward: backend 'auto' on a CUDA device for an
+    eligible CNN, whatever the move. 'xla' keeps the plain model."""
+    return (cfg.sampler.backend == "auto"
+            and torch.device(device).type == "cuda"
+            and cnn_forward_eligible(cfg))
+
+
 def resolve_sampler_backend(cfg: Config, device) -> str:
     """The sweep engine: 'torch' (the plain proposal loop over the
     evaluation forward) or 'cuda' (the fused sweep kernel).
@@ -394,7 +421,8 @@ def resolve_sampler_backend(cfg: Config, device) -> str:
                 "sampler backend 'pallas' (the CUDA sweep kernel) supports "
                 "only the plain real CNN: f32, lncosh, no residual skips, "
                 "periodic boundaries, one-site basis, flip or exchange "
-                "moves, no symmetry projections, phase priors or jastrow")
+                "moves, no symmetry projections, phase priors or jastrow, "
+                "and one walker within a block's shared memory")
         if not on_cuda:
             raise ValueError("sampler backend 'pallas' runs the CUDA sweep "
                              f"kernel; device is {device}")
@@ -425,8 +453,13 @@ def build(cfg: Config, device="cuda") -> Tuple[VMC, dict, Lattice]:
 
     params = model.init(cfg.run.seed, device=device)
     move = resolve_move(cfg)
-    eval_log_psi_fn = (fused_gcnn_log_psi(cfg, lattice)
-                       if uses_fused_gcnn_forward(cfg, device) else log_psi_fn)
+    eval_log_psi_fn = log_psi_fn
+    if uses_fused_gcnn_forward(cfg, device):
+        eval_log_psi_fn = fused_gcnn_log_psi(cfg, lattice)
+    elif uses_fused_cnn_forward(cfg, device):
+        from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+
+        eval_log_psi_fn = FusedCNNLogPsi(lattice_shape=tuple(lattice.shape))
     sampler = MetropolisSampler(
         eval_log_psi_fn,
         n_sites=lattice.n_sites,

@@ -122,24 +122,29 @@ def _worker(root: str) -> dict:
     return rec
 
 
-def _run_tree(tree: Path) -> dict:
+def _run_tree(tree: Path, script: Path, mark: str) -> dict:
+    """``_worker`` of the module file ``script`` in a subprocess that
+    imports ``qmcnn_tpu_torch`` from ``tree``; returns its record."""
     code = ("import sys, importlib.util as u; sys.path.insert(0, sys.argv[1]);"
-            " s = u.spec_from_file_location('_gcnn_ab', sys.argv[2]);"
+            " s = u.spec_from_file_location('_ab_worker', sys.argv[2]);"
             " m = u.module_from_spec(s); s.loader.exec_module(m);"
             " print(m.MARK + m.json.dumps(m._worker(sys.argv[1])))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", code, str(tree), str(Path(__file__).resolve())],
+        [sys.executable, "-c", code, str(tree), str(script)],
         cwd=tree, env=env, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(MARK):
-            return json.loads(line[len(MARK):])
+        if line.startswith(mark):
+            return json.loads(line[len(mark):])
     raise RuntimeError(f"run in {tree} failed ({proc.returncode}):\n"
                        f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_ab(argv, script: Path, mark: str, description: str) -> int:
+    """The command line of an A/B script whose module file ``script``
+    defines ``MARK`` (= ``mark``), ``json`` and ``_worker(root) -> dict``:
+    one worker run per ``--tree``, in order, then the means per tree."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--tree", action="append", required=True,
                    help="a source tree holding qmcnn_tpu_torch/ (repeat, in "
                         "the order to run, e.g. A B B A)")
@@ -147,7 +152,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     runs = []
     for tree in args.tree:
-        rec = _run_tree(Path(tree).resolve())
+        rec = _run_tree(Path(tree).resolve(), script, mark)
         runs.append(rec)
         line = json.dumps(rec)
         print(line, flush=True)
@@ -163,6 +168,11 @@ def main(argv=None) -> int:
     print(json.dumps({"mean": {t: {k: sum(v) / len(v) for k, v in d.items()}
                                for t, d in means.items()}}))
     return 0
+
+
+def main(argv=None) -> int:
+    return run_ab(argv, Path(__file__).resolve(), MARK,
+                  __doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -10,9 +10,10 @@ evaluation-only log psi built on them (port of
     gives the design and the bound) or raises; on a CPU tensor it runs
     :func:`gcnn_group_sums_reference`, the plain PyTorch version with the
     same contract. Nothing falls back silently;
-  * :func:`tf32_split` and :func:`pack_group_weights` give the kernel's own
-    weight layout (TF32 hi/lo parts in mma fragment order), built once per
-    parameter state and cached beside ``GCNNWeights`` (:func:`packed_weights`);
+  * :func:`pack_group_weights` gives the kernel's own weight layout (TF32
+    hi/lo parts from ``kernels/tf32.py`` in mma fragment order), built once
+    per parameter state and cached beside ``GCNNWeights``
+    (:func:`packed_weights`);
   * :class:`FusedLogPsi` is the counterpart of ``make_fused_log_psi``:
     the character phase, the logmeanexp over G and the spin-flip pairing
     run outside the kernel, and the expanded weights are reused until the
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from qmcnn_tpu_torch.kernels.nvcc import CSRC, MAX_SMEM_BYTES, build_library
+from qmcnn_tpu_torch.kernels.tf32 import tf32_split
 from qmcnn_tpu_torch.models.cnn import _SKIP_SCALE, true_f32
 from qmcnn_tpu_torch.models.gcnn import (_group_kernel, _lift_kernel,
                                          c4v_tables, conv_expanded,
@@ -211,19 +213,6 @@ def gcnn_group_sums_reference(x: torch.Tensor, weights: GCNNWeights, *,
     c = channels[-1]
     return C(z.re.reshape(batch, G, c, -1).sum((2, 3)),
              z.im.reshape(batch, G, c, -1).sum((2, 3)))
-
-
-def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 ``w`` = hi + lo with both parts TF32 (the low 13 mantissa
-    bits zero): hi is ``w`` rounded to nearest with ties away from zero, as
-    PTX ``cvt.rna.tf32.f32`` rounds, and lo the same rounding of the exact
-    remainder ``w - hi``. hi + lo is within 2^-22 of ``w``, relative."""
-    def rna(v):
-        bits = v.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-    hi = rna(w)
-    return hi, rna(w - hi)
 
 
 def pack_group_weights(w: torch.Tensor) -> torch.Tensor:

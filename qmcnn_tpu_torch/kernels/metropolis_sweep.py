@@ -8,6 +8,14 @@ the design and the bound). On a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it runs ``sweep_reference``, the plain PyTorch
 version with the same contract. Nothing falls back silently.
 
+The kernel takes its weights as one blob in its own layout
+(:func:`pack_sweep_weights`: TF32 hi/lo parts in mma fragment order for
+the tensor-core layers), built once per parameter state
+(:func:`packed_weights`), and runs ``walkers_per_block`` walkers per block
+(a mirror of the source's ``smem_layout``). Its recompute mode
+(``n_props = 0``) is also the CNN's evaluation forward,
+:class:`FusedCNNLogPsi`.
+
 Noise comes in from outside, as in the TPU kernel: ``noise=(choices,
 log_u)``, both ``[n_props, M]`` (flip: the site; exchange: the bond index).
 Identical noise gives identical Metropolis decisions in the kernel, in
@@ -22,13 +30,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from qmcnn_tpu_torch.kernels.nvcc import CSRC, MAX_SMEM_BYTES, build_library
+from qmcnn_tpu_torch.kernels.tf32 import tf32_split
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN, _tap_offsets, log_psi_apply
+from qmcnn_tpu_torch.ops.cplx import C
 
 SOURCE = CSRC / "metropolis_sweep.cu"
 MAX_LAYERS = 16
@@ -47,8 +58,8 @@ def _lib() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.metropolis_sweep_launch.argtypes = [vp] * 11 + [ci] * 6 + [
-            vp, ci, ci, vp]
+        lib.metropolis_sweep_launch.argtypes = [vp] * 10 + [ci] * 6 + [
+            vp, ci, ci, ci, vp]
         lib.metropolis_sweep_launch.restype = ci
         _LIB["sweep"] = lib
     return lib
@@ -179,18 +190,158 @@ def sweep_reference(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
     return s_cur, lp, n_acc
 
 
-def smem_bytes(n_sites: int, taps: int, channels: Sequence[int]) -> int:
-    """Shared memory one block of the kernel needs (``channels`` includes
-    the input channel count first). Mirrors ``smem_layout`` in the .cu
-    source, which checks that the two agree at every launch."""
-    def r4(x):
-        return (x + 3) // 4 * 4
+#: threads per block are capped by the kernel's __launch_bounds__
+#: (kMaxThreads in the .cu source)
+MAX_THREADS = 800
+#: a warp task of the tensor-core layers: ROW_TILES 16-row tiles x at most
+#: COL_TILES 8-column tiles (kRowTiles, kMaxColTiles)
+ROW_TILES = 2
+COL_TILES = 3
+#: state words per walker slot (kSlotWords)
+SLOT_WORDS = 7
+#: walker slots per block at most: at M = 2048 walkers of 10x10 on 132
+#: SMs, 8 per block run in two full waves of one block per SM (shared
+#: memory would take 11; fewer per block, with two or three blocks per SM,
+#: measured no faster)
+MAX_WALKERS = 8
 
-    coutp = [(c + 15) // 16 * 16 for c in channels[1:]]
-    w_total = sum(taps * channels[i] * coutp[i] for i in range(len(coutp)))
-    floats = (r4(w_total) + r4(sum(coutp)) + 2 * r4(max(channels[1:]) * n_sites)
-              + 2 * r4(n_sites) + 32)
-    return 4 * (floats + taps * n_sites)
+
+def _pad8(x: int) -> int:
+    return (x + 7) // 8 * 8
+
+
+def _r4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def col_tiles(n_ct: int) -> int:
+    """8-column tiles per warp task for a layer of ``n_ct`` column tiles
+    (the source's ``col_tiles``): as few column groups as COL_TILES allows,
+    spread evenly."""
+    groups = -(-n_ct // COL_TILES)
+    return -(-n_ct // groups)
+
+
+def col_groups(c: int) -> int:
+    """Column groups (warp tasks across the columns) of a tensor-core layer
+    with ``c`` output channels."""
+    n_ct = _pad8(c) // 8
+    return -(-n_ct // col_tiles(n_ct))
+
+
+def blob_words(taps: int, channels: Sequence[int]) -> int:
+    """Words of :func:`pack_sweep_weights`' blob (``channels`` includes the
+    input channel count first)."""
+    cp = [_pad8(c) for c in channels]
+    frag = sum(2 * taps * cp[i] * cp[i + 1] for i in range(1, len(cp) - 1))
+    return _r4(taps * cp[1]) + _r4(sum(cp[1:])) + frag
+
+
+def smem_bytes(n_sites: int, taps: int, channels: Sequence[int],
+               walkers: int = 1) -> int:
+    """Shared memory of a block of ``walkers`` slots; mirrors
+    ``smem_layout`` in the .cu source, which checks that the two agree at
+    every launch: the weight blob, two activation buffers of walkers x N
+    rows (one for a 2-layer stack, none for one layer), a row padded to
+    pad8(max hidden C) + 4 words, the spins, the last layer's per-row
+    partial sums (one per column group), SLOT_WORDS words of state per slot
+    and the [taps, N] table."""
+    n_layers = len(channels) - 1
+    rows = walkers * n_sites
+    stride = max([8] + [_pad8(c) for c in channels[1:-1]]) + 4
+    parts = 1 if n_layers == 1 else col_groups(channels[-1])
+    words = (blob_words(taps, channels) + min(n_layers - 1, 2) * rows * stride
+             + _r4(rows) + _r4(rows * parts) + SLOT_WORDS * _r4(walkers)
+             + taps * n_sites)
+    return 4 * words
+
+
+def walkers_per_block(n_sites: int, taps: int,
+                      channels: Sequence[int]) -> int:
+    """Walker slots per block: as many as shared memory takes, up to
+    MAX_WALKERS (at least 1; the wrapper raises if 1 does not fit)."""
+    w = MAX_WALKERS
+    while w > 1 and smem_bytes(n_sites, taps, channels, w) > MAX_SMEM_BYTES:
+        w -= 1
+    return w
+
+
+def launch_threads(n_sites: int, channels: Sequence[int],
+                   walkers: int) -> int:
+    """Threads per block: one warp per task of the widest tensor-core layer
+    (ceil(row tiles / ROW_TILES) row groups x its column groups), at most
+    MAX_THREADS (the tasks then loop)."""
+    row_tiles = -(-walkers * n_sites // 16)
+    groups = max([1] + [col_groups(c) for c in channels[2:]])
+    return min(MAX_THREADS, 32 * -(-row_tiles // ROW_TILES) * groups)
+
+
+def pack_sweep_weights(layers, taps: int) -> torch.Tensor:
+    """The kernel's weight blob (float32 words, on the layers' device):
+      * the first layer's kernel [taps, pad8(C1)];
+      * every layer's bias, each padded to a multiple of 8;
+      * per later layer the B fragments of m16n8k8 TF32 mma,
+        [taps, Cin/8, Cout/8, 8, 4, 4] with Cin and Cout padded to 8: per
+        tap, k step (8 input channels), column tile (8 output channels) and
+        lane (g, t) = (lane // 4, lane % 4) the words (hi b0, hi b1, lo b0,
+        lo b1), b0 = w[8 ks + t, 8 nt + g] and b1 = w[8 ks + t + 4,
+        8 nt + g], split by ``kernels/tf32.tf32_split``.
+    The first two parts are each padded to a multiple of 4 words. Padding
+    is zero."""
+    f = torch.nn.functional
+    kern0, _ = layers[0]
+    c1 = int(kern0.shape[-1])
+    w0 = f.pad(kern0.detach().to(torch.float32).reshape(taps, c1),
+               (0, _pad8(c1) - c1)).reshape(-1)
+    biases = torch.cat([f.pad(b.detach().to(torch.float32),
+                              (0, _pad8(b.shape[0]) - b.shape[0]))
+                        for _, b in layers])
+    parts = [f.pad(w0, (0, _r4(w0.numel()) - w0.numel())),
+             f.pad(biases, (0, _r4(biases.numel()) - biases.numel()))]
+    for kern, _ in layers[1:]:
+        cin, cout = int(kern.shape[-2]), int(kern.shape[-1])
+        cinp, coutp = _pad8(cin), _pad8(cout)
+        w = f.pad(kern.detach().to(torch.float32).reshape(taps, cin, cout),
+                  (0, coutp - cout, 0, cinp - cin))
+        t = w.reshape(taps, cinp // 8, 2, 4, coutp // 8, 8)
+        hi, lo = tf32_split(t.permute(0, 1, 4, 5, 3, 2))
+        parts.append(torch.cat([hi, lo], dim=-1).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PACKED_SLOTS = 4
+
+
+def packed_weights(layers, taps: int) -> torch.Tensor:
+    """:func:`pack_sweep_weights` of ``layers``, reused while its tensors
+    are the same and unchanged (their version counters), so the split runs
+    once per parameter state, not once per call. Keeps the last few weight
+    sets; holding the source tensors keeps their ids from being reused."""
+    src = tuple(v for pair in layers for v in pair)
+    stamp = (taps,) + tuple((id(v), v._version) for v in src)
+    hit = _PACKED.get(stamp)
+    if hit is not None:
+        _PACKED.move_to_end(stamp)
+        return hit[1]
+    blob = pack_sweep_weights(layers, taps)
+    _PACKED[stamp] = (src, blob)
+    while len(_PACKED) > _PACKED_SLOTS:
+        _PACKED.popitem(last=False)
+    return blob
+
+
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_table(lattice_shape, kernel, dev) -> torch.Tensor:
+    key = (lattice_shape, kernel, str(dev))
+    table = _TABLES.get(key)
+    if table is None:
+        table = torch.as_tensor(source_sites(lattice_shape, kernel),
+                                device=dev)
+        _TABLES[key] = table
+    return table
 
 
 def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
@@ -217,7 +368,7 @@ def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
     if s.device.type != "cuda":
         raise ValueError(f"metropolis_sweep runs on cuda or cpu tensors, got "
                          f"{s.device}")
-    lattice_shape = tuple(lattice_shape)
+    lattice_shape = tuple(int(v) for v in lattice_shape)
     layers = conv_layers(params, lattice_shape)
     site_a, site_b, log_u = _site_noise(s, move, bonds, n_props, noise)
     _check_log_psi(s, log_psi_re)
@@ -229,34 +380,27 @@ def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
     kernel = tuple(int(k) for k in layers[0][0].shape[:-2])
     taps = int(np.prod(kernel))
     channels = [1] + [int(k.shape[-1]) for k, _ in layers]
-    ws, bs = [], []
-    for kern, bias in layers:
-        cin, cout = int(kern.shape[-2]), int(kern.shape[-1])
-        pad = (cout + 15) // 16 * 16 - cout
-        w = kern.detach().to(dev, torch.float32).reshape(taps, cin, cout)
-        ws.append(torch.nn.functional.pad(w, (0, pad)).reshape(-1))
-        bs.append(torch.nn.functional.pad(
-            bias.detach().to(dev, torch.float32), (0, pad)))
-    weights = torch.cat(ws).contiguous()
-    biases = torch.cat(bs).contiguous()
-    nbr = torch.as_tensor(source_sites(lattice_shape, kernel), device=dev)
-    if n_props == 0:
-        zeros = torch.zeros((1, m), dtype=torch.int32, device=dev)
-        site_a = site_b = zeros
-        log_u = torch.zeros((1, m), dtype=torch.float32, device=dev)
+    walkers = walkers_per_block(n, taps, channels)
+    smem = smem_bytes(n, taps, channels, walkers)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the sweep kernel needs {smem} bytes of shared "
+                         f"memory per block, above Hopper's {MAX_SMEM_BYTES}")
+    for v in (x for pair in layers for x in pair):
+        if v.device != dev:
+            raise ValueError(f"params on {v.device}, s on {dev}")
+    blob = packed_weights(layers, taps)
+    nbr = _device_table(lattice_shape, kernel, dev)
+    if n_props == 0:  # the kernel reads no noise
+        site_a = site_b = nbr
+        log_u = blob
     site_a = site_a.to(torch.int32).contiguous()
     site_b = site_b.to(torch.int32).contiguous()
     log_u = log_u.contiguous()
     s_in = s.contiguous()
     lp_in = log_psi_re.contiguous()
-    for name, x in (("s", s_in), ("log_psi_re", lp_in), ("noise", log_u)):
+    for name, x in (("log_psi_re", lp_in), ("noise", log_u)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, s on {dev}")
-    smem = smem_bytes(n, taps, channels)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"the sweep kernel needs {smem} bytes of shared "
-                         f"memory per block, above Hopper's {MAX_SMEM_BYTES}")
-    threads = min(1024, (n + 31) // 32 * 32)
     s_out = torch.empty_like(s_in)
     lp_out = torch.empty_like(lp_in)
     n_acc = torch.empty(m, dtype=torch.int32, device=dev)
@@ -265,11 +409,11 @@ def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().metropolis_sweep_launch(
             s_in.data_ptr(), lp_in.data_ptr(), site_a.data_ptr(),
-            site_b.data_ptr(), log_u.data_ptr(), weights.data_ptr(),
-            biases.data_ptr(), nbr.data_ptr(), s_out.data_ptr(),
-            lp_out.data_ptr(), n_acc.data_ptr(), m, n, taps, n_props,
-            int(move == "exchange"), len(layers),
-            ctypes.cast(ch, ctypes.c_void_p), threads, smem, stream)
+            site_b.data_ptr(), log_u.data_ptr(), blob.data_ptr(),
+            nbr.data_ptr(), s_out.data_ptr(), lp_out.data_ptr(),
+            n_acc.data_ptr(), m, n, taps, n_props, int(move == "exchange"),
+            len(layers), ctypes.cast(ch, ctypes.c_void_p), walkers,
+            launch_threads(n, channels, walkers), smem, stream)
     metropolis_sweep.launches += 1
     if err != 0:
         raise RuntimeError(f"metropolis_sweep launch failed: CUDA error {err}")
@@ -279,3 +423,25 @@ def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
 #: launches of the CUDA kernel since the last reset (CPU calls, which run
 #: the plain version, do not count)
 metropolis_sweep.launches = 0
+
+
+class FusedCNNLogPsi:
+    """``(params, s) -> log psi(s)`` [B] (im zero) of the plain real
+    ``LogPsiCNN`` through the kernel's recompute mode (``n_props = 0``): the
+    CNN's evaluation forward for the sampler's refresh and proposals and the
+    local-energy batch. Evaluation only: no autograd through the kernel.
+    Which configs may take it is decided once, by
+    ``builder.cnn_forward_eligible``; the wrapper checks the params, shapes
+    and device, and its packed weights are reused until the parameters
+    change (:func:`packed_weights`)."""
+
+    def __init__(self, *, lattice_shape: Sequence[int]):
+        self.lattice_shape = tuple(int(v) for v in lattice_shape)
+
+    def __call__(self, params, s: torch.Tensor) -> C:
+        with torch.no_grad():
+            s = s.to(torch.float32)
+            _, lp, _ = metropolis_sweep(params, s, s.new_zeros(s.shape[0]),
+                                        lattice_shape=self.lattice_shape,
+                                        n_props=0)
+        return C(lp, torch.zeros_like(lp))

@@ -14,7 +14,8 @@ batch. Proposals:
 
 Two sweep engines make the same decisions from the same noise: the plain
 torch loop (``backend='torch'``, any model and move; its log psi may be the
-fused GCNN forward, ``kernels/gcnn_forward.py``) and the fused CUDA sweep
+fused GCNN forward, ``kernels/gcnn_forward.py``, or the sweep kernel's
+recompute forward, ``FusedCNNLogPsi``) and the fused CUDA sweep
 kernel (``backend='cuda'``, the plain real CNN with flip or exchange moves;
 ``kernels/metropolis_sweep.py``).
 

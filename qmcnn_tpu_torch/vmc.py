@@ -14,9 +14,10 @@ JAX package, so config learning rates carry over unchanged.
 Two log-amplitude functions: ``log_psi_fn`` is the differentiable model
 (the surrogate loss and the SR Jacobian), ``eval_log_psi_fn`` the
 evaluation-only forward that the sampler and the local energy use (the
-fused GCNN kernel where the builder finds it eligible, else the model
-itself). The stored walker log psi and the E_loc ratios both come from the
-latter, so they are consistent.
+fused GCNN kernel, or the sweep kernel's recompute forward for the plain
+real CNN, where the builder finds it eligible, else the model itself).
+The stored walker log psi and the E_loc ratios both come from the latter,
+so they are consistent.
 """
 from __future__ import annotations
 

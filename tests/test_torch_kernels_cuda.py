@@ -8,7 +8,8 @@ so it runs on a GPU machine without it:
 Without a CUDA device every test skips (the kernels have no CPU mode; the
 plain versions' parity with JAX is tests/test_torch_sweep.py and
 tests/test_torch_gcnn.py). Sweep decisions must be equal; log psi within
-rtol 1e-5 (float32, the kernel sums in another order than cuDNN). GCNN
+rtol 1e-5 (float32, the kernel's 3xTF32 tensor-core products summed in
+another order than cuDNN's), and bitwise the same in any slot of a block. GCNN
 readout sums within rtol/atol 1e-4, 1e-3 for residual stacks deeper than 3
 layers (float32, the kernel's 3xTF32 tensor-core products summed in
 another order; rounding compounds with depth)."""
@@ -25,13 +26,16 @@ from qmcnn_tpu_torch.sampler.metropolis import (init_walkers, prng_key,
                                                 sweep_noise)
 
 # (lattice shape, channels, kernel, walkers): 1D/2D, odd/even k, channel
-# counts off the 16-wide register block, N above one block's 1024 threads,
-# and walker counts that fit no block size
+# counts off the 8-wide mma tiles, a one-layer stack (no tensor-core layer),
+# N = 1600, the hero width C = 24 (6 walkers per block), heis40's 6-layer
+# k = 7 chain, and walker counts that fill no block
 CASES = {
     "chain_k5": ((16,), (12, 12), 5, 37),
     "square_k3": ((6, 6), (16, 16, 16), 3, 64),
     "even_k_odd_channels": ((4, 6), (5, 20), 2, 33),
     "wide_lattice": ((40, 40), (3,), 3, 5),
+    "hero_c24": ((10, 10), (24, 24, 24), 3, 13),
+    "heis40_k7": ((40,), (12,) * 6, 7, 19),
 }
 
 
@@ -90,6 +94,50 @@ def test_recompute_mode(name):
     assert torch.equal(s_k, s) and int(acc.sum()) == 0
     np.testing.assert_allclose(lp_k.cpu().numpy(), lp.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["square_k3", "hero_c24", "heis40_k7"])
+def test_log_psi_does_not_depend_on_slot_or_batch(name):
+    """A configuration's log psi is bitwise the same in any slot of a block
+    and at any batch size: a permuted batch, a sub-batch and a batch that
+    repeats the configurations give the same bits."""
+    dev = _card()
+    params, s, lp, kw = _setup(name, "flip", dev)
+    kw.update(n_props=0, noise=None)
+    zeros = torch.zeros(s.shape[0] + 3, device=dev)
+
+    def recompute(x):
+        return k1.metropolis_sweep(params, x, zeros[:x.shape[0]], **kw)[1]
+
+    full = recompute(s)
+    perm = torch.randperm(s.shape[0], generator=torch.Generator().manual_seed(
+        0)).to(dev)
+    assert torch.equal(recompute(s[perm]), full[perm])
+    assert torch.equal(recompute(s[3:8]), full[3:8])
+    assert torch.equal(recompute(torch.cat([s[:3], s]))[3:], full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["square_k3", "hero_c24", "heis40_k7"])
+def test_fused_cnn_log_psi_matches_model(name):
+    """FusedCNNLogPsi (the kernel's recompute mode) against the cuDNN model
+    (TF32 off): rtol 1e-5 (float32 sums in another order)."""
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+
+    dev = _card()
+    shape, channels, k, m = CASES[name]
+    model = LogPsiCNN(shape, channels=channels, kernel_size=k,
+                      param_scale=0.25)
+    params = model.init(5, device=dev)
+    s = init_walkers(prng_key(3), 4 * m, int(np.prod(shape)), device=dev)
+    before = k1.metropolis_sweep.launches
+    got = k1.FusedCNNLogPsi(lattice_shape=shape)(params, s)
+    assert k1.metropolis_sweep.launches == before + 1
+    want = log_psi_apply(model.to(dev), params, s)
+    np.testing.assert_allclose(got.re.cpu().numpy(), want.re.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not bool(got.im.any())
 
 
 @pytest.mark.cuda

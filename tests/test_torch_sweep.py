@@ -7,6 +7,7 @@ the same draws. Decisions (s, n_accept) must be equal and log psi within
 rtol 1e-4 (test_pallas_sweep.py's tolerance: float32, different forward
 summation order)."""
 import dataclasses
+import glob
 import os
 
 import jax
@@ -22,7 +23,9 @@ from qmcnn_tpu.models.cnn import log_psi_apply as j_apply
 from qmcnn_tpu.sampler.metropolis import MetropolisSampler as JSampler
 from qmcnn_tpu.utils.transfer import _flatten
 from qmcnn_tpu_torch import configs
-from qmcnn_tpu_torch.builder import kernel_eligible, resolve_sampler_backend
+from qmcnn_tpu_torch.builder import (cnn_forward_eligible, kernel_eligible,
+                                    resolve_sampler_backend,
+                                    uses_fused_cnn_forward)
 from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN as TCNN
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
@@ -337,3 +340,167 @@ def test_sweep_kernel_rejects_exchange_anti():
         tsm.MetropolisSampler(lambda q, x: x, n_sites=16,
                               move="exchange_anti", bonds=np.zeros((1, 2)),
                               backend="cuda", lattice_shape=(4, 4))
+
+
+# -- the kernel's weight blob, its blocks and its eligibility -----------------
+
+def _pad8(x):
+    return (x + 7) // 8 * 8
+
+
+def _r4(x):
+    return (x + 3) // 4 * 4
+
+
+def _unpack_blob(blob, taps, channels):
+    """numpy inverse of ``pack_sweep_weights``: ([taps, Cin_p, Cout_p] kernel
+    per layer, hi and lo parts summed for the tensor-core layers, and the
+    hi parts alone), the padded biases per layer, and the words used."""
+    cp = [_pad8(c) for c in channels]
+    kernels, his = [blob[:taps * cp[1]].reshape(taps, 1, cp[1])], [None]
+    off = _r4(taps * cp[1])
+    biases = []
+    for c in cp[1:]:
+        biases.append(blob[off:off + c])
+        off += c
+    off = _r4(taps * cp[1]) + _r4(sum(cp[1:]))
+    for cin, cout in zip(cp[1:-1], cp[2:]):
+        size = 2 * taps * cin * cout
+        f = blob[off:off + size].reshape(taps, cin // 8, cout // 8, 8, 4, 4)
+        off += size
+        # (t, ks, nt, g, tig, kh) -> w[t, 8 ks + 4 kh + tig, 8 nt + g]
+        parts = [f[..., i:i + 2].transpose(0, 1, 5, 4, 2, 3).reshape(
+            taps, cin, cout) for i in (0, 2)]
+        kernels.append(parts[0].astype(np.float64) + parts[1])
+        his.append(parts[0])
+    return kernels, his, biases, off
+
+
+@pytest.mark.parametrize("shape,channels,k", [
+    ((10, 10), (16, 16, 16), 3),     # the flagship
+    ((16,), (12, 12), 5),            # 1D, k = 5, Cout padded 12 -> 16
+    ((4, 6), (5, 20, 3), 2),         # even k; Cin and Cout off the 8 tiles
+    ((10, 10), (24, 24, 24), 3),     # the hero width
+])
+def test_packed_weights_rebuild_flax_kernels(shape, channels, k):
+    """The packed blob, unpacked in numpy, gives back the Flax
+    [taps, Cin, Cout] kernels and biases: the first layer and the biases
+    exactly, the tensor-core layers as TF32 hi + lo within 2^-21 of each
+    weight (hi with its low 13 mantissa bits zero), padding zero."""
+    model = TCNN(shape, channels=channels, kernel_size=k, param_scale=0.3)
+    params = model.init(3, device="cpu")
+    layers = k1.conv_layers(params, shape)
+    taps = int(np.prod(layers[0][0].shape[:-2]))
+    chans = [1] + list(channels)
+    blob = k1.pack_sweep_weights(layers, taps)
+    assert blob.dtype == torch.float32 and blob.numel() % 4 == 0
+    assert blob.numel() == k1.blob_words(taps, chans)
+    assert k1.packed_weights(layers, taps) is k1.packed_weights(layers, taps)
+    kernels, his, biases, used = _unpack_blob(blob.numpy(), taps, chans)
+    assert used == blob.numel()
+    for i, (kern, bias) in enumerate(layers):
+        w = kern.reshape(taps, chans[i], chans[i + 1]).numpy()
+        got = kernels[i]
+        cin, cout = w.shape[1:]
+        if i == 0:
+            np.testing.assert_array_equal(got[:, :, :cout], w)
+        else:
+            np.testing.assert_allclose(got[:, :cin, :cout], w, rtol=2.0 ** -21,
+                                       atol=0)
+            bits = his[i].view(np.int32)
+            assert not (bits & 0x1FFF).any()
+            assert not got[:, cin:, :].any()
+        assert not got[:, :, cout:].any()
+        np.testing.assert_array_equal(biases[i][:cout], bias.numpy())
+        assert not biases[i][cout:].any()
+
+
+def _smem_formula(n, taps, channels, walkers):
+    """Bytes of one block, written out from the layout the kernel source
+    describes: the weight blob, two [rows, pad8(max hidden C) + 4] buffers
+    (one for 2 layers, none for 1), the spins, one partial sum per row and
+    column group (at most 3 column tiles per task), 7 words per slot and
+    the [taps, N] table."""
+    n_layers = len(channels) - 1
+    rows = walkers * n
+    blob = (_r4(taps * _pad8(channels[1])) + _r4(sum(map(_pad8, channels[1:])))
+            + sum(2 * taps * _pad8(a) * _pad8(b)
+                  for a, b in zip(channels[1:-1], channels[2:])))
+    stride = max([8] + [_pad8(c) for c in channels[1:-1]]) + 4
+    parts = 1 if n_layers == 1 else -(-(_pad8(channels[-1]) // 8) // 3)
+    return 4 * (blob + min(n_layers - 1, 2) * rows * stride + _r4(rows)
+                + _r4(rows * parts) + 7 * _r4(walkers) + taps * n)
+
+
+def _config_paths():
+    return sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+
+
+def test_walkers_per_block_follows_shared_memory():
+    """walkers_per_block takes as many slots as fit (up to MAX_WALKERS), by
+    the byte formula; every CNN config that the kernel serves fits at
+    least one walker."""
+    from qmcnn_tpu_torch.kernels.nvcc import MAX_SMEM_BYTES
+
+    shapes = [(100, 9, [1, 16, 16, 16]), (16, 5, [1, 12, 12]),
+              (24, 4, [1, 5, 20]), (1600, 9, [1, 3]), (100, 9, [1, 24] * 2),
+              (40, 7, [1] + [12] * 6), (4096, 9, [1, 16, 16]),
+              (64, 9, [1, 40, 40])]
+    for n, taps, ch in shapes:
+        for w in range(1, k1.MAX_WALKERS + 1):
+            assert k1.smem_bytes(n, taps, ch, w) == _smem_formula(n, taps, ch,
+                                                                  w)
+        fits = [w for w in range(1, k1.MAX_WALKERS + 1)
+                if _smem_formula(n, taps, ch, w) <= MAX_SMEM_BYTES]
+        assert k1.walkers_per_block(n, taps, ch) == max(fits, default=1)
+    assert k1.walkers_per_block(100, 9, [1, 16, 16, 16]) == 8
+    assert k1.walkers_per_block(100, 9, [1, 24, 24, 24]) == 6
+    served = 0
+    for path in _config_paths():
+        cfg = configs.load(path)
+        if not cnn_forward_eligible(cfg):
+            continue
+        served += 1
+        shape = tuple(cfg.lattice.shape)
+        k = cfg.model.kernel_size
+        taps = int(np.prod([min(k, s) for s in shape]))
+        ch = [1] + list(cfg.model.channels)
+        n = int(np.prod(shape))
+        w = k1.walkers_per_block(n, taps, ch)
+        assert w >= 1 and k1.smem_bytes(n, taps, ch, w) <= MAX_SMEM_BYTES
+        assert k1.launch_threads(n, ch, w) <= k1.MAX_THREADS
+    assert served == 5
+
+
+#: the configs whose sweep the kernel ran before the redesign (flip or
+#: exchange moves), and those whose evaluation forward it now also serves
+#: (exchange_anti, through the torch proposal loop)
+SWEEP_CONFIGS = {"heis10x10_sr", "heis8x8_cnn", "tfim16_sgd"}
+FORWARD_CONFIGS = SWEEP_CONFIGS | {"heis10x10_hero", "heis8x8_hero"}
+
+
+def test_every_config_keeps_its_eligibility():
+    for path in _config_paths():
+        cfg = configs.load(path)
+        name = os.path.basename(path)[:-len(".yaml")]
+        assert kernel_eligible(cfg) == (name in SWEEP_CONFIGS), name
+        assert cnn_forward_eligible(cfg) == (name in FORWARD_CONFIGS), name
+    # a lattice whose one walker exceeds a block's shared memory keeps the
+    # plain model instead of a kernel that would raise
+    big = configs.apply_overrides(_cfg(), ("lattice.shape=[64,64]",))
+    assert not cnn_forward_eligible(big) and not kernel_eligible(big)
+    assert resolve_sampler_backend(big, "cuda") == "torch"
+
+
+def test_uses_fused_cnn_forward():
+    hero = configs.load(os.path.join(ROOT, "configs", "heis10x10_hero.yaml"))
+    for cfg in (_cfg(), hero):
+        assert uses_fused_cnn_forward(cfg, "cuda")
+        assert not uses_fused_cnn_forward(cfg, "cpu")
+        xla = configs.apply_overrides(cfg, ("sampler.backend=xla",))
+        assert not uses_fused_cnn_forward(xla, "cuda")
+    assert resolve_sampler_backend(hero, "cuda") == "torch"  # exchange_anti
+    for cfg in (_cfg(complex_params=True), _cfg(activation="selu"),
+                _cfg(residual=True),
+                configs.apply_overrides(_cfg(), ("lattice.pbc=false",))):
+        assert not uses_fused_cnn_forward(cfg, "cuda")

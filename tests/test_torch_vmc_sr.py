@@ -325,3 +325,52 @@ def test_gcnn_eval_forward_feeds_sampler_and_e_loc(gcnn_pair):
     for k in g2:
         np.testing.assert_allclose(g1[k].numpy(), g2[k].numpy(), rtol=1e-3,
                                    atol=1e-6)
+
+
+def test_cnn_eval_forward_feeds_sampler_and_e_loc(pair, monkeypatch):
+    """Where ``uses_fused_cnn_forward`` holds (an eligible CNN on CUDA;
+    forced here), the builder hands ``FusedCNNLogPsi`` (the sweep kernel's
+    recompute mode, its plain version on CPU tensors) to the sampler and
+    E_loc: the refresh, every proposal of the torch loop and the E_loc
+    batch go through it, the gradient keeps the model, and the step equals
+    the plain model's."""
+    import dataclasses
+
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+
+    monkeypatch.setattr(tb, "uses_fused_cnn_forward", lambda cfg, dev: True)
+    vmc_f, _, _ = tb.build(tcfg.load(BASE, SMALL), device="cpu")
+    fused = vmc_f.eval_log_psi_fn
+    assert isinstance(fused, FusedCNNLogPsi)
+    assert vmc_f.sampler.log_psi_fn is fused
+    assert vmc_f.log_psi_fn is not fused
+    p = pair
+    s = p["walkers_t"].s
+    a, b = fused(p["params_t"], s), p["vmc_t"].log_psi_fn(p["params_t"], s)
+    np.testing.assert_allclose(a.re.numpy(), b.re.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert not bool(a.im.any())
+
+    calls = []
+
+    def counted(params, x):
+        calls.append(x.shape[0])
+        return fused(params, x)
+
+    vmc_c = dataclasses.replace(
+        vmc_f, eval_log_psi_fn=counted,
+        sampler=dataclasses.replace(vmc_f.sampler, log_psi_fn=counted))
+    state = TrainState(params=p["params_t"],
+                       opt_state=vmc_c.optimizer.init(p["params_t"]),
+                       walkers=p["walkers_t"], step=0)
+    new_c, m_c = vmc_c.step(state, 5, torch.arange(64))
+    new_t, m_t = p["vmc_t"].step(state, 5, torch.arange(64))
+    n_props = vmc_c.sampler.n_sites
+    n_conn = vmc_c.ham.n_conn
+    assert calls == [64] * (1 + n_props) + [64 * n_conn]
+    assert torch.equal(new_c.walkers.s, new_t.walkers.s)
+    assert float(m_c.energy_re) == pytest.approx(float(m_t.energy_re),
+                                                 rel=1e-5)
+    for k, v in new_t.params.items():
+        np.testing.assert_allclose(new_c.params[k].numpy(), v.numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
