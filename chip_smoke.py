@@ -4,7 +4,8 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — compile every CUDA kernel of the training paths, one nvcc
-                per source, all started together;
+                per source, all started together, and print each kernel's
+                registers and spills;
   3. kernels  — each kernel against its plain PyTorch version on the card
                 (TF32 off): the fused Metropolis sweep at the flagship
                 shapes (10x10, C=16^3, k=3, M=2048, trained fixture params)
@@ -19,7 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 no block size; complex lncosh at weight scales 0.15 and 0.3,
                 where rounding may cross its branch cuts, held to twice the
                 disagreement of a second plain version (the Karatsuba
-                model) plus 0.5% of the configurations;
+                model) plus 0.5% of the configurations; K2's bf16 route
+                against its plain bf16 version (BF16_TOL) at the
+                j1j2_8x8_gcnn_r2 shape (W=80, L=8, selu, residual, B=2048
+                and 777), at the depth-12 fixture, with real lncosh params,
+                and on log psi through FusedLogPsi (A1 spin-flip +1, B1
+                spin-flip -1), with a second plain version (the CPU's
+                summation order) printed beside it as the witness;
   4. main     — the training paths through ``qmcnn_tpu_torch.train.train``,
                 each with the launch counters zeroed just before it and
                 read just after it:
@@ -38,6 +45,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 depth-12 snapshot runs/j1j2_8x8_d12_fix.csv.params.npz in
                 its own architecture (M=512), whose tail energy must sit
                 within 0.01/site of the -0.497679/site its JAX run reached;
+                configs/j1j2_8x8_gcnn_r2.yaml (bf16 end to end) at full
+                width, 3 steps after 20 thermalization sweeps with a
+                checkpoint every step, then train() again to step 4, which
+                must resume at step 3 from a checkpoint bitwise equal to
+                the first run's state (every evaluation forward on K2's
+                bf16 route, at the expected count; K2 f32 and K1 0); the
+                depth-12 snapshot again in bf16 (its run's own dtype), and
+                its E_loc on one set of walkers through both K2 routes
+                (mean difference under 3 binned stderr); heis10x10_sr in
+                bf16 from runs/ab_cnn_bfloat16.csv.params.npz (tail within
+                0.01/site of -0.670410; K1 0); the complex CNN: the
+                tfim12_h2 snapshot (tail within 1e-3 of the ED energy) and
+                configs/j1j2_8x8_complex.yaml at full width (3 steps);
   5. timings  — CUDA-event times of each kernel, its plain version and its
                 bounds at the main path's shapes (``bound_ms``: the least
                 work as f32-accurate 3xTF32 on the tensor cores, or the
@@ -45,18 +65,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the sweep kernel per sweep and as the recompute forward of
                 the heis10x10_sr E_loc batch (411,648 configurations) beside
                 the cuDNN model on the same batch (its log psi within rtol
-                1e-5), the kernels' blocks, and the
-                per-phase split of a training step of each path
-                (``qmcnn_tpu_torch.step_timing``);
-  6. report   — one JSON line of kernel records, the card line, and the
-                final ``{"ok": true, ...}`` line.
+                1e-5), the kernels' blocks, K2's bf16 route at the
+                j1j2_8x8_gcnn_r2 E_loc chunk and sweep shapes beside its
+                plain version, its bf16 tensor-core bound and K2's f32
+                route at the same shapes, and the per-phase split of a
+                training step of each path (``qmcnn_tpu_torch.step_timing``);
+  6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
+                K2's bf16 route), the card line, and the final
+                ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 CUDA device or without the ``qmcnn_tpu_torch`` package beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -79,9 +105,31 @@ D12_MODEL = ("model.channels=[" + ",".join(["10"] * 12) + "]",
 #: TF32 on the tensor cores, HBM rate
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+#: dense bf16 on the tensor cores (H100 SXM data sheet)
+BF16_FLOPS = 989e12
 #: TF32 passes of an f32-accurate product (3xTF32: hi*hi + hi*lo + lo*hi)
 TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
+#: the bf16 hero config (bf16 end to end, K2's bf16 route)
+GCNN_R2_CONFIG = ROOT / "configs" / "j1j2_8x8_gcnn_r2.yaml"
+#: the bf16 CNN snapshot and its JAX run's final_energy_tail / 100
+#: (runs/ab_cnn_bfloat16.csv.meta.json)
+CNN_BF16_FIXTURE = ROOT / "runs" / "ab_cnn_bfloat16.csv.params.npz"
+E_SITE_CNN_BF16 = -0.670410
+#: the complex CNN snapshot of the N = 12 TFIM chain at h = 2, its config
+#: (from the JAX run's meta.json) and its e_exact (ED)
+TFIM12_META = ROOT / "runs" / "tfim12_h2.csv.meta.json"
+TFIM12_FIXTURE = ROOT / "runs" / "tfim12_h2.csv.params.npz"
+E_TFIM12_ED = -25.525138
+#: K2's bf16 route against its plain bf16 version: S_g within BF16_TOL of
+#: (1 + the configuration's largest |S_g|). Both sides round at the same
+#: points, so what is left is the f32 summation order now and then flipping
+#: one bf16 rounding (2^-8 relative) of an activation, which later layers
+#: carry on: measured on the H100 up to 1.7e-4 at depth 8 (fan_in init) and
+#: 5.7e-3 on the depth-12 snapshot, whose trained layers amplify such
+#: flips (PERF.md); two plain versions that sum in other orders (cuDNN and
+#: oneDNN) differ as much, printed beside it as the witness
+BF16_TOL = 1e-2
 
 
 def check(cond, msg: str) -> None:
@@ -462,12 +510,40 @@ def lncosh_at_scale(scale: float, batch: int, seed: int, dev) -> None:
           f"{n_k2} configurations, limit {limit}")
 
 
+def check_log_psi(name: str, got, want, amplitudes: bool, tol: float,
+                  phase_tol: float) -> None:
+    """log psi ``got`` against ``want`` (C pairs): Re within tol (1 + |Re|)
+    and phases within phase_tol mod 2 pi, or normalized amplitudes within
+    phase_tol for a sign-changing character (exact nodes)."""
+    import numpy as np
+    import torch
+
+    got, want = ([t.double().cpu() for t in lp] for lp in (got, want))
+    if amplitudes:
+        scale = float(want[0].max())
+
+        def amp(lp):
+            return (torch.exp(lp[0] - scale) * torch.exp(1j * lp[1])).numpy()
+
+        err = float(np.abs(amp(got) - amp(want)).max())
+        print(f"  {name}: normalized amplitude max err {err:.3e}")
+        check(err <= phase_tol, f"{name}: amplitudes differ by {err}")
+        return
+    diff = (got[0] - want[0]).abs()
+    d_re = float((diff / (1.0 + want[0].abs())).max())
+    dphi = float((torch.remainder(got[1] - want[1] + np.pi, 2 * np.pi)
+                  - np.pi).abs().max())
+    print(f"  {name}: log psi re max err {float(diff.max()):.3e} (relative "
+          f"to 1 + |Re| {d_re:.3e}), phase max err {dphi:.3e} (mod 2 pi)")
+    check(d_re <= tol, f"{name}: Re log psi outside {tol}")
+    check(dphi <= phase_tol, f"{name}: phases differ")
+
+
 def compare_gcnn_log_psi(name: str, model, params, x, fused_kw: dict,
                          amplitudes: bool) -> None:
     """FusedLogPsi (K2) against the plain model's log psi: Re within
-    1e-4 and phases mod 2 pi, or normalized amplitudes within 1e-3 for a
-    sign-changing character (exact nodes)."""
-    import numpy as np
+    1e-4 and phases mod 2 pi within 1e-3, or normalized amplitudes within
+    1e-3 for a sign-changing character."""
     import torch
     from qmcnn_tpu_torch.kernels.gcnn_forward import FusedLogPsi
     from qmcnn_tpu_torch.models.cnn import log_psi_apply
@@ -475,24 +551,7 @@ def compare_gcnn_log_psi(name: str, model, params, x, fused_kw: dict,
     got = FusedLogPsi(**fused_kw)(params, x)
     want = log_psi_apply(model, params, x)
     torch.cuda.synchronize()
-    if amplitudes:
-        scale = float(want.re.max())
-
-        def amp(lp):
-            return (torch.exp(lp.re.double() - scale)
-                    * torch.exp(1j * lp.im.double())).cpu().numpy()
-
-        err = float(np.abs(amp(got) - amp(want)).max())
-        print(f"  {name}: normalized amplitude max err {err:.3e}")
-        check(err <= 1e-3, f"{name}: amplitudes differ by {err}")
-        return
-    d_re = float(((got.re - want.re).abs() - 1e-4 * want.re.abs()).max())
-    dphi = torch.remainder(got.im - want.im + np.pi, 2 * np.pi) - np.pi
-    print(f"  {name}: log psi re max err "
-          f"{float((got.re - want.re).abs().max()):.3e}, phase max err "
-          f"{float(dphi.abs().max()):.3e} (mod 2 pi)")
-    check(d_re <= 1e-4, f"{name}: Re log psi outside 1e-4")
-    check(float(dphi.abs().max()) <= 1e-3, f"{name}: phases differ")
+    check_log_psi(name, got, want, amplitudes, 1e-4, 1e-3)
 
 
 def expected_launches(cfg, vmc) -> dict:
@@ -558,11 +617,8 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
     from qmcnn_tpu_torch import configs
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
     from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
-    from qmcnn_tpu_torch.ops.local_energy import local_energy
-    from qmcnn_tpu_torch.sampler.metropolis import prng_key
     from qmcnn_tpu_torch.builder import build
     from qmcnn_tpu_torch.train import train
-    from qmcnn_tpu_torch.utils.metrics import binned_stderr
 
     csv = out_dir / "j1j2_8x8_gcnn.csv"
     cfg = configs.load(str(GCNN_CONFIG), (
@@ -570,13 +626,14 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
         f"run.csv_path={csv}"))
     vmc, _, _ = build(cfg, device="cuda")
     want = expected_launches(cfg, vmc)
-    k1.metropolis_sweep.launches = 0
-    k2.gcnn_group_sums.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, logger = train(cfg, device="cuda")
     torch.cuda.synchronize()
     launches, k1_launches = (k2.gcnn_group_sums.launches,
                              k1.metropolis_sweep.launches)
+    check(k2.gcnn_group_sums.launches_bf16 == 0,
+          "gcnn: the f32 path launched K2's bf16 route")
     hist = logger.history
     e = np.asarray(hist["energy_re"])
     acc = np.asarray(hist["accept"])
@@ -592,24 +649,9 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
           f"expected {want['run']}")
     check(k1_launches == 0, "gcnn: the GCNN path launched the sweep kernel")
 
-    ids = torch.arange(cfg.sampler.n_walkers, device="cuda")
-    k2.gcnn_group_sums.launches = 0
-    new, mt = vmc.step(state, prng_key(17), ids)
-    torch.cuda.synchronize()
-    per_step = k2.gcnn_group_sums.launches
+    new, per_step = one_more_step("gcnn", vmc, state, "k2_f32",
+                                  want["per_step"])
     w = new.walkers
-    e_loc = local_energy(vmc.eval_log_psi_fn, state.params, vmc.ham, w.s,
-                         w.log_psi, chunk_size=vmc.chunk_size)
-    err_im = binned_stderr(e_loc.im.double().cpu().numpy())
-    e_im, resid = float(mt.energy_im), float(mt.sr_residual)
-    print(f"    one more step: K2 launches {per_step} (expected "
-          f"{want['per_step']}), E_im {e_im:.5f} vs 3 x binned stderr "
-          f"{3 * err_im:.5f}, minSR residual {resid:.3e}, sr_iters "
-          f"{mt.sr_iters}, accept {float(mt.accept_rate):.4f}")
-    check(per_step == want["per_step"], f"gcnn: {per_step} K2 launches in a "
-          f"step, expected {want['per_step']}")
-    check(abs(e_im) < 3 * err_im, f"gcnn: |E_im| {e_im} >= 3 stderr")
-    check(np.isfinite(resid) and mt.sr_iters == 0, "gcnn: minSR residual")
     # K2 on the trained lncosh params and the walkers' own (spin-flip
     # doubled) configurations; the count check ran before it
     ws = k2.expand_gcnn_params(new.params, 3, True, "params/inner/")
@@ -621,38 +663,466 @@ def gcnn_main_path(card: str, out_dir: Path) -> dict:
             "state": new}
 
 
-def d12_fixture_energy(out_dir: Path, n_therm: int) -> None:
-    """The depth-12 snapshot in its own architecture (float32), warm-started
-    from the npz, M=512, exchange_anti, a few minSR steps at the learning
-    rate its JAX run ended at; the tail E/site must sit within 0.01 of the
-    JAX run's."""
+def one_more_step(label: str, vmc, state, route: str, want_per_step: int):
+    """One GCNN training step by hand, the counters zeroed just before: the
+    K2 launches on ``route`` in it, E_im against 3 binned stderr of the
+    walkers' E_loc, and a finite minSR residual. Returns (state, launches)."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.sampler.metropolis import prng_key
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+
+    ids = torch.arange(state.walkers.s.shape[0], device="cuda")
+    reset_counts()
+    new, mt = vmc.step(state, prng_key(17), ids)
+    torch.cuda.synchronize()
+    n = counts()
+    w = new.walkers
+    e_loc = local_energy(vmc.eval_log_psi_fn, state.params, vmc.ham, w.s,
+                         w.log_psi, chunk_size=vmc.chunk_size)
+    err_im = binned_stderr(e_loc.im.double().cpu().numpy())
+    e_im, resid = float(mt.energy_im), float(mt.sr_residual)
+    print(f"    one more step: K2 launches {n} (expected {want_per_step} on "
+          f"{route}), E_im {e_im:.5f} vs 3 x binned stderr "
+          f"{3 * err_im:.5f}, minSR residual {resid:.3e}, sr_iters "
+          f"{mt.sr_iters}, accept {float(mt.accept_rate):.4f}")
+    check(n[route] == want_per_step and sum(n.values()) == n[route],
+          f"{label}: launches {n} in a step, expected {want_per_step} on "
+          f"{route}")
+    check(abs(e_im) < 3 * err_im, f"{label}: |E_im| {e_im} >= 3 stderr")
+    check(np.isfinite(resid) and mt.sr_iters == 0,
+          f"{label}: minSR residual")
+    return new, n[route]
+
+
+def d12_fixture_energy(out_dir: Path, n_therm: int,
+                       dtype: str = "float32"):
+    """The depth-12 snapshot in its own architecture, in ``dtype`` (float32,
+    or bfloat16 as its JAX run trained it: K2's bf16 route),
+    warm-started from the npz, M=512, exchange_anti, a few minSR steps at
+    the learning rate its JAX run ended at; the tail E/site must sit within
+    0.01 of the JAX run's. Returns (config, final state)."""
     import numpy as np
     from qmcnn_tpu_torch import configs
-    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
-    from qmcnn_tpu_torch.train import train
 
-    csv = out_dir / "j1j2_8x8_d12.csv"
+    csv = out_dir / f"j1j2_8x8_d12_{dtype}.csv"
     cfg = configs.load(str(GCNN_CONFIG), D12_MODEL + (
+        f"model.compute_dtype={dtype}",
         "sampler.n_walkers=512", f"sampler.n_therm_sweeps={n_therm}",
         f"run.init_from={D12_FIXTURE}", "run.n_steps=8", "run.log_every=1",
         "optimizer.lr=0.001", "optimizer.schedule=constant",
         "sr.diag_shift0=0.001", "sr.diag_shift_decay=1.0",
         "sr.diag_shift_min=0.001", "sr.proportional_shift=true",
         f"run.csv_path={csv}"))
-    before = k2.gcnn_group_sums.launches
+    route = "k2_bf16" if dtype == "bfloat16" else "k2_f32"
+    reset_counts()
     t0 = time.perf_counter()
-    _, logger = train(cfg, device="cuda")
+    state, logger, _ = train_quiet(cfg)
+    n = counts()
     hist = logger.history
     e = np.asarray(hist["energy_re"])
     tail, err = logger.tail_energy()
     e_site = tail / 64
-    print(f"    d12 fixture: {time.perf_counter() - t0:.1f} s, K2 launches "
-          f"{k2.gcnn_group_sums.launches - before}, E/site "
-          f"{[round(float(v) / 64, 5) for v in e]}, tail {e_site:.6f} +- "
-          f"{err / 64:.6f} (JAX run {E_SITE_D12}), accept {hist['accept']}")
+    print(f"    d12 fixture ({dtype}): {time.perf_counter() - t0:.1f} s, "
+          f"launches {n}, E/site {[round(float(v) / 64, 5) for v in e]}, "
+          f"tail {e_site:.6f} +- {err / 64:.6f} (JAX run {E_SITE_D12}), "
+          f"accept {hist['accept']}")
     check(np.isfinite(e).all(), "d12: non-finite energies")
+    check(n[route] > 0 and sum(n.values()) == n[route],
+          f"d12 ({dtype}): launches {n} are not all on the {dtype} route")
     check(abs(e_site - E_SITE_D12) <= 0.01,
           f"d12: E/site {e_site} not within 0.01 of {E_SITE_D12}")
+    return cfg, state
+
+
+# ---------------------------------------------------------------------------
+# K2's bf16 route and the bf16 / complex paths
+# ---------------------------------------------------------------------------
+
+def print_ptxas(log: str) -> None:
+    """Registers and spills of every kernel in a build log, by kernel."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            # e.g. ..._cu_ec29e88a24gcnn_forward_bf16_kernelILb1ELi1EEEv...
+            m = re.search(r"(gcnn_forward_bf16_kernel|gcnn_forward_kernel"
+                          r"|sweep_kernel)(?:I((?:L[a-z]\d+E)+)E)?", line)
+            name = (m.group(1) + "<" + ",".join(re.findall(
+                r"\d+", m.group(2) or "")) + ">") if m else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"    ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def sg_rel_err(got, want) -> tuple:
+    """(max abs, max relative) S_g error, relative to (1 + each
+    configuration's largest |S_g|)."""
+    import torch
+
+    size = 1.0 + torch.maximum(want.re.abs(), want.im.abs()).amax(dim=1)
+    max_abs, max_rel = 0.0, 0.0
+    for a, b in ((got.re, want.re), (got.im, want.im)):
+        diff = (a.to(b.device) - b).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        max_rel = max(max_rel, float((diff / size[:, None]).max()))
+    return max_abs, max_rel
+
+
+def compare_gcnn_bf16(name: str, ws, x, kw, witness: bool = False) -> dict:
+    """K2's bf16 route against its plain bf16 version on the card (cuDNN,
+    TF32 off, on bf16 values); with ``witness``, also the plain version on
+    the CPU (oneDNN's summation order) against the one on the card."""
+    import torch
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+
+    got = k2.gcnn_group_sums(x, ws, compute_dtype="bfloat16", **kw)
+    want = k2.gcnn_group_sums_reference(x, ws, compute_dtype="bfloat16",
+                                        **kw)
+    f32 = k2.gcnn_group_sums_reference(x, ws, **kw)
+    torch.cuda.synchronize()
+    max_abs, max_rel = sg_rel_err(got, want)
+    gap = sg_rel_err(f32, want)[1]
+    text = ""
+    if witness:
+        cpu_ws = k2.GCNNWeights(*(None if w is None else w.cpu() for w in ws))
+        other = k2.gcnn_group_sums_reference(x.cpu(), cpu_ws,
+                                             compute_dtype="bfloat16", **kw)
+        text = (f"; witness, plain on the CPU vs plain on the card: max rel "
+                f"{sg_rel_err(other, want)[1]:.3e}")
+    print(f"  {name}: B={x.shape[0]}, S_g max abs err {max_abs:.3e}, max "
+          f"rel err {max_rel:.3e} (tol {BF16_TOL:g}; |S_g| ~ "
+          f"{float(want.re.abs().mean()):.3f}; bf16 vs f32 plain {gap:.3e})"
+          f"{text}")
+    check(max_rel <= BF16_TOL, f"{name}: bf16 S_g rel err {max_rel} > "
+          f"{BF16_TOL}")
+    check(gap > 0, f"{name}: the bf16 route does not round")
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+def compare_gcnn_log_psi_bf16(name: str, params, x, fused_kw: dict,
+                              amplitudes: bool) -> None:
+    """FusedLogPsi on the bf16 route against the same forward on the CPU
+    (its plain bf16 version), within BF16_TOL (:func:`check_log_psi`)."""
+    import torch
+    from qmcnn_tpu_torch.kernels.gcnn_forward import FusedLogPsi
+
+    fused = FusedLogPsi(compute_dtype="bfloat16", **fused_kw)
+    got = fused(params, x)
+    want = fused({k: v.cpu() for k, v in params.items()}, x.cpu())
+    torch.cuda.synchronize()
+    check_log_psi(name, got, want, amplitudes, BF16_TOL, BF16_TOL)
+
+
+def reset_counts() -> None:
+    """Every kernel launch counter to 0."""
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+
+    k1.metropolis_sweep.launches = 0
+    k2.gcnn_group_sums.launches = 0
+    k2.gcnn_group_sums.launches_bf16 = 0
+
+
+def counts() -> dict:
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+
+    return {"k1": k1.metropolis_sweep.launches,
+            "k2_f32": k2.gcnn_group_sums.launches,
+            "k2_bf16": k2.gcnn_group_sums.launches_bf16}
+
+
+def train_quiet(cfg, **kw):
+    """train() with its stdout captured and echoed: (state, logger, text)."""
+    from qmcnn_tpu_torch.train import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, logger = train(cfg, device="cuda", **kw)
+    sys.stdout.write(buf.getvalue())
+    return state, logger, buf.getvalue()
+
+
+def states_equal(a, b) -> bool:
+    """Params, optimizer state and walkers bitwise equal."""
+    import torch
+
+    def eq(x, y):
+        if isinstance(x, dict):
+            return sorted(x) == sorted(y) and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y.to(x.device))
+        return x == y
+
+    wa, wb = a.walkers, b.walkers
+    return (a.step == b.step and eq(a.params, b.params)
+            and eq(a.opt_state, b.opt_state)
+            and all(torch.equal(x, y) for x, y in (
+                (wa.s, wb.s), (wa.log_psi.re, wb.log_psi.re),
+                (wa.log_psi.im, wb.log_psi.im), (wa.n_accept, wb.n_accept),
+                (wa.n_prop, wb.n_prop))))
+
+
+def gcnn_r2_main_path(out_dir: Path) -> dict:
+    """configs/j1j2_8x8_gcnn_r2.yaml at full width (M=1024, W=80, L=8, bf16,
+    minSR, exchange_anti) through train(): 3 steps after 20 thermalization
+    sweeps, checkpointed every step, the counters zeroed just before and
+    read just after; then train() again to step 4, which must resume at
+    step 3 from a checkpoint equal to the first run's state; then one more
+    step by hand for the launches per step, E_im and the minSR residual."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
+
+    ckpt_dir = out_dir / "j1j2_8x8_gcnn_r2_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    csv = out_dir / "j1j2_8x8_gcnn_r2.csv"
+    over = ("sampler.n_therm_sweeps=20", "run.log_every=1",
+            f"run.ckpt_dir={ckpt_dir}", "run.ckpt_every=1",
+            f"run.csv_path={csv}")
+    cfg = configs.load(str(GCNN_R2_CONFIG), over + ("run.n_steps=3",))
+    vmc, _, _ = build(cfg, device="cuda")
+    check(isinstance(vmc.eval_log_psi_fn, k2.FusedLogPsi)
+          and vmc.eval_log_psi_fn.compute_dtype == "bfloat16",
+          "gcnn_r2: K2's bf16 route does not serve the evaluation forward")
+    want = expected_launches(cfg, vmc)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logger, _ = train_quiet(cfg, ckpt_manager=CheckpointManager(
+        str(ckpt_dir), keep=cfg.run.ckpt_keep))
+    torch.cuda.synchronize()
+    n = counts()
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    acc = np.asarray(hist["accept"])
+    print(f"    j1j2_8x8_gcnn_r2: {time.perf_counter() - t0:.1f} s, K2 bf16 "
+          f"launches {n['k2_bf16']} (expected {want['run']}; K2 f32 "
+          f"{n['k2_f32']}, sweep kernel {n['k1']}), E/site "
+          f"{[round(float(v) / 64, 5) for v in e]}, E_im "
+          f"{[round(v, 5) for v in hist['energy_im']]}, accept "
+          f"{acc.tolist()}")
+    check(np.isfinite(e).all(), "gcnn_r2: non-finite energies")
+    check(((acc > 0) & (acc < 1)).all(), "gcnn_r2: accept outside (0, 1)")
+    check(n["k2_bf16"] == want["run"], f"gcnn_r2: {n['k2_bf16']} K2 bf16 "
+          f"launches, expected {want['run']}")
+    check(n["k2_f32"] == 0 and n["k1"] == 0,
+          f"gcnn_r2: launched K2 f32 {n['k2_f32']} / K1 {n['k1']} times")
+    launches = n["k2_bf16"]
+
+    # resume: the checkpoint of step 3 holds the first run's state bitwise
+    mgr = CheckpointManager(str(ckpt_dir), keep=cfg.run.ckpt_keep)
+    check(mgr.latest_step() == 3, f"gcnn_r2: latest checkpoint "
+          f"{mgr.latest_step()}, expected 3")
+    same = states_equal(mgr.restore(state), state)
+    print(f"    checkpoint of step 3 restored: params, optimizer state and "
+          f"walkers bitwise equal to the first run's final state: {same}")
+    check(same, "gcnn_r2: the restored state differs from the saved one")
+    cfg4 = configs.load(str(GCNN_R2_CONFIG), over + ("run.n_steps=4",))
+    reset_counts()
+    state4, logger4, text = train_quiet(cfg4, ckpt_manager=mgr)
+    torch.cuda.synchronize()
+    n4 = counts()
+    e4 = logger4.history["energy_re"]
+    print(f"    resumed run: K2 bf16 launches {n4['k2_bf16']} (expected "
+          f"{1 + want['per_step']}: the initial refresh and step 4), E/site "
+          f"{[round(float(v) / 64, 5) for v in e4]}")
+    check("resumed from checkpoint at step 3" in text,
+          "gcnn_r2: the second run did not resume at step 3")
+    check(state4.step == 4 and len(e4) == 1 and np.isfinite(e4).all(),
+          "gcnn_r2: the resumed run did not take step 4 with a finite "
+          "energy")
+    check(n4["k2_bf16"] == 1 + want["per_step"],
+          f"gcnn_r2: resumed run launched K2 bf16 {n4['k2_bf16']} times")
+
+    new, per_step = one_more_step("gcnn_r2", vmc, state4, "k2_bf16",
+                                  want["per_step"])
+    return {"launches": launches, "per_step": per_step, "cfg": cfg,
+            "state": new}
+
+
+def d12_energy_bias(cfg, walkers) -> None:
+    """The depth-12 snapshot's E_loc on one set of walkers through K2's f32
+    and bf16 routes: the mean difference must stay under 3 binned stderr of
+    the f32 E_loc mean (bf16 brings no energy bias the sampling noise would
+    show)."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build, fused_gcnn_log_psi
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                params_from_jax)
+
+    params = params_from_jax(load_checkpoint_params(str(D12_FIXTURE)),
+                             "cuda")
+    vmc, _, lattice = build(cfg, device="cuda")
+    e = {}
+    for dtype in ("float32", "bfloat16"):
+        c = configs.apply_overrides(cfg, (f"model.compute_dtype={dtype}",))
+        fused = fused_gcnn_log_psi(c, lattice)
+        with torch.no_grad():
+            lp = fused(params, walkers.s)
+            e[dtype] = local_energy(fused, params, vmc.ham, walkers.s, lp,
+                                    chunk_size=vmc.chunk_size).re.double()
+    torch.cuda.synchronize()
+    diff = float((e["bfloat16"] - e["float32"]).mean())
+    err = binned_stderr(e["float32"].cpu().numpy())
+    print(f"    d12 energy bias on {walkers.s.shape[0]} walkers: E_loc mean "
+          f"f32 {float(e['float32'].mean()) / 64:.6f}/site, bf16 "
+          f"{float(e['bfloat16'].mean()) / 64:.6f}/site; mean difference "
+          f"{diff:.5f} vs binned stderr of the f32 mean {err:.5f} "
+          f"({abs(diff) / err:.2f} stderr); per-walker |diff| max "
+          f"{float((e['bfloat16'] - e['float32']).abs().max()):.4f}")
+    check(np.isfinite(diff) and abs(diff) < 3 * err,
+          f"d12: bf16 E_loc mean differs by {diff}, >= 3 x {err}")
+
+
+def cnn_bf16_leg(out_dir: Path) -> None:
+    """heis10x10_sr in bf16 warm-started from the bf16 JAX snapshot: the
+    torch sweep and the bf16 model (K1 is f32-only, as in JAX), 50
+    thermalization sweeps (the config's 100, halved: the torch sweep is
+    host-bound), 5 steps; tail E/site within 0.01 of the JAX run's."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+
+    csv = out_dir / "heis10x10_sr_bf16.csv"
+    cfg = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"), (
+        "model.compute_dtype=bfloat16", f"run.init_from={CNN_BF16_FIXTURE}",
+        "sampler.n_therm_sweeps=50", "run.n_steps=5", "run.log_every=1",
+        f"run.csv_path={csv}"))
+    vmc, _, _ = build(cfg, device="cuda")
+    check(vmc.sampler.backend == "torch"
+          and not isinstance(vmc.eval_log_psi_fn, k1.FusedCNNLogPsi),
+          "bf16 CNN: K1 would serve a bf16 model")
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logger, _ = train_quiet(cfg)
+    n = counts()
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    acc = np.asarray(hist["accept"])
+    tail, err = logger.tail_energy()
+    print(f"    heis10x10_sr bf16: {time.perf_counter() - t0:.1f} s, E/site "
+          f"{[round(float(v) / 100, 5) for v in e]}, tail {tail / 100:.6f} "
+          f"+- {err / 100:.6f} (JAX run {E_SITE_CNN_BF16}), accept "
+          f"{acc.tolist()}, sr_iters {hist['sr_iters']}, launches {n}")
+    check(np.isfinite(e).all(), "bf16 CNN: non-finite energies")
+    check(((acc > 0) & (acc < 1)).all(), "bf16 CNN: accept outside (0, 1)")
+    check(n["k1"] == 0, f"bf16 CNN: {n['k1']} sweep-kernel launches")
+    check(abs(tail / 100 - E_SITE_CNN_BF16) <= 0.01,
+          f"bf16 CNN: E/site {tail / 100} not within 0.01 of "
+          f"{E_SITE_CNN_BF16}")
+
+
+def complex_cnn_legs(out_dir: Path) -> None:
+    """The complex CNN: the tfim12_h2 snapshot (N=12 TFIM at h=2, C=(12,12),
+    k=5, flip moves, 2 sweeps per step; its config rebuilt from the JAX
+    run's meta.json) warm-started for 10 steps, its tail within 1e-3
+    relative of ED; and configs/j1j2_8x8_complex.yaml at full width (3
+    steps after 20 thermalization sweeps, from its near-uniform fixed init,
+    where a step may accept every proposal). K1 serves neither."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+
+    meta = json.loads(TFIM12_META.read_text())
+    cfg = configs.apply_overrides(configs.from_yaml(meta["config"]), (
+        f"run.init_from={TFIM12_FIXTURE}", "run.ckpt_dir=null",
+        "run.n_steps=10", "run.log_every=1",
+        f"run.csv_path={out_dir / 'tfim12_h2.csv'}"))
+    check(cfg.model.complex_params, "tfim12_h2 is not the complex CNN")
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logger, _ = train_quiet(cfg)
+    n = counts()
+    tail, err = logger.tail_energy()
+    rel = abs(tail - E_TFIM12_ED) / abs(E_TFIM12_ED)
+    e = np.asarray(logger.history["energy_re"])
+    print(f"    tfim12_h2: {time.perf_counter() - t0:.1f} s, tail "
+          f"{tail:.6f} +- {err:.6f} vs ED {E_TFIM12_ED} (relative "
+          f"{rel:.3e}; the JAX run {meta['rel_err']:.3e}), E_im "
+          f"{[round(v, 5) for v in logger.history['energy_im']][-3:]}, "
+          f"launches {n}")
+    check(np.isfinite(e).all(), "tfim12_h2: non-finite energies")
+    check(rel <= 1e-3, f"tfim12_h2: tail {tail} not within 1e-3 of ED")
+    check(n["k1"] == 0, "tfim12_h2: the complex CNN launched K1")
+
+    cfg = configs.load(str(ROOT / "configs" / "j1j2_8x8_complex.yaml"), (
+        "sampler.n_therm_sweeps=20", "run.n_steps=3", "run.log_every=1",
+        f"run.csv_path={out_dir / 'j1j2_8x8_complex.csv'}"))
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logger, _ = train_quiet(cfg)
+    n = counts()
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    acc = np.asarray(hist["accept"])
+    print(f"    j1j2_8x8_complex: {time.perf_counter() - t0:.1f} s, E/site "
+          f"{[round(float(v) / 64, 5) for v in e]}, accept {acc.tolist()}, "
+          f"sr_iters {hist['sr_iters']}, launches {n}")
+    check(np.isfinite(e).all(), "j1j2_8x8_complex: non-finite energies")
+    # the config's fixed init (scale 0.05) is near-uniform, and an exchange
+    # of an aligned bond is the identity: a step may accept every proposal
+    check(((acc > 0) & (acc <= 1)).all(),
+          "j1j2_8x8_complex: accept outside (0, 1]")
+    check(min(hist["sr_iters"]) > 0, "j1j2_8x8_complex: pcg ran no "
+          "iterations")
+    check(n["k1"] == 0, "j1j2_8x8_complex: the complex CNN launched K1")
+
+
+def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
+    """K2's bf16 route, its plain bf16 version and K2's f32 route at one
+    shape: ms per call, and the bf16 bound (the least FLOP at the dense bf16
+    tensor-core rate, or the bytes) beside the f32 route's 3xTF32 bound."""
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+
+    batch = x.shape[0]
+    reps = 3 if batch > 16384 else 10
+    ms = cuda_ms(lambda: k2.gcnn_group_sums(x, ws, compute_dtype="bfloat16",
+                                            **kw), reps=reps)
+    plain_ms = cuda_ms(lambda: k2.gcnn_group_sums_reference(
+        x, ws, compute_dtype="bfloat16", **kw), reps=1 if batch > 16384
+        else reps)
+    f32_ms = cuda_ms(lambda: k2.gcnn_group_sums(x, ws, **kw), reps=reps)
+    hw = x.shape[1]
+    width, n_layers = 8 * kw["channels"][0], len(kw["channels"])
+    cplx = ws.lift_im is not None
+    flop = gcnn_flop(hw, width, n_layers, cplx, batch)
+    # x read once (f32 spins), the weights once (bf16 group layers, f32
+    # lift and biases), S_g written once
+    n_bytes = (4 * batch * hw + 4 * batch * 16
+               + 2 * sum(w.numel() for w in (ws.w_re, ws.w_im)
+                         if w is not None)
+               + 4 * sum(w.numel() for w in (ws.lift_re, ws.lift_im, ws.b_re,
+                                             ws.b_im) if w is not None))
+    tc_ms = flop / BF16_FLOPS * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(tc_ms, bytes_ms)
+    bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
+    f32_bound = gcnn_bound(ws, hw, width, n_layers, batch)[0]
+    n_cfg = k2.configs_per_block(hw, width, 9, cplx, "bfloat16")
+    print(f"  {label} B={batch} ({card}): bf16 route {ms:.4f} ms, plain "
+          f"bf16 version (cuDNN, TF32 off) {plain_ms:.4f} ms, bf16 bound "
+          f"{bound_ms:.4f} ms ({flop:.3e} FLOP at {BF16_FLOPS:.3g} bf16 "
+          f"FLOP/s, {bound_by}) = {100 * bound_ms / ms:.1f}% of it; the f32 "
+          f"route {f32_ms:.4f} ms at the same shape (3xTF32 bound "
+          f"{f32_bound:.4f} ms), ratio bf16/f32 {ms / f32_ms:.3f}; {n_cfg} "
+          f"configurations x {hw} sites per block (f32: "
+          f"{k2.configs_per_block(hw, width, 9, cplx)}), "
+          f"{k2.launch_threads(hw, width, n_cfg)} threads, "
+          f"{k2.smem_bytes(hw, width, 9, cplx, n_cfg, 'bfloat16')} bytes of "
+          f"shared memory")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "f32_route_ms": f32_ms,
+            "f32_route_bound_ms": f32_bound}
+
 
 
 def main() -> int:
@@ -702,10 +1172,10 @@ def main() -> int:
         builds = list(pool.map(timed_build, (k1, k2)))
     print(f"[2] build: {time.perf_counter() - t0:.2f} s in all")
     for path, log, secs in builds:
-        print(f"    {path.name}: {secs:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+        print(f"    {path.name}: {secs:.2f} s (K2's source holds both its "
+              f"float32 and bf16 routes)" if path.name.startswith("gcnn")
+              else f"    {path.name}: {secs:.2f} s")
+        print_ptxas(log)
 
     # 3. kernel vs plain version on the card
     print("[3] fused sweep vs plain version (TF32 off)", flush=True)
@@ -768,6 +1238,38 @@ def main() -> int:
         lncosh_at_scale(scale, 2048, seed, dev)
     print(f"    GCNN checks {time.perf_counter() - t0:.1f} s")
 
+    print(f"[3] K2's bf16 route vs its plain bf16 version (S_g rtol "
+          f"{BF16_TOL:g} of 1 + max |S_g|)", flush=True)
+    t0 = time.perf_counter()
+    r2_kw = dict(lattice_shape=(8, 8), channels=(10,) * 8,
+                 complex_params=True, activation="selu", residual=True,
+                 param_scale=1.0, init_mode="fan_in")
+    _, r2_ws, r2_x, r2_kw2 = gcnn_case(r2_kw, 2048, 41, dev)
+    bf16_err = compare_gcnn_bf16("gcnn_r2 shape (W=80, L=8, selu, residual, "
+                                 "fan_in)", r2_ws, r2_x, r2_kw2)
+    compare_gcnn_bf16("gcnn_r2 shape, ragged batch",
+                      *gcnn_case(r2_kw, 777, 42, dev)[1:], witness=True)
+    compare_gcnn_bf16("d12 fixture (W=80, L=12)", d12_ws, d12_x, d12_kw2,
+                      witness=True)
+    compare_gcnn_bf16("real params, lncosh (W=64, L=3)", *gcnn_case(
+        dict(main_kw, complex_params=False, param_scale=0.3), 777, 43,
+        dev)[1:])
+    for character, sector, kw_, batch in (
+            ("A1", 1, r2_kw, 1001),
+            ("B1", -1, spin_kw, 1001)):
+        kw_ = dict(kw_, character=character)
+        model = SpinFlipSymmetrized(LogPsiGCNN(**kw_), sector)
+        params, _, x, _ = gcnn_case(kw_, batch, 44, dev, model=model)
+        fused_kw = {k: v for k, v in kw_.items()
+                    if k not in ("param_scale", "init_mode")}
+        compare_gcnn_log_psi_bf16(
+            f"bf16 log psi, {character}, spin-flip {sector:+d}, W="
+            f"{8 * kw_['channels'][0]}, L={len(kw_['channels'])}, B={batch}",
+            params, x, dict(fused_kw, kernel_size=3,
+                            spin_flip_sector=sector),
+            amplitudes=character != "A1")
+    print(f"    bf16 checks {time.perf_counter() - t0:.1f} s")
+
     # 4. main path, counters zeroed just before and read just after
     print("[4] main path: heis10x10_sr training", flush=True)
     out_dir = ROOT / ".runs" / "chip_smoke"  # git-ignored
@@ -782,7 +1284,7 @@ def main() -> int:
           "heis10x10_sr: the sweep kernel does not serve the sampler and "
           "E_loc")
     want = expected_launches(cfg, vmc)
-    k1.metropolis_sweep.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, logger = train(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -803,7 +1305,7 @@ def main() -> int:
           f"expected {want['run']}")
     check(abs(e_site - E_SITE_FIXTURE) <= 0.01,
           f"E/site {e_site} not within 0.01 of {E_SITE_FIXTURE}")
-    k1.metropolis_sweep.launches = 0
+    reset_counts()
     vmc.step(state, prng_key(17), torch.arange(cfg.sampler.n_walkers,
                                                device="cuda"))
     torch.cuda.synchronize()
@@ -818,7 +1320,7 @@ def main() -> int:
     cfg_t = configs.load(str(ROOT / "configs" / "tfim16_sgd.yaml"), (
         "run.n_steps=20", "run.log_every=5", f"run.csv_path={csv_t}"))
     want_t = expected_launches(cfg_t, build(cfg_t, device="cuda")[0])
-    k1.metropolis_sweep.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     _, logger_t = train(cfg_t, device="cuda")
     launches_t = k1.metropolis_sweep.launches
@@ -843,7 +1345,18 @@ def main() -> int:
     print("[4] main path: j1j2_8x8_gcnn training", flush=True)
     gcnn = gcnn_main_path(card, out_dir)
     print("[4] fixture energy: the depth-12 snapshot", flush=True)
-    d12_fixture_energy(out_dir, n_therm=60)
+    d12_cfg, d12_state = d12_fixture_energy(out_dir, n_therm=60)
+    print("[4] main path: j1j2_8x8_gcnn_r2 (bf16) training and resume",
+          flush=True)
+    r2 = gcnn_r2_main_path(out_dir)
+    print("[4] fixture energy: the depth-12 snapshot in bf16, and the "
+          "energy bias of K2's bf16 route", flush=True)
+    d12_fixture_energy(out_dir, n_therm=60, dtype="bfloat16")
+    d12_energy_bias(d12_cfg, d12_state.walkers)
+    print("[4] the real CNN in bf16: heis10x10_sr", flush=True)
+    cnn_bf16_leg(out_dir)
+    print("[4] the complex CNN: tfim12_h2 and j1j2_8x8_complex", flush=True)
+    complex_cnn_legs(out_dir)
 
     # 5. timings
     print(f"[5] timings ({card})", flush=True)
@@ -865,6 +1378,14 @@ def main() -> int:
     print(f"  K2 launches per j1j2_8x8_gcnn training step: "
           f"{gcnn['per_step']}")
     step_split(gcnn["cfg"], gcnn["state"], card, "j1j2_8x8_gcnn")
+    t_r2 = time_gcnn_bf16(*gcnn_case(r2_kw, 256 * 256 * 2, 45, dev)[1:], card,
+                          "K2 bf16 at the gcnn_r2 E_loc chunk shape "
+                          "(256 x 256 x 2)")
+    t_r2s = time_gcnn_bf16(*gcnn_case(r2_kw, 1024 * 2, 46, dev)[1:], card,
+                           "K2 bf16 at the gcnn_r2 sweep shape (1024 x 2)")
+    print(f"  K2 bf16 launches per j1j2_8x8_gcnn_r2 training step: "
+          f"{r2['per_step']}")
+    step_split(r2["cfg"], r2["state"], card, "j1j2_8x8_gcnn_r2")
 
     # 6. report
     rec = {
@@ -906,8 +1427,26 @@ def main() -> int:
     print(f"    K2 sweep shape: kernel {t_swp['ms']:.4f} ms, plain "
           f"{t_swp['plain_ms']:.4f}, bound {t_swp['bound_ms']:.4f}, FP32-core "
           f"bound {t_swp['fp32_bound_ms']:.4f} ({card})")
+    rec3 = {
+        "name": "gcnn_group_sums_bf16",
+        "route": "cuda",
+        "source": "qmcnn_tpu_torch/csrc/gcnn_forward.cu",
+        "replaces": "qmcnn_tpu/kernels/gcnn_pallas.py:259",
+        "launches": r2["launches"],
+        "max_abs_err": bf16_err["max_abs_err"],
+        "ms": t_r2["ms"],
+        "plain_ms": t_r2["plain_ms"],
+        "bound_ms": t_r2["bound_ms"],
+        "bound_by": t_r2["bound_by"],
+        "library_ms": None,
+        "f32_route_ms": t_r2["f32_route_ms"],
+        "sweep_ms": t_r2s["ms"],
+        "sweep_plain_ms": t_r2s["plain_ms"],
+        "sweep_bound_ms": t_r2s["bound_ms"],
+        "sweep_f32_route_ms": t_r2s["f32_route_ms"],
+    }
     print(f"[6] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rec, rec2]}))
+    print(json.dumps({"kernels": [rec, rec2, rec3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

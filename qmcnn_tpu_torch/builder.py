@@ -319,7 +319,9 @@ def cnn_forward_eligible(cfg: Config) -> bool:
     lncosh, skip-free, periodic CNN on a one-site-basis grid, with one
     walker's activations and the weights within a block's shared memory:
     the JAX eligibility rule (without its move condition) plus the
-    activation, residual, pbc and shared-memory checks it lacks."""
+    activation, residual, pbc and shared-memory checks it lacks. A bf16 or
+    complex CNN samples with the torch sweep and evaluates with the model,
+    as in JAX."""
     m = cfg.model
     if not (m.kind == "cnn"
             and m.lanczos_alpha is None
@@ -358,17 +360,18 @@ def kernel_eligible(cfg: Config) -> bool:
 
 def gcnn_kernel_eligible(cfg: Config) -> bool:
     """The fused GCNN forward computes the bare square-lattice GCNN
-    (optionally spin-flip projected) in f32 with equal channel widths, one
-    configuration's activations per block in shared memory: no priors,
-    Jastrow factors or (1 + alpha H) wrapping, and no lattice x width too
-    large for a block (16x16 at W = 8C = 80 is)."""
+    (optionally spin-flip projected) in float32 or bfloat16 (its two
+    routes) with equal channel widths, one configuration's activations per
+    block in shared memory at the route's element size: no priors, Jastrow
+    factors or (1 + alpha H) wrapping, and no lattice x width too large for
+    a block (16x16 at W = 8C = 80 is, in float32)."""
     m, lat = cfg.model, cfg.lattice
     if not (m.kind == "gcnn"
             and lat.geometry == "hypercubic"
             and len(lat.shape) == 2
             and lat.pbc
             and len(set(m.channels)) == 1
-            and m.compute_dtype == "float32"
+            and m.compute_dtype in ("float32", "bfloat16")
             and m.lanczos_alpha is None
             and not any(_set(getattr(m, name)) for name in _PRIORS)):
         return False
@@ -379,7 +382,7 @@ def gcnn_kernel_eligible(cfg: Config) -> bool:
     shape = tuple(lat.shape)
     k = effective_kernel(m.kernel_size, shape)
     return smem_bytes(shape[0] * shape[1], G * m.channels[0], k * k,
-                      m.complex_params) <= MAX_SMEM_BYTES
+                      m.complex_params, 1, m.compute_dtype) <= MAX_SMEM_BYTES
 
 
 def uses_fused_gcnn_forward(cfg: Config, device) -> bool:
@@ -500,4 +503,5 @@ def fused_gcnn_log_psi(cfg: Config, lattice: Lattice):
         lattice_shape=tuple(lattice.shape), channels=tuple(m.channels),
         kernel_size=m.kernel_size, complex_params=m.complex_params,
         character=m.gcnn_character, activation=m.activation,
-        residual=m.residual, spin_flip_sector=m.spin_flip_sector)
+        residual=m.residual, spin_flip_sector=m.spin_flip_sector,
+        compute_dtype=m.compute_dtype)

@@ -1,24 +1,34 @@
-"""CNN log-amplitude ansatz log psi_theta(s), real branch (port of
+"""CNN log-amplitude ansatz log psi_theta(s), real and complex (port of
 ``qmcnn_tpu/models/cnn.py``).
 
 Stacked circular convolutions matching the lattice PBC, lncosh or selu
 activations, optional residual skips, and a spatial-sum readout that makes
-log psi exactly translation invariant.
+log psi exactly translation invariant. ``complex_params=True`` gives
+complex amplitudes: each layer is a ``ComplexConv`` (two real convolutions
+for a real input, three for a complex one, Karatsuba).
 
 Layouts: parameters keep the Flax names and layouts at the public boundary
 (``params/RealConv_0/kernel`` is ``[*k, Cin, Cout]``, ``.../bias`` is
-``[Cout]``); activations run channels-first (``[B, C, *spatial]``) inside,
-and each conv permutes its kernel to torch's ``[Cout, Cin, *k]``. Both
-frameworks compute a cross-correlation, so no kernel flip is needed.
+``[Cout]``; ``params/ComplexConv_0/kernel_re|kernel_im|bias_re|bias_im``);
+activations run channels-first (``[B, C, *spatial]``) inside, and each conv
+permutes its kernel to torch's ``[Cout, Cin, *k]``. Both frameworks compute
+a cross-correlation, so no kernel flip is needed.
 
 Numerics: with ``compute_dtype='float32'`` every forward runs with TF32 off
 for cuDNN convolutions and matmuls (:func:`true_f32`). cuDNN's default TF32
 keeps ~3 decimal digits, which would bias the Metropolis acceptance ratios
-and the local energies against the f32 sweep kernel.
+and the local energies against the f32 sweep kernel. With
+``compute_dtype='bfloat16'`` the stack runs end to end in bf16, rounding
+where the JAX model rounds: the spins are cast once, every convolution
+takes bf16 operands (the f32 kernels rounded once) with f32 accumulation
+inside cuDNN / oneDNN and a bf16 output, the bias is added in bf16, the
+activation is computed in f32 and rounded back (:func:`activations`), the
+residual skip is a bf16 add and a bf16 multiply by 1/sqrt(2) rounded to
+bf16 (:func:`skip_scale`), and the readout sums in f32.
 
 API: ``log_psi_apply(model, params, s)`` with ``s`` of shape
 ``[batch, n_sites]`` (values +-1.) returns a ``C`` pair of ``[batch]``
-float32 log-amplitudes (im identically zero).
+float32 log-amplitudes (im identically zero for real parameters).
 """
 from __future__ import annotations
 
@@ -37,6 +47,43 @@ from qmcnn_tpu_torch.ops.cplx import C
 Params = Dict[str, torch.Tensor]
 
 _SKIP_SCALE = 0.7071067811865476
+#: compute dtypes by config name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}; pick one of "
+                         f"{sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def skip_scale(dtype: torch.dtype) -> float:
+    """The residual skip's 1/sqrt(2) as the JAX package multiplies by it:
+    a Python float times a bf16 array is a bf16 constant there (0.70703125),
+    while torch would keep the float's f32 value."""
+    if dtype == torch.float32:
+        return _SKIP_SCALE
+    return float(torch.tensor(_SKIP_SCALE, dtype=dtype))
+
+
+def activations(name: str, dtype: torch.dtype):
+    """(complex, real) activation of ``name`` for activations stored in
+    ``dtype``: under bf16 the math runs in f32 and the result is rounded
+    once to bf16 (lncosh near 0 cancels O(1) terms, which bf16 math would
+    turn into a bias; the JAX models do the same)."""
+    act_c, act_r = cplx.ACTIVATIONS[name]
+    if dtype == torch.float32:
+        return act_c, act_r
+
+    def real(x):
+        return act_r(x.to(torch.float32)).to(dtype)
+
+    def complex_(z):
+        out = act_c(C(z.re.to(torch.float32), z.im.to(torch.float32)))
+        return C(out.re.to(dtype), out.im.to(dtype))
+
+    return complex_, real
 
 
 @contextlib.contextmanager
@@ -99,9 +146,22 @@ def kernel_std(init_mode: str, param_scale: float, fan_in: int,
     raise ValueError(f"unknown init_mode {init_mode!r}")
 
 
+def conv_nd(x: torch.Tensor, w: torch.Tensor, pbc: bool = True
+            ) -> torch.Tensor:
+    """Circular (or zero-padded) VALID convolution of channels-first x
+    ``[B, Cin, *spatial]`` with a Flax-layout kernel ``[*k, Cin, Cout]``,
+    in the dtype of x: the kernel is cast to it (bf16 operands keep their
+    f32 accumulation inside cuDNN / oneDNN and return bf16)."""
+    nd = w.dim() - 2
+    w = w.to(x.dtype).permute(nd + 1, nd, *range(nd))  # [Cout, Cin, *k]
+    conv = F.conv1d if nd == 1 else F.conv2d
+    return conv(_circular_pad(x, tuple(w.shape[2:]), pbc), w)
+
+
 class RealConv(nn.Module):
     """Circular real convolution; Flax-layout ``kernel [*k, Cin, Cout]``
-    and ``bias [Cout]``."""
+    and ``bias [Cout]``. Runs in the dtype of its input; the bias is cast to
+    it (an f32 add would promote a bf16 stack)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, ...], pbc: bool = True,
@@ -116,18 +176,51 @@ class RealConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nd = len(self.kernel_size)
-        # [*k, Cin, Cout] -> [Cout, Cin, *k]
-        w = self.kernel.permute(nd + 1, nd, *range(nd))
-        conv = F.conv1d if nd == 1 else F.conv2d
-        out = conv(_circular_pad(x, self.kernel_size, self.pbc), w)
-        return out + self.bias.reshape(-1, *([1] * nd))
+        out = conv_nd(x, self.kernel, self.pbc)
+        return out + self.bias.to(out.dtype).reshape(-1, *([1] * nd))
+
+
+class ComplexConv(nn.Module):
+    """Circular complex convolution; weights are (``kernel_re``,
+    ``kernel_im``) ``[*k, Cin, Cout]`` and (``bias_re``, ``bias_im``)
+    ``[Cout]``. A real input takes two real convolutions; a complex one
+    z = x + iy takes three (Karatsuba), with W = A + iB:
+    p1 = A x, p2 = B y, p3 = (A + B)(x + y); Re = p1 - p2,
+    Im = p3 - p1 - p2. Runs in the dtype of its input (A + B is summed in
+    f32 and rounded once)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, ...], pbc: bool = True,
+                 std: float = 0.05):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.pbc = pbc
+        self.std = std
+        shape = (*self.kernel_size, in_features, features)
+        self.kernel_re = nn.Parameter(torch.zeros(shape))
+        self.kernel_im = nn.Parameter(torch.zeros(shape))
+        self.bias_re = nn.Parameter(torch.zeros(features))
+        self.bias_im = nn.Parameter(torch.zeros(features))
+
+    def forward(self, z) -> C:
+        a, b = self.kernel_re, self.kernel_im
+        if isinstance(z, C):
+            p1 = conv_nd(z.re, a, self.pbc)
+            p2 = conv_nd(z.im, b, self.pbc)
+            p3 = conv_nd(z.re + z.im, a + b, self.pbc)
+            out = C(p1 - p2, p3 - p1 - p2)
+        else:
+            out = C(conv_nd(z, a, self.pbc), conv_nd(z, b, self.pbc))
+        shape = (-1, *([1] * len(self.kernel_size)))
+        return C(out.re + self.bias_re.to(out.re.dtype).reshape(shape),
+                 out.im + self.bias_im.to(out.im.dtype).reshape(shape))
 
 
 class LogPsiCNN(nn.Module):
     """log psi(s): stacked circular convs + activation, spatial-sum readout.
 
-    Same fields as the JAX ``LogPsiCNN``. ``complex_params=True`` and
-    ``compute_dtype='bfloat16'`` are later slices of the port and raise.
+    Same fields as the JAX ``LogPsiCNN``: real or complex parameters, in
+    float32 or end-to-end bfloat16 (see the module docstring).
     ``conv_impl`` names TPU compute paths of one function; every value
     takes the direct convolution here.
     """
@@ -141,14 +234,7 @@ class LogPsiCNN(nn.Module):
                  activation: str = "lncosh", residual: bool = False,
                  basis: int = 1):
         super().__init__()
-        if complex_params:
-            raise NotImplementedError(
-                "complex_params=True: the complex CNN is slice 2 of the "
-                "PyTorch port (ROADMAP.md, Queue A)")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: reduced-precision stacks "
-                "are not ported yet (ROADMAP.md, Queue A)")
+        self.dtype = compute_dtype_of(compute_dtype)
         if conv_impl not in ("auto", "direct", "roll", "circulant"):
             raise ValueError(f"unknown conv impl {conv_impl!r}")
         if activation not in cplx.ACTIVATIONS:
@@ -165,16 +251,20 @@ class LogPsiCNN(nn.Module):
         self.residual = residual
         self.basis = basis
         self.init_mode = init_mode
+        self.complex_params = complex_params
+        self.layer = "ComplexConv" if complex_params else "RealConv"
+        conv = ComplexConv if complex_params else RealConv
         cin = basis
         taps = int(np.prod(self.kernel_size))
         for i, c in enumerate(self.channels):
-            std = kernel_std(init_mode, param_scale, fan_in=taps * cin)
+            std = kernel_std(init_mode, param_scale, fan_in=taps * cin,
+                             n_parts=2 if complex_params else 1)
             if init_mode == "fan_in" and i == len(self.channels) - 1:
                 # shrink the last layer so the spatial-sum readout starts
                 # near-uniform (see the JAX LogPsiGCNN)
                 std *= 0.1 / float(np.sqrt(np.prod(self.lattice_shape) * c))
-            self.add_module(f"RealConv_{i}",
-                            RealConv(cin, c, self.kernel_size, pbc, std))
+            self.add_module(f"{self.layer}_{i}",
+                            conv(cin, c, self.kernel_size, pbc, std))
             cin = c
 
     def _skip(self, i: int, c: int) -> bool:
@@ -183,16 +273,24 @@ class LogPsiCNN(nn.Module):
 
     def forward(self, s: torch.Tensor) -> C:
         batch = s.shape[0]
-        act = cplx.ACTIVATIONS[self.activation][1]
+        act_c, act_r = activations(self.activation, self.dtype)
+        act = act_c if self.complex_params else act_r
+        scale = skip_scale(self.dtype)
         x = s.reshape(batch, *self.lattice_shape, self.basis)
-        x = x.movedim(-1, 1).to(torch.float32)
+        x = x.movedim(-1, 1).to(self.dtype)
         with true_f32():
             for i, c in enumerate(self.channels):
                 x_in = x
-                x = act(getattr(self, f"RealConv_{i}")(x))
+                x = act(getattr(self, f"{self.layer}_{i}")(x))
                 if self._skip(i, c):
-                    x = (x + x_in) * _SKIP_SCALE
-        out = x.reshape(batch, -1).sum(-1)
+                    x = (x + x_in) * scale
+
+        def readout(t):  # accumulated in f32
+            return t.reshape(batch, -1).to(torch.float32).sum(-1)
+
+        if self.complex_params:
+            return C(readout(x.re), readout(x.im))
+        out = readout(x)
         return C(out, torch.zeros_like(out))
 
     def init(self, seed: int, device="cpu") -> Params:
@@ -202,11 +300,14 @@ class LogPsiCNN(nn.Module):
         gen = torch.Generator().manual_seed(int(seed))
         out = {}
         for i in range(len(self.channels)):
-            conv = getattr(self, f"RealConv_{i}")
-            out[f"params/RealConv_{i}/bias"] = torch.zeros(
-                conv.bias.shape, device=device)
-            out[f"params/RealConv_{i}/kernel"] = (torch.randn(
-                conv.kernel.shape, generator=gen) * conv.std).to(device)
+            conv = getattr(self, f"{self.layer}_{i}")
+            for name, p in sorted(conv.named_parameters()):
+                key = f"params/{self.layer}_{i}/{name}"
+                if name.startswith("kernel"):
+                    out[key] = (torch.randn(p.shape, generator=gen)
+                                * conv.std).to(device)
+                else:
+                    out[key] = torch.zeros(p.shape, device=device)
         return out
 
 

@@ -13,8 +13,13 @@ Layouts: parameters keep the Flax names and layouts
 ``[G, k, k, C, C]`` for a group layer; biases ``[C]``, tiled over G);
 activations run channels-first (``[B, G*C, H, W]``) inside. Complex weights
 are (re, im) pairs and a complex group conv is three real convolutions
-(Karatsuba), as in the JAX model. Every forward runs in true float32
-(``models.cnn.true_f32``); ``compute_dtype='bfloat16'`` is not ported yet.
+(Karatsuba), as in the JAX model. A float32 forward runs in true float32
+(``models.cnn.true_f32``); ``compute_dtype='bfloat16'`` runs the stack end to
+end in bf16 with the JAX model's rounding points (``models/cnn.py``): bf16
+convolution operands (the expanded f32 kernel rounded once; the Karatsuba
+weight sum A + B summed in f32 first) with f32 accumulation and a bf16
+output, the bias added in bf16, f32 activation math rounded back, the bf16
+residual skip, and f32 readout sums.
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qmcnn_tpu_torch.models.cnn import (_SKIP_SCALE, Params, _circular_pad,
-                                        kernel_std, true_f32)
+from qmcnn_tpu_torch.models.cnn import (Params, _circular_pad, activations,
+                                        compute_dtype_of, kernel_std,
+                                        skip_scale, true_f32)
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
 
@@ -131,15 +137,17 @@ def _group_kernel(w: torch.Tensor, elem_idx: np.ndarray, tap_perm: np.ndarray,
 
 def conv_expanded(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Circular VALID conv of channels-first x [B, Cin, H, W] with a
-    Flax-layout kernel [k, k, Cin, Cout] (periodic lattices only)."""
+    Flax-layout kernel [k, k, Cin, Cout] (periodic lattices only), in the
+    dtype of x (the kernel is cast to it)."""
     k = tuple(w.shape[:2])
-    return F.conv2d(_circular_pad(x, k), w.permute(3, 2, 0, 1))
+    return F.conv2d(_circular_pad(x, k), w.to(x.dtype).permute(3, 2, 0, 1))
 
 
 class GroupConv(nn.Module):
     """One equivariant layer: lifting (lift=True) or C4v group conv. The
     parameters are the base kernels; the expanded kernel is gathered each
-    call. The bias is shared over the group axis."""
+    call. The bias is shared over the group axis. Runs in the dtype of its
+    input."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  lift: bool = False, complex_params: bool = False,
@@ -176,11 +184,12 @@ class GroupConv(nn.Module):
                 out = C(p1 - p2, p3 - p1 - p2)
             else:
                 out = C(conv_expanded(z, a), conv_expanded(z, b))
-            br = self.bias_re.repeat(G).reshape(-1, 1, 1)
-            bi = self.bias_im.repeat(G).reshape(-1, 1, 1)
+            br = self.bias_re.repeat(G).to(out.re.dtype).reshape(-1, 1, 1)
+            bi = self.bias_im.repeat(G).to(out.im.dtype).reshape(-1, 1, 1)
             return C(out.re + br, out.im + bi)
         x0 = z.re if isinstance(z, C) else z
-        return conv_expanded(x0, a) + self.bias_re.repeat(G).reshape(-1, 1, 1)
+        out = conv_expanded(x0, a)
+        return out + self.bias_re.repeat(G).to(out.dtype).reshape(-1, 1, 1)
 
 
 class LogPsiGCNN(nn.Module):
@@ -201,10 +210,7 @@ class LogPsiGCNN(nn.Module):
         if character not in _CHARACTERS:
             raise ValueError(f"unknown C4v character {character!r}; pick "
                              f"one of {sorted(_CHARACTERS)}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the bf16 GCNN (and its "
-                "fused-forward route) is not ported yet (ROADMAP.md, Queue A)")
+        self.dtype = compute_dtype_of(compute_dtype)
         if activation not in cplx.ACTIVATIONS:
             raise KeyError(activation)
         self.lattice_shape = tuple(lattice_shape)
@@ -244,8 +250,9 @@ class LogPsiGCNN(nn.Module):
         character projection: the fused forward's contract."""
         G = 8
         batch = s.shape[0]
-        act_c, act_r = cplx.ACTIVATIONS[self.activation]
-        z = s.reshape(batch, 1, *self.lattice_shape).to(torch.float32)
+        act_c, act_r = activations(self.activation, self.dtype)
+        scale = skip_scale(self.dtype)
+        z = s.reshape(batch, 1, *self.lattice_shape).to(self.dtype)
         n_layers = len(self.channels)
         with true_f32():
             for i, c in enumerate(self.channels):
@@ -254,11 +261,15 @@ class LogPsiGCNN(nn.Module):
                 z = act_c(z) if isinstance(z, C) else act_r(z)
                 if (self.residual and 0 < i < n_layers - 1
                         and c == self.channels[i - 1]):
-                    z = (z + z_in) * _SKIP_SCALE
+                    z = (z + z_in) * scale
         c_last = self.channels[-1]
         z = cplx.as_c(z)
-        return C(z.re.reshape(batch, G, c_last, -1).sum((2, 3)),
-                 z.im.reshape(batch, G, c_last, -1).sum((2, 3)))
+
+        def sums(t):  # accumulated in f32
+            return t.reshape(batch, G, c_last, -1).to(torch.float32).sum(
+                (2, 3))
+
+        return C(sums(z.re), sums(z.im))
 
     def init(self, seed: int, device="cpu") -> Params:
         """Fresh parameters as a flat Flax-keyed dict (normal(std) kernels,

@@ -5,8 +5,10 @@
 
 Runs the VMC loop on one device (CUDA by default; without a GPU the run
 raises unless ``--device cpu`` is given), streams metrics to stdout/CSV,
-writes the ``<csv>.params.npz`` snapshot and ``<csv>.meta.json`` manifest
-in the JAX package's formats, and — for exactly diagonalizable systems
+checkpoints to ``run.ckpt_dir`` (``utils/checkpoint.py``; a run whose
+directory holds a checkpoint resumes from it), writes the
+``<csv>.params.npz`` snapshot and ``<csv>.meta.json`` manifest in the JAX
+package's formats, and — for exactly diagonalizable systems
 (n_sites <= 20) — reports the relative error against the ED ground energy.
 """
 from __future__ import annotations
@@ -83,12 +85,15 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def train(cfg, device="cuda", logger=None):
-    """Run the configured experiment; returns (final state, logger)."""
+def train(cfg, device="cuda", ckpt_manager=None, logger=None):
+    """Run the configured experiment; returns (final state, logger).
+
+    With ``ckpt_manager`` (``utils.checkpoint.CheckpointManager``) the state
+    is saved every ``run.ckpt_every`` steps and at the end; if the manager
+    holds a checkpoint already, the run resumes from it (no warm start, no
+    thermalization, the CSV appended), and ``run.nan_policy: rollback``
+    restores the latest checkpoint on a non-finite energy."""
     dev = _resolve_device(device)
-    if cfg.run.ckpt_dir:
-        raise NotImplementedError("run.ckpt_dir: checkpoint/resume is not "
-                                  "ported yet (ROADMAP.md)")
     if cfg.run.distributed or (cfg.run.n_devices or 1) > 1:
         raise NotImplementedError("walker sharding over several devices is "
                                   "not ported yet (ROADMAP.md, A10)")
@@ -97,13 +102,18 @@ def train(cfg, device="cuda", logger=None):
     vmc, params, lattice = build(cfg, device=dev)
     n_sites = lattice.n_sites
     m = cfg.sampler.n_walkers
+    resuming = (ckpt_manager is not None
+                and ckpt_manager.latest_step() is not None)
     logger = logger or MetricsLogger(
         csv_path=cfg.run.csv_path, print_every=cfg.run.log_every,
-        tensorboard_dir=cfg.run.tensorboard_dir)
-    if cfg.run.init_from:
+        tensorboard_dir=cfg.run.tensorboard_dir,
+        # a resumed run must not truncate the earlier attempt's CSV
+        append=resuming)
+    if cfg.run.init_from and not resuming:
         from qmcnn_tpu_torch.utils.transfer import warm_start
 
         params = warm_start(params, cfg.run.init_from,
+                            step=cfg.run.init_from_step,
                             expand=cfg.run.init_expand)
         if cfg.run.init_noise > 0:
             # relative isotropic kick: init_noise x each leaf's own RMS
@@ -115,17 +125,22 @@ def train(cfg, device="cuda", logger=None):
     key = prng_key(cfg.run.seed + 100)
     walker_ids = torch.arange(m, device=dev)
     state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
-    state = chunked_thermalize(vmc, state, fold_in(key, 1), walker_ids,
-                               cfg.sampler.n_therm_sweeps,
-                               cfg.run.therm_sweeps_per_dispatch)
+    if resuming:
+        state = ckpt_manager.restore(state)
+        print(f"resumed from checkpoint at step {state.step}", flush=True)
+    else:
+        state = chunked_thermalize(vmc, state, fold_in(key, 1), walker_ids,
+                                   cfg.sampler.n_therm_sweeps,
+                                   cfg.run.therm_sweeps_per_dispatch)
 
     e_exact = exact_reference_energy(cfg)
     sweeps_per_step = cfg.sampler.n_sweeps_per_step
-    base_key = fold_in(key, 2)
-    # metrics come to the host once per chunk of steps (no checkpoints to
-    # roll back to yet, so 'rollback' acts as 'halt')
+    nan_retries = 0
+    base_key0 = fold_in(key, 2)
+    base_key = base_key0  # the per-step key is fold_in(base_key, step)
+    # metrics come to the host once per chunk of steps
     per = max(cfg.run.steps_per_dispatch, 1)
-    it = 0
+    it = state.step
     while it < cfg.run.n_steps:
         chunk = min(per, cfg.run.n_steps - it)
         t0 = time.perf_counter()
@@ -137,11 +152,28 @@ def train(cfg, device="cuda", logger=None):
         e_re = np.asarray([r[0] for r in rows])
         if cfg.run.nan_policy != "ignore" and not np.isfinite(e_re).all():
             bad_step = it + int(np.flatnonzero(~np.isfinite(e_re))[0]) + 1
-            raise RuntimeError(
-                f"non-finite energy at step {bad_step} "
-                f"(run.nan_policy={cfg.run.nan_policy}, no checkpoint to "
-                "roll back to) — a diverged state NaNs every later step; "
-                "lower optimizer.lr or raise sr.diag_shift0")
+            no_ckpt = (ckpt_manager is None
+                       or ckpt_manager.latest_step() is None)
+            if (cfg.run.nan_policy != "rollback" or no_ckpt
+                    or nan_retries >= cfg.run.nan_max_retries):
+                raise RuntimeError(
+                    f"non-finite energy at step {bad_step} "
+                    f"(run.nan_policy={cfg.run.nan_policy}"
+                    + (f", retries exhausted {nan_retries}"
+                       if nan_retries else "")
+                    + (", no checkpoint to roll back to" if no_ckpt else "")
+                    + ") — a diverged state NaNs every later step; lower "
+                    "optimizer.lr or raise sr.diag_shift0")
+            nan_retries += 1
+            state = ckpt_manager.restore(state)
+            it = state.step
+            # a replay from the checkpoint would NaN at the same step:
+            # re-fold the key so the retry draws another sample path
+            base_key = fold_in(base_key0, nan_retries)
+            print(f"non-finite energy at step {bad_step}: rolled back to "
+                  f"checkpoint step {it} with a re-folded key (retry "
+                  f"{nan_retries}/{cfg.run.nan_max_retries})", flush=True)
+            continue
         for j, (er, ei, ev, acc, gn, sri) in enumerate(rows):
             step_no = it + j + 1
             if step_no % cfg.run.log_every == 0 or step_no == cfg.run.n_steps:
@@ -159,7 +191,12 @@ def train(cfg, device="cuda", logger=None):
                     row["rel_err"] = abs(er - e_exact) / abs(e_exact)
                 logger.log(step_no, row)
         it += chunk
+        if (ckpt_manager is not None and (it // cfg.run.ckpt_every)
+                > ((it - chunk) // cfg.run.ckpt_every)):
+            ckpt_manager.save(it, state)
 
+    if ckpt_manager is not None:
+        ckpt_manager.save(cfg.run.n_steps, state)
     e_tail, e_err = logger.tail_energy()
     print(f"final energy (tail mean): {e_tail:.6f} +- {e_err:.6f}"
           f"  ({e_tail / n_sites:.6f}/site)")
@@ -229,7 +266,12 @@ def main(argv=None):
     cfg = cfglib.load(args.config, tuple(args.override))
     print(f"=== {cfg.name} ===")
     print(cfglib.to_yaml(cfg))
-    train(cfg, device=args.device)
+    ckpt = None
+    if cfg.run.ckpt_dir:
+        from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(cfg.run.ckpt_dir, keep=cfg.run.ckpt_keep)
+    train(cfg, device=args.device, ckpt_manager=ckpt)
 
 
 if __name__ == "__main__":

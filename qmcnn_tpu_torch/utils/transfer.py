@@ -11,13 +11,16 @@ its parameters as such a flat dict of tensors, so:
     ``_flatten`` of the params tree, or a loaded npz) into port params;
   * :func:`params_to_jax` is its inverse (float32 numpy, same keys);
   * :func:`load_checkpoint_params`, :func:`transfer_params` and
-    :func:`warm_start` serve ``run.init_from=<x>.params.npz``.
+    :func:`warm_start` serve ``run.init_from``: a ``<x>.params.npz``
+    snapshot or one of the port's own checkpoint directories
+    (``utils/checkpoint.py``).
 
-Orbax checkpoint directories are a later slice (checkpoint/resume).
+The JAX package's Orbax checkpoint directories are not readable here (the
+port does not depend on orbax); export their params to an npz snapshot.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,12 +39,22 @@ def params_to_jax(params: Params) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in sorted(params.items())}
 
 
-def load_checkpoint_params(path: str) -> Dict[str, np.ndarray]:
-    """Read a flat ``.npz`` params snapshot as host arrays."""
+def load_checkpoint_params(path: str, step: Optional[int] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Read the params of a flat ``.npz`` snapshot, or of a port checkpoint
+    directory (at ``step``, None: the latest), as host arrays."""
     if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: Orbax checkpoint directories are not readable by "
-            "the PyTorch port yet (ROADMAP.md); pass a .params.npz snapshot")
+        from qmcnn_tpu_torch.utils.checkpoint import (load_state_dict,
+                                                      saved_steps)
+
+        if not saved_steps(path):
+            raise NotImplementedError(
+                f"{path}: neither a .params.npz snapshot nor a checkpoint "
+                "directory of the PyTorch port (an Orbax directory of the "
+                "JAX package is not readable here: export its params to a "
+                ".params.npz snapshot)")
+        params = load_state_dict(path, step)["params"]
+        return {k: v.numpy() for k, v in sorted(params.items())}
     with np.load(path) as z:
         flat = {k: np.asarray(z[k]) for k in z.files}
     if not flat:
@@ -93,10 +106,10 @@ def transfer_params(fresh: Params, source: Dict[str, np.ndarray],
     return merged, copied, kept
 
 
-def warm_start(fresh_params: Params, path: str,
+def warm_start(fresh_params: Params, path: str, step: Optional[int] = None,
                expand: bool = False) -> Params:
     """Load + transfer, with a one-line report."""
-    source = load_checkpoint_params(path)
+    source = load_checkpoint_params(path, step)
     merged, n_copied, n_fresh = transfer_params(fresh_params, source,
                                                 expand=expand)
     print(f"warm-start from {path}: {n_copied} param leaves "

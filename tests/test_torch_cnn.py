@@ -1,4 +1,5 @@
-"""PyTorch port, slice 1: the real LogPsiCNN and the parameter transfer.
+"""PyTorch port: the real LogPsiCNN and the parameter transfer (slice 1),
+the complex LogPsiCNN, ComplexConv and the Bethe-ansatz energy (slice 5).
 
 The same parameters (a JAX init, or the committed flagship snapshot) and
 the same spin configurations (numpy, seeded) go through
@@ -129,7 +130,129 @@ def test_kernel_std_and_init_shapes():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        TCNN(lattice_shape=(4,), channels=(2,), complex_params=True)
-    with pytest.raises(NotImplementedError):
-        TCNN(lattice_shape=(4,), channels=(2,), compute_dtype="bfloat16")
+    """Complex parameters and bf16 are ported (slice 5); what the JAX model
+    does not take raises."""
+    TCNN(lattice_shape=(4,), channels=(2,), complex_params=True)
+    TCNN(lattice_shape=(4,), channels=(2,), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TCNN(lattice_shape=(4,), channels=(2,), compute_dtype="float16")
+    with pytest.raises(ValueError, match="conv impl"):
+        TCNN(lattice_shape=(4,), channels=(2,), conv_impl="fft")
+    with pytest.raises(KeyError):
+        TCNN(lattice_shape=(4,), channels=(2,), activation="relu")
+
+
+# -- the complex CNN (slice 5) ----------------------------------------------
+
+COMPLEX_CASES = {
+    "chain_k5": dict(lattice_shape=(12,), channels=(12, 12), kernel_size=5,
+                     param_scale=0.3),
+    "square_k3": dict(lattice_shape=(4, 4), channels=(4, 4, 4),
+                      kernel_size=3, param_scale=0.3),
+    "open_boundaries": dict(lattice_shape=(3, 4), channels=(3, 3),
+                            kernel_size=3, pbc=False, param_scale=0.3),
+    "residual_selu_fan_in": dict(lattice_shape=(4, 4), channels=(4, 4, 4, 4),
+                                 kernel_size=3, activation="selu",
+                                 residual=True, init_mode="fan_in",
+                                 param_scale=1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPLEX_CASES))
+def test_complex_log_psi_matches_jax(name):
+    """The complex LogPsiCNN (ComplexConv layers, Karatsuba after the
+    first) against JAX in float32: Re within the real CNN's rtol/atol, the
+    phase within atol 1e-4 mod 2 pi."""
+    kw = dict(COMPLEX_CASES[name], complex_params=True)
+    jm, tm, flat, n = both(kw)
+    s = spins(np.random.default_rng(4), 16, n)
+    want = j_apply(jm, _unflatten(flat), s)
+    got = t_apply(tm, params_from_jax(flat), torch.from_numpy(s))
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
+                               rtol=RTOL, atol=ATOL)
+    dphi = (got.im.numpy() - np.asarray(want.im) + np.pi) % (2 * np.pi) \
+        - np.pi
+    np.testing.assert_allclose(dphi, 0.0, atol=ATOL)
+    assert np.abs(got.im.numpy()).max() > 0
+
+
+@pytest.mark.parametrize("complex_input", [False, True])
+def test_complex_conv_matches_jax(complex_input):
+    """One ComplexConv layer, on a real input (two real convolutions) and
+    on a complex one (Karatsuba), against the JAX module: float32, rtol
+    2e-5 and atol 1e-5."""
+    from qmcnn_tpu.models.cnn import ComplexConv as JConv
+    from qmcnn_tpu.ops.cplx import C as JC
+    from qmcnn_tpu_torch.models.cnn import ComplexConv as TConv
+    from qmcnn_tpu_torch.ops.cplx import C as TC
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6, 4, 5, 3)).astype(np.float32)  # NHWC
+    y = rng.normal(size=(6, 4, 5, 3)).astype(np.float32)
+    jmod = JConv(features=2, kernel_size=(3, 3), lattice_shape=(4, 5),
+                 param_scale=0.3)
+    jin = JC(jnp.asarray(x), jnp.asarray(y)) if complex_input \
+        else jnp.asarray(x)
+    v = jmod.init(jax.random.key(0), jin)
+    v = {"params": {k: a + 0.1 if k.startswith("bias") else a
+                    for k, a in v["params"].items()}}
+    want = jmod.apply(v, jin)
+    tmod = TConv(3, 2, (3, 3))
+    tmod.load_state_dict({k: torch.from_numpy(np.array(a))
+                          for k, a in v["params"].items()})
+
+    def cf(a):  # NHWC -> channels-first
+        return torch.from_numpy(a).permute(0, 3, 1, 2)
+
+    got = tmod(TC(cf(x), cf(y)) if complex_input else cf(x))
+    for g, w in ((got.re, want.re), (got.im, want.im)):
+        np.testing.assert_allclose(g.detach().permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 12, 16, 40])
+def test_bethe_matches_jax(n):
+    """The port's copy of ops/bethe.py gives the JAX module's roots and
+    energy (numpy on both sides: equal to 1e-12)."""
+    from qmcnn_tpu.ops import bethe as jbethe
+    from qmcnn_tpu_torch.ops import bethe as tbethe
+
+    np.testing.assert_allclose(tbethe.bethe_roots(n), jbethe.bethe_roots(n),
+                               rtol=1e-12, atol=1e-12)
+    assert tbethe.ground_energy(n, j=0.7) == pytest.approx(
+        jbethe.ground_energy(n, j=0.7), rel=1e-12)
+    assert tbethe.energy_per_site_infinite() == \
+        jbethe.energy_per_site_infinite()
+    with pytest.raises(ValueError):
+        tbethe.ground_energy(n + 1)
+
+
+@pytest.mark.parametrize("mem_gib", [0.05, 80])
+def test_complex_cnn_footprint_and_sr_parts_match_jax(mem_gib):
+    """j1j2_8x8_complex (the complex CNN): the memory footprint, the
+    auto-chunking and the SR's real-log-psi shortcut (off: two Jacobian
+    parts) agree with the JAX builder."""
+    import dataclasses
+
+    from qmcnn_tpu import builder as jb
+    from qmcnn_tpu import configs as jcfg
+    from qmcnn_tpu.utils import memory as jmem
+    from qmcnn_tpu_torch import builder as tb
+    from qmcnn_tpu_torch import configs as tcfg
+    from qmcnn_tpu_torch.utils import memory as tmem
+
+    path = os.path.join(ROOT, "configs", "j1j2_8x8_complex.yaml")
+    over = ("run.n_devices=1",)
+    jc, tc = jcfg.load(path, over), tcfg.load(path, over)
+    jl, tl = jb.build_lattice(jc), tb.build_lattice(tc)
+    jh, th = jb.build_hamiltonian(jc, jl), tb.build_hamiltonian(tc, tl)
+    assert tb.model_log_psi_is_real(tc) is jb.model_log_psi_is_real(jc) \
+        is False
+    assert dataclasses.asdict(tmem.model_footprint(tc, tl.n_sites)) == \
+        dataclasses.asdict(jmem.model_footprint(jc, jl.n_sites))
+    n_params = sum(v.numel() for v in tb.build_model(tc, tl).init(0).values())
+    mem = int(mem_gib * 2**30)
+    assert tmem.auto_chunk_size(tc, tl, th, n_params, mem_bytes=mem) \
+        == jmem.auto_chunk_size(jc, jl, jh, n_params, hbm_bytes=mem)
+    assert tmem.auto_jacobian_chunk(tc, tl, th, n_params, mem_bytes=mem) \
+        == jmem.auto_jacobian_chunk(jc, jl, jh, n_params, hbm_bytes=mem)

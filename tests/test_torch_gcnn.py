@@ -477,15 +477,21 @@ def test_gcnn_eligibility():
     with pytest.raises(ValueError):
         tb.resolve_sampler_backend(_gcnn_cfg("sampler.backend=pallas"),
                                    "cuda")
-    for over in (("model.channels=[8,4]",), ("model.compute_dtype=bfloat16",),
-                 ("model.jastrow=true",), ("model.phase_bias=marshall",),
+    for over in (("model.channels=[8,4]",), ("model.jastrow=true",),
+                 ("model.phase_bias=marshall",),
                  ("lattice.geometry=triangular",)):
         cfg = _gcnn_cfg(*over)
         assert not tb.gcnn_kernel_eligible(cfg), over
         assert not tb.uses_fused_gcnn_forward(cfg, "cuda"), over
         assert tb.resolve_sampler_backend(cfg, "cuda") == "torch"
-    for over in (("model.compute_dtype=bfloat16",), ("model.jastrow=true",),
-                 ("lattice.geometry=triangular",)):
+    # bf16 takes the kernel's bf16 route (slice 5)
+    bf16 = _gcnn_cfg("model.compute_dtype=bfloat16")
+    assert tb.gcnn_kernel_eligible(bf16)
+    assert tb.uses_fused_gcnn_forward(bf16, "cuda")
+    assert tb.fused_gcnn_log_psi(bf16, tb.build_lattice(bf16)
+                                 ).compute_dtype == "bfloat16"
+    tb.build_model(bf16, tb.build_lattice(bf16))
+    for over in (("model.jastrow=true",), ("lattice.geometry=triangular",)):
         cfg = _gcnn_cfg(*over)
         with pytest.raises(NotImplementedError):
             tb.build_model(cfg, tb.build_lattice(cfg))
@@ -497,15 +503,20 @@ def test_gcnn_eligibility():
     ("j1j2_8x8_gcnn", True), ("j1j2_8x8_gcnn_deep", True),
     ("j1j2_8x8_gcnn_res8", True), ("j1j2_10x10_gcnn", True),
     ("j1j2_10x10_gcnn_deep", True), ("j1j2_12x12_gcnn_deep", True),
-    ("j1j2_16x16_gcnn_deep", False)])
+    ("j1j2_16x16_gcnn_deep", False), ("j1j2_8x8_gcnn_r2", True),
+    ("j1j2_16x16_gcnn_deep+bfloat16", True)])
 def test_gcnn_eligibility_needs_shared_memory(name, fits):
     """A config whose block of activations exceeds Hopper's shared memory
-    (16x16 at W = 80: 337,920 bytes) is not eligible, so 'auto' keeps the
-    plain model on CUDA instead of sending it to a kernel that raises."""
-    cfg = tcfg.load(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    (16x16 at W = 80 in float32: 337,920 bytes) is not eligible, so 'auto'
+    keeps the plain model on CUDA instead of sending it to a kernel that
+    raises. The bf16 route reckons at 2 bytes per value: the bf16 hero
+    config fits, and so would 16x16 at W = 80 (190,464 bytes)."""
+    name, _, dtype = name.partition("+")
+    cfg = tcfg.load(os.path.join(ROOT, "configs", f"{name}.yaml"),
+                    (f"model.compute_dtype={dtype}",) if dtype else ())
     m = cfg.model
     smem = k2.smem_bytes(int(np.prod(cfg.lattice.shape)), 8 * m.channels[0],
-                         9, m.complex_params)
+                         9, m.complex_params, 1, m.compute_dtype)
     assert (smem <= k2.MAX_SMEM_BYTES) == fits
     assert tb.gcnn_kernel_eligible(cfg) == fits
     assert tb.uses_fused_gcnn_forward(cfg, "cuda") == fits

@@ -6,13 +6,15 @@ so it runs on a GPU machine without it:
         tests/test_torch_kernels_cuda.py
 
 Without a CUDA device every test skips (the kernels have no CPU mode; the
-plain versions' parity with JAX is tests/test_torch_sweep.py and
-tests/test_torch_gcnn.py). Sweep decisions must be equal; log psi within
+plain versions' parity with JAX is tests/test_torch_sweep.py,
+tests/test_torch_gcnn.py and tests/test_torch_bf16.py). Sweep decisions
+must be equal; log psi within
 rtol 1e-5 (float32, the kernel's 3xTF32 tensor-core products summed in
 another order than cuDNN's), and bitwise the same in any slot of a block. GCNN
 readout sums within rtol/atol 1e-4, 1e-3 for residual stacks deeper than 3
 layers (float32, the kernel's 3xTF32 tensor-core products summed in
-another order; rounding compounds with depth)."""
+another order; rounding compounds with depth). K2's bf16 route: see
+BF16_RTOL."""
 import numpy as np
 import pytest
 import torch
@@ -171,8 +173,9 @@ GCNN_CASES = {
 }
 
 
-def _gcnn_setup(name, dev):
-    shape, c, n_layers, cplx, act, residual, batch = GCNN_CASES[name]
+def _gcnn_setup(name, dev, cases=None):
+    shape, c, n_layers, cplx, act, residual, batch = (cases
+                                                      or GCNN_CASES)[name]
     model = LogPsiGCNN(shape, channels=(c,) * n_layers, kernel_size=3,
                        complex_params=cplx, param_scale=1.0,
                        init_mode="fan_in", activation=act, residual=residual)
@@ -234,6 +237,81 @@ def test_gcnn_fused_log_psi_matches_model(character, sector):
                                atol=1e-3)
 
 
+#: the bf16 route against its plain bf16 version: both round at the same
+#: points (bf16 weights and activations, f32 sums, the f32 bias and
+#: activation rounded once, the bf16 residual), so what is left is the f32
+#: summation order now and then flipping one bf16 rounding of an
+#: activation (2^-8 relative), which later layers carry on. S_g is held to
+#: BF16_RTOL of (1 + each configuration's largest |S_g|): a few flips in a
+#: sum of 64 x W activations, sized from the errors measured on the H100
+#: at depths 8 and 12 (up to 1.7e-4 at depth 8, 5.7e-3 on the depth-12
+#: snapshot, as two plain versions summing in other orders differ: PERF.md)
+BF16_RTOL = 1e-2
+#: the bf16 cases: the f32 cases above, the gcnn_r2 hero shape (8x8, C = 10
+#: x 8, selu, residual, complex) and channel counts whose W = 8C is no
+#: multiple of 16 (the padded k step)
+GCNN_BF16_CASES = dict(GCNN_CASES, **{
+    "w80_l8_selu_residual_r2": ((8, 8), 10, 8, True, "selu", True, 67),
+    "w24_l3_selu_residual_odd_c": ((4, 4), 3, 3, True, "selu", True, 9),
+    "w40_l3_lncosh_real_odd_c": ((6, 6), 5, 3, False, "lncosh", False, 11),
+})
+
+
+def _assert_sg_close(got, want, rtol):
+    size = 1.0 + torch.maximum(want.re.abs(), want.im.abs()).amax(dim=1)
+    for a, b in ((got.re, want.re), (got.im, want.im)):
+        err = ((a - b).abs() / size[:, None]).max()
+        assert float(err) <= rtol, float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GCNN_BF16_CASES))
+def test_gcnn_bf16_kernel_matches_plain_version(name):
+    """K2's bf16 route against its plain bf16 version; it counts on its own
+    counter, is deterministic, and differs from the f32 route."""
+    dev = _card()
+    _, x, ws, kw = _gcnn_setup(name, dev, GCNN_BF16_CASES)
+    before = (k2.gcnn_group_sums.launches, k2.gcnn_group_sums.launches_bf16)
+    got = k2.gcnn_group_sums(x, ws, compute_dtype="bfloat16", **kw)
+    torch.cuda.synchronize()
+    assert (k2.gcnn_group_sums.launches,
+            k2.gcnn_group_sums.launches_bf16) == (before[0], before[1] + 1)
+    want = k2.gcnn_group_sums_reference(x, ws, compute_dtype="bfloat16",
+                                        **kw)
+    _assert_sg_close(got, want, BF16_RTOL)
+    again = k2.gcnn_group_sums(x, ws, compute_dtype="bfloat16", **kw)
+    assert torch.equal(again.re, got.re) and torch.equal(again.im, got.im)
+    f32 = k2.gcnn_group_sums(x, ws, **kw)
+    assert not torch.equal(f32.re, got.re)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("character,sector", [("A1", 1), ("B1", -1)])
+def test_gcnn_bf16_fused_log_psi_matches_plain(character, sector):
+    """FusedLogPsi on the bf16 route against the same forward on the CPU
+    (the plain bf16 version), in amplitudes normalized to the batch."""
+    dev = _card()
+    kw = dict(lattice_shape=(8, 8), channels=(10,) * 4, kernel_size=3,
+              complex_params=True, character=character,
+              activation="selu", residual=True)
+    model = LogPsiGCNN(param_scale=1.0, init_mode="fan_in", **kw)
+    from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized
+
+    params = SpinFlipSymmetrized(model, sector).init(6, device=dev)
+    s = init_walkers(prng_key(8), 41, 64, sector="sz0", device=dev)
+    fused = k2.FusedLogPsi(spin_flip_sector=sector, compute_dtype="bfloat16",
+                           **kw)
+    got = fused(params, s)
+    want = fused({k: v.cpu() for k, v in params.items()}, s.cpu())
+    scale = float(want.re.max())
+
+    def amp(lp):
+        return (torch.exp(lp.re.cpu() - scale)
+                * torch.exp(1j * lp.im.cpu())).numpy()
+
+    np.testing.assert_allclose(amp(got), amp(want), atol=BF16_RTOL)
+
+
 @pytest.mark.cuda
 def test_gcnn_shared_memory_limit_raises():
     dev = _card()
@@ -242,3 +320,8 @@ def test_gcnn_shared_memory_limit_raises():
     with pytest.raises(ValueError, match="shared memory"):
         k2.gcnn_group_sums(x, ws, lattice_shape=(16, 16), channels=(8,) * 3,
                            kernel_size=3)
+    # bf16 rows take half the bytes: 24x24 at W = 64 is still too large
+    x = init_walkers(prng_key(0), 2, 24 * 24, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.gcnn_group_sums(x, ws, lattice_shape=(24, 24), channels=(8,) * 3,
+                           kernel_size=3, compute_dtype="bfloat16")

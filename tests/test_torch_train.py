@@ -140,10 +140,12 @@ def test_helpers_match_jax():
 
 
 def test_unported_options_raise(tmp_path):
+    """Options of later slices raise (complex parameters, bf16 and
+    checkpoints are ported since slice 5)."""
     for ov in (("model.kind=rbm",), ("sr.solver=cg",),
-               ("model.complex_params=true",), ("run.ckpt_dir=x",),
-               ("model.compute_dtype=bfloat16",), ("model.jastrow=true",),
-               ("optimizer.ema_decay=0.9",)):
+               ("model.jastrow=true",), ("optimizer.ema_decay=0.9",),
+               ("model.translation_average=true",), ("sr.momentum=0.9",),
+               ("run.distributed=true",)):
         cfg = tcfg.load(HEIS, SMALL + ov)
         with pytest.raises(NotImplementedError):
             ttrain.train(cfg, device="cpu")
