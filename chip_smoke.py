@@ -21,6 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 where rounding may cross its branch cuts, held to twice the
                 disagreement of a second plain version (the Karatsuba
                 model) plus 0.5% of the configurations; K2's bf16 route
+                (wgmma bf16 with A from registers, the weights streamed by
+                TMA bulk copies through a ring of shared-memory stages, each
+                complex layer one real GEMM over [[wr, wi], [-wi, wr]])
                 against its plain bf16 version (BF16_TOL) at the
                 j1j2_8x8_gcnn_r2 shape (W=80, L=8, selu, residual, B=2048
                 and 777), at the depth-12 fixture, with real lncosh params,
@@ -66,10 +69,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the heis10x10_sr E_loc batch (411,648 configurations) beside
                 the cuDNN model on the same batch (its log psi within rtol
                 1e-5), the kernels' blocks, K2's bf16 route at the
-                j1j2_8x8_gcnn_r2 E_loc chunk and sweep shapes beside its
-                plain version, its bf16 tensor-core bound and K2's f32
-                route at the same shapes, and the per-phase split of a
-                training step of each path (``qmcnn_tpu_torch.step_timing``);
+                j1j2_8x8_gcnn_r2 E_loc chunk and sweep shapes and at the
+                depth-12 fixture beside its plain version, its bf16
+                tensor-core bound and K2's f32 route at the same shapes, and
+                the per-phase split of a training step of each path (``qmcnn_tpu_torch.step_timing``);
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
                 K2's bf16 route), the card line, and the final
                 ``{"ok": true, ...}`` line.
@@ -740,34 +743,46 @@ def d12_fixture_energy(out_dir: Path, n_therm: int,
 # K2's bf16 route and the bf16 / complex paths
 # ---------------------------------------------------------------------------
 
-def print_ptxas(log: str) -> None:
-    """Registers and spills of every kernel in a build log, by kernel."""
+def print_ptxas(log: str) -> dict:
+    """Print the registers and spills of every kernel in a build log, by
+    kernel; returns {kernel<template args>: {"registers": n,
+    "spill_store_bytes": n}}."""
     import re
 
-    name = None
+    name, found = None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            # e.g. ..._cu_ec29e88a24gcnn_forward_bf16_kernelILb1ELi1EEEv...
+            # e.g. ..._cu_ec29e88a24gcnn_forward_bf16_kernelILb1ELi1ELi20EE...
             m = re.search(r"(gcnn_forward_bf16_kernel|gcnn_forward_kernel"
                           r"|sweep_kernel)(?:I((?:L[a-z]\d+E)+)E)?", line)
             name = (m.group(1) + "<" + ",".join(re.findall(
                 r"\d+", m.group(2) or "")) + ">") if m else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            rec = found.setdefault(name, {})
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                rec["spill_store_bytes"] = int(m.group(1))
+    return found
 
 
 def sg_rel_err(got, want) -> tuple:
-    """(max abs, max relative) S_g error, relative to (1 + each
-    configuration's largest |S_g|)."""
+    """(max abs, max relative, mean signed relative) S_g error, relative to
+    (1 + each configuration's largest |S_g|); the mean runs over the re and
+    im parts of every S_g."""
     import torch
 
     size = 1.0 + torch.maximum(want.re.abs(), want.im.abs()).amax(dim=1)
-    max_abs, max_rel = 0.0, 0.0
+    max_abs, max_rel, signed = 0.0, 0.0, 0.0
     for a, b in ((got.re, want.re), (got.im, want.im)):
-        diff = (a.to(b.device) - b).abs()
-        max_abs = max(max_abs, float(diff.max()))
-        max_rel = max(max_rel, float((diff / size[:, None]).max()))
-    return max_abs, max_rel
+        diff = a.to(b.device) - b
+        max_abs = max(max_abs, float(diff.abs().max()))
+        max_rel = max(max_rel, float((diff.abs() / size[:, None]).max()))
+        signed += float((diff / size[:, None]).mean()) / 2
+    return max_abs, max_rel, signed
 
 
 def compare_gcnn_bf16(name: str, ws, x, kw, witness: bool = False) -> dict:
@@ -782,7 +797,7 @@ def compare_gcnn_bf16(name: str, ws, x, kw, witness: bool = False) -> dict:
                                         **kw)
     f32 = k2.gcnn_group_sums_reference(x, ws, **kw)
     torch.cuda.synchronize()
-    max_abs, max_rel = sg_rel_err(got, want)
+    max_abs, max_rel, signed = sg_rel_err(got, want)
     gap = sg_rel_err(f32, want)[1]
     text = ""
     if witness:
@@ -792,13 +807,15 @@ def compare_gcnn_bf16(name: str, ws, x, kw, witness: bool = False) -> dict:
         text = (f"; witness, plain on the CPU vs plain on the card: max rel "
                 f"{sg_rel_err(other, want)[1]:.3e}")
     print(f"  {name}: B={x.shape[0]}, S_g max abs err {max_abs:.3e}, max "
-          f"rel err {max_rel:.3e} (tol {BF16_TOL:g}; |S_g| ~ "
+          f"rel err {max_rel:.3e} (tol {BF16_TOL:g}), mean signed rel err "
+          f"{signed:.3e} (|S_g| ~ "
           f"{float(want.re.abs().mean()):.3f}; bf16 vs f32 plain {gap:.3e})"
           f"{text}")
     check(max_rel <= BF16_TOL, f"{name}: bf16 S_g rel err {max_rel} > "
           f"{BF16_TOL}")
     check(gap > 0, f"{name}: the bf16 route does not round")
-    return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel,
+            "mean_signed_rel_err": signed}
 
 
 def compare_gcnn_log_psi_bf16(name: str, params, x, fused_kw: dict,
@@ -1108,6 +1125,8 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
     bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
     f32_bound = gcnn_bound(ws, hw, width, n_layers, batch)[0]
     n_cfg = k2.configs_per_block(hw, width, 9, cplx, "bfloat16")
+    plan = k2.bf16_plan(hw, width, 9, cplx, n_cfg // k2.bf16_group_configs(
+        hw))
     print(f"  {label} B={batch} ({card}): bf16 route {ms:.4f} ms, plain "
           f"bf16 version (cuDNN, TF32 off) {plain_ms:.4f} ms, bf16 bound "
           f"{bound_ms:.4f} ms ({flop:.3e} FLOP at {BF16_FLOPS:.3g} bf16 "
@@ -1115,10 +1134,10 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
           f"route {f32_ms:.4f} ms at the same shape (3xTF32 bound "
           f"{f32_bound:.4f} ms), ratio bf16/f32 {ms / f32_ms:.3f}; {n_cfg} "
           f"configurations x {hw} sites per block (f32: "
-          f"{k2.configs_per_block(hw, width, 9, cplx)}), "
-          f"{k2.launch_threads(hw, width, n_cfg)} threads, "
-          f"{k2.smem_bytes(hw, width, 9, cplx, n_cfg, 'bfloat16')} bytes of "
-          f"shared memory")
+          f"{k2.configs_per_block(hw, width, 9, cplx)}) in {plan.n_wg} "
+          f"consumer warpgroups, {plan.threads} threads, a ring of "
+          f"{plan.stages} stages of {plan.stage_bytes} bytes, "
+          f"{plan.smem_bytes} bytes of shared memory")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "f32_route_ms": f32_ms,
             "f32_route_bound_ms": f32_bound}
@@ -1171,11 +1190,12 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=2) as pool:
         builds = list(pool.map(timed_build, (k1, k2)))
     print(f"[2] build: {time.perf_counter() - t0:.2f} s in all")
+    ptxas = {}
     for path, log, secs in builds:
         print(f"    {path.name}: {secs:.2f} s (K2's source holds both its "
               f"float32 and bf16 routes)" if path.name.startswith("gcnn")
               else f"    {path.name}: {secs:.2f} s")
-        print_ptxas(log)
+        ptxas.update(print_ptxas(log))
 
     # 3. kernel vs plain version on the card
     print("[3] fused sweep vs plain version (TF32 off)", flush=True)
@@ -1249,8 +1269,8 @@ def main() -> int:
                                  "fan_in)", r2_ws, r2_x, r2_kw2)
     compare_gcnn_bf16("gcnn_r2 shape, ragged batch",
                       *gcnn_case(r2_kw, 777, 42, dev)[1:], witness=True)
-    compare_gcnn_bf16("d12 fixture (W=80, L=12)", d12_ws, d12_x, d12_kw2,
-                      witness=True)
+    bf16_d12 = compare_gcnn_bf16("d12 fixture (W=80, L=12)", d12_ws, d12_x,
+                                 d12_kw2, witness=True)
     compare_gcnn_bf16("real params, lncosh (W=64, L=3)", *gcnn_case(
         dict(main_kw, complex_params=False, param_scale=0.3), 777, 43,
         dev)[1:])
@@ -1383,6 +1403,8 @@ def main() -> int:
                           "(256 x 256 x 2)")
     t_r2s = time_gcnn_bf16(*gcnn_case(r2_kw, 1024 * 2, 46, dev)[1:], card,
                            "K2 bf16 at the gcnn_r2 sweep shape (1024 x 2)")
+    t_d12 = time_gcnn_bf16(d12_ws, d12_x, d12_kw2, card,
+                           "K2 bf16 at the d12 shape")
     print(f"  K2 bf16 launches per j1j2_8x8_gcnn_r2 training step: "
           f"{r2['per_step']}")
     step_split(r2["cfg"], r2["state"], card, "j1j2_8x8_gcnn_r2")
@@ -1444,6 +1466,11 @@ def main() -> int:
         "sweep_plain_ms": t_r2s["plain_ms"],
         "sweep_bound_ms": t_r2s["bound_ms"],
         "sweep_f32_route_ms": t_r2s["f32_route_ms"],
+        "d12_ms": t_d12["ms"],
+        "d12_bound_ms": t_d12["bound_ms"],
+        "d12_max_rel_err": bf16_d12["max_rel_err"],
+        "d12_mean_signed_rel_err": bf16_d12["mean_signed_rel_err"],
+        "registers": ptxas.get("gcnn_forward_bf16_kernel<1,1,20>", {}),
     }
     print(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rec, rec2, rec3]}))

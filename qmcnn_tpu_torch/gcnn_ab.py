@@ -12,8 +12,14 @@ tree (building its kernel there) and
     the depth-12 snapshot runs/j1j2_8x8_d12_fix.csv.params.npz (512,
     W = 80, L = 12, selu, residual);
   * holds each against that tree's plain version (max abs error of S_g);
-  * times a training step of configs/j1j2_8x8_gcnn.yaml phase by phase
-    (three steps after a warm-up, as ``step_timing``).
+  * times K2's bf16 route at the shapes of configs/j1j2_8x8_gcnn_r2.yaml
+    (its E_loc chunk, 131,072 configurations, W = 80, L = 8, selu,
+    residual, and its sweep shape, 2,048) and at the depth-12 snapshot,
+    each with its max and mean signed S_g error against that tree's plain
+    bf16 version (relative to 1 + each configuration's largest |S_g|);
+  * times a training step of configs/j1j2_8x8_gcnn.yaml and of
+    configs/j1j2_8x8_gcnn_r2.yaml phase by phase (three steps after a
+    warm-up, as ``step_timing``).
 The inputs come from seeds through code both trees share (the model's
 init, the walkers' init), so every run sees the same tensors. Prints one
 JSON line per run and, last, the mean of each number per tree.
@@ -97,6 +103,12 @@ def _worker(root: str) -> dict:
     shapes = {"e_loc_chunk": (case(main_kw, 256 * 256 * 2, 26), 5),
               "sweep": (case(main_kw, 1024 * 2, 27), 30),
               "d12": (case(d12_kw, 512, 22, params=d12), 20)}
+    r2_kw = dict(lattice_shape=(8, 8), channels=(10,) * 8,
+                 complex_params=True, activation="selu", residual=True,
+                 param_scale=1.0, init_mode="fan_in")
+    bf16_shapes = {"bf16_e_loc_chunk": (case(r2_kw, 256 * 256 * 2, 45), 5),
+                   "bf16_sweep": (case(r2_kw, 1024 * 2, 46), 30),
+                   "bf16_d12": (shapes["d12"][0], 20)}
     rec = {"tree": root, "device": torch.cuda.get_device_name(0),
            "build_s": build_s}
     for name, ((ws, x, kw), reps) in shapes.items():
@@ -108,17 +120,32 @@ def _worker(root: str) -> dict:
         rec[f"{name}_ms"] = _cuda_ms(
             lambda: k2.gcnn_group_sums(x, ws, **kw), reps)
         del got, want
+    for name, ((ws, x, kw), reps) in bf16_shapes.items():
+        kw = dict(kw, compute_dtype="bfloat16")
+        got = k2.gcnn_group_sums(x, ws, **kw)
+        want = k2.gcnn_group_sums_reference(x, ws, **kw)
+        size = 1.0 + torch.maximum(want.re.abs(), want.im.abs()).amax(dim=1)
+        diffs = [(a - b) / size[:, None] for a, b in ((got.re, want.re),
+                                                      (got.im, want.im))]
+        rec[f"{name}_max_rel_err"] = max(float(d.abs().max()) for d in diffs)
+        rec[f"{name}_mean_signed_rel_err"] = sum(
+            float(d.mean()) for d in diffs) / 2
+        rec[f"{name}_ms"] = _cuda_ms(
+            lambda: k2.gcnn_group_sums(x, ws, **kw), reps)
+        del got, want, diffs
 
-    cfg = configs.load(str(here / "configs" / "j1j2_8x8_gcnn.yaml"), ())
-    vmc, params, _ = build(cfg, device=dev)
-    m = cfg.sampler.n_walkers
-    key = prng_key(cfg.run.seed + 100)
-    ids = torch.arange(m, device=dev)
-    state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
-    state = vmc.thermalize(state, fold_in(key, 1), ids, 20)
-    step = step_split(vmc, state, 3)
-    rec.update({f"step_{k}_ms": v for k, v in step.items()})
-    rec["step_total_ms"] = sum(step.values())
+    for label, name in (("step", "j1j2_8x8_gcnn"),
+                        ("r2_step", "j1j2_8x8_gcnn_r2")):
+        cfg = configs.load(str(here / "configs" / f"{name}.yaml"), ())
+        vmc, params, _ = build(cfg, device=dev)
+        m = cfg.sampler.n_walkers
+        key = prng_key(cfg.run.seed + 100)
+        ids = torch.arange(m, device=dev)
+        state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
+        state = vmc.thermalize(state, fold_in(key, 1), ids, 20)
+        step = step_split(vmc, state, 3)
+        rec.update({f"{label}_{k}_ms": v for k, v in step.items()})
+        rec[f"{label}_total_ms"] = sum(step.values())
     return rec
 
 

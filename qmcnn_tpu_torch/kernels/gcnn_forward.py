@@ -15,9 +15,12 @@ evaluation-only log psi built on them (port of
     with the same contract and rounding points. Nothing falls back silently;
   * :func:`pack_group_weights` (float32: TF32 hi/lo parts from
     ``kernels/tf32.py`` in m16n8k8 fragment order) and
-    :func:`pack_group_weights_bf16` (bf16 in m16n8k16 fragment order) give
-    the kernel's own weight layouts, built once per parameter state and
-    cached beside ``GCNNWeights`` (:func:`packed_weights`);
+    :func:`pack_group_weights_bf16` (bf16: each complex layer as one real
+    GEMM matrix, cut into the ring stages the bf16 route's wgmma reads from
+    shared memory) give the kernel's own weight layouts, built once per
+    parameter state and cached beside ``GCNNWeights``
+    (:func:`packed_weights`); :func:`bf16_plan` mirrors the bf16 route's
+    tiling and shared memory;
   * :class:`FusedLogPsi` is the counterpart of ``make_fused_log_psi``:
     the character phase, the logmeanexp over G and the spin-flip pairing
     run outside the kernel, and the expanded weights are reused until the
@@ -50,14 +53,28 @@ from qmcnn_tpu_torch.ops.cplx import C
 
 SOURCE = CSRC / "gcnn_forward.cu"
 G = 8
-#: threads per block are capped by the kernel's __launch_bounds__
+#: the float32 route's threads per block are capped by its kernel's
+#: __launch_bounds__ (kMaxThreads in the .cu source)
 MAX_THREADS = 384
-#: a warp task of the tensor-core layers: at most ROW_TILES 16-row tiles x
-#: COL_TILES 8-column tiles (kRowTiles, kColTiles in the .cu source)
+#: a warp task of the float32 route's tensor-core layers: at most ROW_TILES
+#: 16-row tiles x COL_TILES 8-column tiles (kRowTiles, kColTiles)
 ROW_TILES = 2
 COL_TILES = 4
 #: rows (configurations x sites) one block takes at most
 MAX_ROWS = 256
+#: the bf16 route's mirrors of the .cu source: the column-block widths in
+#: 8-column tiles of one wgmma (`plan_bf16`), k16 steps per ring stage
+#: (kStageSteps), the ring's stage counts (kMinStages, kMaxStages) and the
+#: consumer warpgroups of a block (kMaxConsumerGroups)
+BF16_TILE_COLS = (8, 16, 20, 32)
+BF16_STAGE_STEPS = 2
+BF16_MIN_STAGES = 2
+BF16_MAX_STAGES = 16
+BF16_MAX_GROUPS = 2
+#: the bf16 route's k order within a k16 step: GEMM row k reads input
+#: channel K_PERM[k] (the A fragment's k = 2t, 2t+1, 2t+8, 2t+9 are a lane's
+#: channels 4t .. 4t+3, one 8-byte load per row)
+K_PERM = tuple(4 * ((k % 8) // 2) + 2 * (k // 8) + k % 2 for k in range(16))
 _ACTIVATION_CODES = {"lncosh": 0, "selu": 1}
 #: the routes (the launch's dtype code)
 _DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -259,36 +276,84 @@ def pack_group_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def k_padded(width: int) -> int:
-    """The bf16 route's GEMM depth per tap: W rounded up to the m16n8k16
+    """The bf16 route's GEMM depth per tap and part: W rounded up to the k
     step (the padded input channels have zero weights and zero
     activations)."""
     return -(-width // 16) * 16
 
 
-def pack_group_weights_bf16(w: torch.Tensor) -> torch.Tensor:
-    """Tap-major group-layer weights [L-1, k*k, W, W] (in, out) -> the bf16
-    route's fragment layout [L-1, k*k, Kp/16, W/8, 8, 4, 4] of bf16 (Kp =
-    :func:`k_padded`, the input channels past W zero): per layer, tap, k
-    step (16 input channels), column tile (8 output channels) and lane
-    (g, t) = (lane // 4, lane % 4) of an m16n8k16 B fragment, the four
-    values w[16 ks + 4 t + j, 8 nt + g], j = 0..3, each rounded to nearest
-    even. (The fragment's k = 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 are taken
-    as channels 4 t .. 4 t + 3, so that the kernel loads a lane's four
-    activations of a row as one 8-byte word.)"""
-    n, kk, width, _ = w.shape
+def gemm_weights_bf16(w_re: torch.Tensor,
+                      w_im: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tap-major group-layer weights [L-1, k*k, W, W] (in, out) -> each
+    layer as one real GEMM matrix per tap, [L-1, k*k, K, N]: real
+    parameters K = Kp (:func:`k_padded`), N = W; complex parameters
+    ``[yr | yi] = [xr | xi] . [[wr, wi], [-wi, wr]]`` with K = 2 Kp (the re
+    input channels, then the im ones) and N = 2W, the columns interleaved
+    in 8s (column group 2j: the re parts of output channels 8j .. 8j+7;
+    2j + 1: their im parts), so that a thread's accumulators hold both parts
+    of a channel. Input channels past W are zero."""
+    n, kk, width, _ = w_re.shape
     kp = k_padded(width)
-    t = F.pad(w, (0, 0, 0, kp - width))
-    t = t.reshape(n, kk, kp // 16, 4, 4, width // 8, 8)
-    return t.permute(0, 1, 2, 5, 6, 3, 4).to(torch.bfloat16).contiguous()
+
+    def pad(w):
+        return F.pad(w, (0, 0, 0, kp - width))
+
+    if w_im is None:
+        return pad(w_re)
+    wr, wi = pad(w_re), pad(w_im)
+
+    def interleave(a, b):  # [.., Kp, W] x 2 -> [.., Kp, 2W], groups of 8
+        return torch.stack([a.reshape(n, kk, kp, width // 8, 8),
+                            b.reshape(n, kk, kp, width // 8, 8)],
+                           dim=-2).reshape(n, kk, kp, 2 * width)
+
+    return torch.cat([interleave(wr, wi), interleave(-wi, wr)], dim=2)
+
+
+def tile_cols(n_tiles: int) -> int:
+    """8-column tiles of one wgmma (a column block) for a GEMM of
+    ``n_tiles`` 8-column tiles: the first of BF16_TILE_COLS that holds them
+    all, else the largest (several column blocks)."""
+    return next((b for b in BF16_TILE_COLS if n_tiles <= b),
+                BF16_TILE_COLS[-1])
+
+
+def pack_group_weights_bf16(w_re: torch.Tensor,
+                            w_im: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The bf16 route's ring stages: :func:`gemm_weights_bf16` rounded to
+    bf16 (to nearest even) as [L-1, col_blocks, steps_pad, NTB, 2, 8, 8]:
+    per layer and column block of NTB 8-column tiles (:func:`tile_cols`,
+    columns past N zero), the k16 steps (tap-major, then the K rows in 16s;
+    padded with zero steps to whole stages of BF16_STAGE_STEPS), and per
+    step the wgmma's K-major shared-memory layout without swizzle: core
+    matrices [column group, k half] of 8 columns x 8 k, a column's 8 k
+    values contiguous, with k -> input channel 16 ks + K_PERM[k]. A stage
+    is BF16_STAGE_STEPS consecutive steps, one bulk copy."""
+    b = gemm_weights_bf16(w_re, w_im)
+    n, kk, kdim, ncols = b.shape
+    ntb = tile_cols(ncols // 8)
+    n_cb = -(-ncols // (8 * ntb))
+    steps = kk * kdim // 16
+    steps_pad = -(-steps // BF16_STAGE_STEPS) * BF16_STAGE_STEPS
+    b = F.pad(b, (0, n_cb * ntb * 8 - ncols))
+    b = b.reshape(n, steps, 16, n_cb * ntb * 8)[:, :, list(K_PERM)]
+    b = F.pad(b, (0, 0, 0, 0, 0, steps_pad - steps))
+    b = b.reshape(n, steps_pad, 2, 8, n_cb, ntb, 8)
+    return b.permute(0, 4, 1, 5, 2, 6, 3).to(torch.bfloat16).contiguous()
 
 
 class PackedWeights(NamedTuple):
-    """The kernel's own copy of the group-layer weights
-    (:func:`pack_group_weights` or :func:`pack_group_weights_bf16` of
-    ``w_re`` and ``w_im``; ``frag_im`` is None for real parameters)."""
+    """The kernel's own copy of the weights: float32,
+    :func:`pack_group_weights` of ``w_re`` and ``w_im`` (``frag_im`` None
+    for real parameters); bfloat16, :func:`pack_group_weights_bf16` of both
+    in ``frag_re`` (``frag_im`` None) and the lift's weights rounded to bf16
+    (kept in float32; ``lift_im`` None for real parameters)."""
 
     frag_re: torch.Tensor
     frag_im: Optional[torch.Tensor]
+    lift_re: Optional[torch.Tensor] = None
+    lift_im: Optional[torch.Tensor] = None
 
 
 _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -302,42 +367,119 @@ def packed_weights(weights: GCNNWeights,
     and unchanged (their version counters), so it runs once per parameter
     update. Keeps the last few weight sets; holding the source tensors keeps
     their ids from being reused."""
-    pack = {"float32": pack_group_weights,
-            "bfloat16": pack_group_weights_bf16}[compute_dtype]
     src = (weights.w_re, weights.w_im)
+    if compute_dtype == "bfloat16":
+        src += (weights.lift_re, weights.lift_im)
     stamp = (compute_dtype,) + tuple((id(w), w._version) for w in src
                                      if w is not None)
     hit = _PACKED.get(stamp)
     if hit is not None:
         _PACKED.move_to_end(stamp)
         return hit[1]
-    packed = PackedWeights(*(None if w is None else pack(w) for w in src))
+    if compute_dtype == "bfloat16":
+        packed = PackedWeights(
+            pack_group_weights_bf16(*src[:2]), None,
+            *(None if w is None
+              else w.to(torch.bfloat16).to(torch.float32).contiguous()
+              for w in src[2:]))
+    else:
+        packed = PackedWeights(*(None if w is None else pack_group_weights(w)
+                                 for w in src))
     _PACKED[stamp] = (src, packed)
     while len(_PACKED) > _PACKED_SLOTS:
         _PACKED.popitem(last=False)
     return packed
 
 
+class Bf16Plan(NamedTuple):
+    """The bf16 route's tiling of one launch (``plan_bf16`` in the .cu
+    source): column blocks of ``ntb`` 8-column tiles, ``c_wg``
+    configurations (``rows_wg`` rows) per consumer warpgroup in
+    ``row_passes`` 64-row M tiles x ``col_blocks`` passes per layer
+    (``n_buf`` activation buffers: 1, in place, for one pass), ``n_wg``
+    consumer warpgroups, a ring of ``stages`` stages of ``stage_bytes``,
+    ``threads`` per block and ``smem_bytes`` in all."""
+
+    ntb: int
+    col_blocks: int
+    c_wg: int
+    rows_wg: int
+    row_passes: int
+    n_buf: int
+    n_wg: int
+    stage_bytes: int
+    stages: int
+    threads: int
+    smem_bytes: int
+
+
+def bf16_group_configs(hw: int) -> int:
+    """Configurations one consumer warpgroup of the bf16 route owns: as
+    many whole ones as a 64-row M tile holds (at least 1)."""
+    return max(1, 64 // hw)
+
+
+def bf16_plan(hw: int, width: int, kk: int, complex_params: bool,
+              n_wg: int, stages: Optional[int] = None) -> Bf16Plan:
+    """The bf16 route's tiling for ``n_wg`` consumer warpgroups, with as
+    many ring stages as shared memory holds (at most BF16_MAX_STAGES) unless
+    ``stages`` is given; mirrors ``plan_bf16`` in the .cu source, which
+    checks ``smem_bytes`` and ``threads`` at every launch."""
+    parts = 2 if complex_params else 1
+    kp = k_padded(width)
+    n_tiles = parts * width // 8
+    ntb = tile_cols(n_tiles)
+    col_blocks = -(-n_tiles // ntb)
+    c_wg = bf16_group_configs(hw)
+    rows = c_wg * hw
+    row_passes = -(-rows // 64)
+    n_buf = 1 if row_passes * col_blocks == 1 else 2
+    stage_bytes = BF16_STAGE_STEPS * ntb * 256
+    # activations, spins and the source-row table (8-aligned); 16 bytes of
+    # mbarriers per stage
+    fixed = -(-(n_wg * (2 * n_buf * parts * rows * (kp + 8)
+                        + 4 * ((rows + 3) // 4 * 4)) + 4 * kk * rows)
+              // 8) * 8
+    if stages is None:
+        stages = min(BF16_MAX_STAGES,
+                     (MAX_SMEM_BYTES - fixed) // (stage_bytes + 16))
+    return Bf16Plan(ntb, col_blocks, c_wg, rows, row_passes, n_buf, n_wg,
+                    stage_bytes, stages, 128 * (n_wg + 1),
+                    fixed + stages * (stage_bytes + 16))
+
+
 def smem_bytes(hw: int, width: int, kk: int, complex_params: bool,
                n_cfg: int = 1, compute_dtype: str = "float32") -> int:
-    """Shared memory of a block of ``n_cfg`` configurations; mirrors
-    ``smem_layout`` in the .cu source, which checks that the two agree at
-    every launch: two activation buffers of n_cfg * hw rows per part (a row
-    of float32 padded to ``width + 4`` words; of bf16, to
-    ``k_padded(width) + 8`` values), the spins, and a [kk, rows] table of
-    source rows."""
+    """Shared memory a block of ``n_cfg`` configurations needs at least.
+    float32 (mirrors ``smem_layout`` in the .cu source): two activation
+    buffers of n_cfg * hw rows per part (a row of float32 padded to
+    ``width + 4`` words), the spins, and a [kk, rows] table of source rows.
+    bfloat16: :func:`bf16_plan` with the warpgroups those configurations
+    take and a ring of BF16_MIN_STAGES stages."""
+    if compute_dtype == "bfloat16":
+        c_wg = bf16_group_configs(hw)
+        return bf16_plan(hw, width, kk, complex_params, -(-n_cfg // c_wg),
+                         BF16_MIN_STAGES).smem_bytes
     parts = 2 if complex_params else 1
     rows = n_cfg * hw
     tail = 4 * ((rows + 3) // 4 * 4 + kk * rows)
-    if compute_dtype == "bfloat16":
-        return 2 * 2 * parts * rows * (k_padded(width) + 8) + tail
     return 4 * 2 * parts * rows * (width + 4) + tail
 
 
 def configs_per_block(hw: int, width: int, kk: int, complex_params: bool,
                       compute_dtype: str = "float32") -> int:
-    """Configurations per block: as many as shared memory takes, up to
-    MAX_ROWS rows (at least 1; the wrapper raises if 1 does not fit)."""
+    """Configurations per block: float32, as many as shared memory takes,
+    up to MAX_ROWS rows (at least 1; the wrapper raises if 1 does not fit);
+    bfloat16, a warpgroup's configurations times the warpgroups (at most
+    BF16_MAX_GROUPS) whose buffers and a minimal ring fit."""
+    if compute_dtype == "bfloat16":
+        c_wg = bf16_group_configs(hw)
+        n_wg = BF16_MAX_GROUPS
+        while n_wg > 1 and smem_bytes(hw, width, kk, complex_params,
+                                      n_wg * c_wg, compute_dtype) > \
+                MAX_SMEM_BYTES:
+            n_wg -= 1
+        return n_wg * c_wg
     n = max(1, MAX_ROWS // hw)
     while n > 1 and smem_bytes(hw, width, kk, complex_params, n,
                                compute_dtype) > MAX_SMEM_BYTES:
@@ -346,7 +488,8 @@ def configs_per_block(hw: int, width: int, kk: int, complex_params: bool,
 
 
 def launch_threads(hw: int, width: int, n_cfg: int) -> int:
-    """Threads per block: one warp per task of the tensor-core layers
+    """Threads per block of the float32 route (the bf16 route's are
+    :func:`bf16_plan`'s): one warp per task of the tensor-core layers
     (ceil(row tiles / ROW_TILES) row groups x ceil(column tiles /
     COL_TILES)), at most MAX_THREADS (the tasks then loop)."""
     row_tiles = (n_cfg * hw + 15) // 16
@@ -390,6 +533,13 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
                          f"sites x width {width}, above Hopper's "
                          f"{MAX_SMEM_BYTES}")
     n_cfg = configs_per_block(hw, width, kk, complex_params, compute_dtype)
+    if compute_dtype == "bfloat16":
+        plan = bf16_plan(hw, width, kk, complex_params,
+                         n_cfg // bf16_group_configs(hw))
+        threads, smem = plan.threads, plan.smem_bytes
+    else:
+        threads = launch_threads(hw, width, n_cfg)
+        smem = smem_bytes(hw, width, kk, complex_params, n_cfg)
     packed = packed_weights(weights, compute_dtype)
     batch = x.shape[0]
     out_re = torch.empty((batch, G), dtype=torch.float32, device=dev)
@@ -398,18 +548,17 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
     def ptr(t):  # the _im pointers are NULL for real parameters
         return None if t is None else t.data_ptr()
 
+    lift = ws if packed.lift_re is None else packed
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().gcnn_forward_launch(
-            x.data_ptr(), ptr(ws.lift_re), ptr(ws.lift_im),
+            x.data_ptr(), ptr(lift.lift_re), ptr(lift.lift_im),
             ptr(packed.frag_re), ptr(packed.frag_im), ptr(ws.b_re),
             ptr(ws.b_im), out_re.data_ptr(), out_im.data_ptr(), batch, n_cfg,
             lattice_shape[0], lattice_shape[1], kernel_size, channels[0],
             len(channels), int(complex_params),
             _ACTIVATION_CODES[activation], int(residual),
-            _DTYPE_CODES[compute_dtype], launch_threads(hw, width, n_cfg),
-            smem_bytes(hw, width, kk, complex_params, n_cfg, compute_dtype),
-            stream)
+            _DTYPE_CODES[compute_dtype], threads, smem, stream)
     if compute_dtype == "bfloat16":
         gcnn_group_sums.launches_bf16 += 1
     else:

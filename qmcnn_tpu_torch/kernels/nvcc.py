@@ -17,8 +17,11 @@ from typing import Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+#: --split-compile=0: optimize the kernels of a source in parallel on every
+#: core (the bf16 GCNN route's 16 instantiations build in about half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 #: shared memory one Hopper block may use (227 KB)
 MAX_SMEM_BYTES = 232448
 

@@ -97,6 +97,11 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
     if cfg.run.distributed or (cfg.run.n_devices or 1) > 1:
         raise NotImplementedError("walker sharding over several devices is "
                                   "not ported yet (ROADMAP.md, A10)")
+    if cfg.run.checkify or cfg.run.heartbeat_path:
+        raise NotImplementedError(
+            "run.checkify and run.heartbeat_path (the checked step and the "
+            "supervisor's liveness file) are not ported yet (ROADMAP.md, "
+            "A19)")
     if cfg.run.nan_policy not in ("rollback", "halt", "ignore"):
         raise ValueError(f"unknown run.nan_policy {cfg.run.nan_policy!r}")
     vmc, params, lattice = build(cfg, device=dev)

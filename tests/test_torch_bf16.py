@@ -303,40 +303,173 @@ def test_bf16_residual_rounds_as_xla():
 
 # -- the kernel's bf16 layout ------------------------------------------------
 
-def test_pack_group_weights_bf16_layout():
-    """The bf16 route's B fragments: lane 4 g + t at (layer, tap, k step
-    ks, column tile nt) holds w[16 ks + 4 t + j, 8 nt + g], j = 0..3,
-    rounded to bf16; input channels past W (W = 24 here, padded to 32) are
-    zero."""
+def _unpack_stages(packed, kk, kdim, ncols):
+    """The inverse of the documented stage layout: [L-1, cb, step, ng, h,
+    r, e] -> the GEMM matrix [L-1, kk, K, N] (k -> channel through
+    K_PERM), in float32."""
+    n, n_cb, steps_pad, ntb = packed.shape[:4]
+    b = packed.float().permute(0, 2, 4, 6, 1, 3, 5).reshape(
+        n, steps_pad, 16, n_cb * ntb * 8)
+    inv = [k2.K_PERM.index(c) for c in range(16)]
+    b = b[:, :kk * kdim // 16][:, :, inv, :ncols]
+    return b.reshape(n, kk, kdim, ncols)
+
+
+@pytest.mark.parametrize("width,cplx", [(24, True), (80, True), (40, False)])
+def test_pack_group_weights_bf16_layout(width, cplx):
+    """The bf16 route's ring stages: at sampled (layer, column block, step,
+    column group ng, k half h, column r, k e) the stage holds the bf16
+    entry of [[wr, wi], [-wi, wr]] (complex; columns interleaved in 8s,
+    re then im of 8 output channels) or of w (real) at input channel
+    16 kc + K_PERM[8 h + e] of tap step // (K / 16), part kc // (Kp / 16);
+    input channels past W, columns past N and the padded steps are zero."""
     rng = np.random.default_rng(10)
-    w = torch.from_numpy(rng.normal(size=(2, 9, 24, 24)).astype(np.float32))
-    frag = k2.pack_group_weights_bf16(w)
-    assert frag.dtype == torch.bfloat16 and tuple(frag.shape) == (
-        2, 9, 2, 3, 8, 4, 4)
-    want = w.to(torch.bfloat16)
-    for l, t, ks, nt, g, tg_ in ((0, 0, 0, 0, 0, 0), (1, 8, 1, 2, 7, 1),
-                                 (1, 4, 0, 1, 3, 3), (0, 5, 1, 0, 5, 0)):
-        for j in range(4):
-            ci, co = 16 * ks + 4 * tg_ + j, 8 * nt + g
-            assert frag[l, t, ks, nt, g, tg_, j] == want[l, t, ci, co]
-    assert not frag[:, :, 1, :, :, 2:].float().any()  # channels 24..31
+    wr = torch.from_numpy(rng.normal(size=(2, 9, width, width)).astype(
+        np.float32))
+    wi = torch.from_numpy(rng.normal(size=(2, 9, width, width)).astype(
+        np.float32)) if cplx else None
+    stg = k2.pack_group_weights_bf16(wr, wi)
+    kp, parts = k2.k_padded(width), 2 if cplx else 1
+    kdim, ncols = parts * kp, parts * width
+    ntb = k2.tile_cols(ncols // 8)
+    steps = 9 * kdim // 16
+    steps_pad = -(-steps // k2.BF16_STAGE_STEPS) * k2.BF16_STAGE_STEPS
+    assert stg.dtype == torch.bfloat16 and tuple(stg.shape) == (
+        2, -(-ncols // (8 * ntb)), steps_pad, ntb, 2, 8, 8)
+    r16, i16 = wr.to(torch.bfloat16), None if wi is None else wi.to(
+        torch.bfloat16)
+
+    def want(l, step, k, col):
+        tap, kc = divmod(step, kdim // 16)
+        part, kc = divmod(kc, kp // 16)
+        ci = 16 * kc + k2.K_PERM[k]
+        if cplx:
+            pair, within = divmod(col, 16)
+            out_im, co = divmod(within, 8)
+            co += 8 * pair
+        else:
+            out_im, co = 0, col
+        if ci >= width or co >= width or col >= ncols:
+            return 0.0
+        if not cplx:
+            return float(r16[l, tap, ci, co])
+        w = [[r16, i16], [-i16, r16]][part][out_im]
+        return float(w[l, tap, ci, co])
+
+    rng = np.random.default_rng(11)
+    for _ in range(400):
+        l, cb = int(rng.integers(2)), int(rng.integers(stg.shape[1]))
+        step, ng = int(rng.integers(steps)), int(rng.integers(ntb))
+        h, r, e = (int(v) for v in rng.integers(0, (2, 8, 8)))
+        col = (cb * ntb + ng) * 8 + r
+        assert float(stg[l, cb, step, ng, h, r, e]) == want(l, step,
+                                                              8 * h + e, col)
+    assert not stg[:, :, steps:].float().any()  # the padded steps
+    # the GEMM matrix unpacked from the stages is gemm_weights_bf16's
+    full = _unpack_stages(stg, 9, kdim, ncols)
+    np.testing.assert_array_equal(
+        full.numpy(), k2.gemm_weights_bf16(wr, wi).to(torch.bfloat16).float()
+        .numpy())
     assert k2.k_padded(24) == 32 and k2.k_padded(80) == 80
 
 
+@pytest.mark.parametrize("cplx", [True, False])
+def test_bf16_gemm_stages_compute_one_layer(cplx):
+    """[xr | xi] gathered by tap times the GEMM matrix unpacked from the
+    stages equals one layer of gcnn_group_sums_reference's direct form
+    (the circular convolution before bias and activation), in float64 from
+    bf16 values."""
+    from qmcnn_tpu_torch.models.gcnn import conv_expanded
+
+    rng = np.random.default_rng(12)
+    width, shape, batch = 24, (4, 4), 3
+    hw = shape[0] * shape[1]
+
+    def bf(*size):
+        return torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(
+            torch.bfloat16).double()
+
+    wr, wi = bf(1, 9, width, width), bf(1, 9, width, width) if cplx else None
+    xr, xi = bf(batch, width, *shape), bf(batch, width, *shape)
+    stg = k2.pack_group_weights_bf16(wr.float(), None if wi is None
+                                     else wi.float())
+    kp, parts = k2.k_padded(width), 2 if cplx else 1
+    b = _unpack_stages(stg, 9, parts * kp, parts * width)[0].double()
+
+    def flax(w):
+        return w[0].reshape(3, 3, width, width)
+
+    with torch.no_grad():
+        if cplx:
+            yr = conv_expanded(xr, flax(wr)) - conv_expanded(xi, flax(wi))
+            yi = conv_expanded(xr, flax(wi)) + conv_expanded(xi, flax(wr))
+        else:
+            yr = conv_expanded(xr, flax(wr))
+    # the GEMM: row (configuration, site) of tap t reads site
+    # ((i + a - 1) mod H, (j + b - 1) mod W), channels padded to Kp
+    pad = torch.zeros(batch, kp - width, *shape, dtype=torch.float64)
+    xs = [torch.cat([xr, pad], 1)] + ([torch.cat([xi, pad], 1)] if cplx
+                                      else [])
+    y = torch.zeros(batch * hw, parts * width, dtype=torch.float64)
+    for t in range(9):
+        a, c = divmod(t, 3)
+        rows = torch.cat([torch.roll(x, (1 - a, 1 - c), (2, 3)).permute(
+            0, 2, 3, 1).reshape(batch * hw, kp) for x in xs], 1)
+        y += rows @ b[t]
+    y = y.reshape(batch, *shape, -1)
+    if cplx:  # columns interleaved in 8s: re, im of 8 channels
+        y = y.reshape(batch, *shape, width // 8, 2, 8)
+        got_r, got_i = (y[..., j, :].reshape(batch, *shape, width)
+                        for j in (0, 1))
+        np.testing.assert_allclose(got_i.permute(0, 3, 1, 2).numpy(),
+                                   yi.numpy(), rtol=1e-12, atol=1e-12)
+    else:
+        got_r = y
+    np.testing.assert_allclose(got_r.permute(0, 3, 1, 2).numpy(),
+                               yr.numpy(), rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("shape,channels,n_cfg", [
-    ((8, 8), 10, 4), ((8, 8), 8, 4), ((10, 10), 10, 2), ((12, 12), 10, 1),
-    ((16, 16), 10, 1), ((4, 4), 3, 16)])
+    ((8, 8), 10, 2), ((8, 8), 8, 2), ((10, 10), 10, 2), ((12, 12), 10, 2),
+    ((16, 16), 10, 1), ((4, 4), 3, 8)])
 def test_bf16_configs_per_block(shape, channels, n_cfg):
-    """bf16 rows take half the bytes: 4 configurations per block at 8x8,
-    W = 80 (the f32 route takes 2), and 16x16 at W = 80 fits one."""
+    """A bf16 block holds up to BF16_MAX_GROUPS consumer warpgroups of whole
+    configurations (as many as one 64-row M tile holds: 1 at 8x8 and above,
+    4 at 4x4) beside a ring of at least two weight stages: 2 at 8x8, W = 80
+    (the f32 route takes 2), and 16x16 at W = 80 fits one warpgroup."""
     hw, width = shape[0] * shape[1], 8 * channels
+    c_wg = k2.bf16_group_configs(hw)
     assert k2.configs_per_block(hw, width, 9, True, "bfloat16") == n_cfg
     assert k2.smem_bytes(hw, width, 9, True, n_cfg,
                          "bfloat16") <= k2.MAX_SMEM_BYTES
-    assert (n_cfg + 1) * hw > k2.MAX_ROWS or k2.smem_bytes(
-        hw, width, 9, True, n_cfg + 1, "bfloat16") > k2.MAX_SMEM_BYTES
-    assert k2.smem_bytes(64, 80, 9, True, 4, "bfloat16") == 190464
+    assert n_cfg == k2.BF16_MAX_GROUPS * c_wg or k2.smem_bytes(
+        hw, width, 9, True, n_cfg + c_wg, "bfloat16") > k2.MAX_SMEM_BYTES
+    assert k2.smem_bytes(64, 80, 9, True, 2, "bfloat16") == 68384
+    plan = k2.bf16_plan(64, 80, 9, True, 2)
+    assert (plan.ntb, plan.c_wg, plan.n_buf, plan.stages, plan.threads,
+            plan.smem_bytes) == (20, 1, 1, 16, 384, 211968)
     assert k2.configs_per_block(64, 80, 9, True) == 2
+
+
+def test_every_gcnn_config_keeps_its_bf16_eligibility():
+    """Every committed square GCNN config, in bfloat16, takes K2's bf16
+    route with a ring of at least two stages, as it did before the ring
+    (all of them, 16x16 at W = 80 included)."""
+    import glob
+
+    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml"))):
+        cfg = tcfg.load(path, ("model.compute_dtype=bfloat16",))
+        m, lat = cfg.model, cfg.lattice
+        if m.kind != "gcnn" or lat.geometry != "hypercubic":
+            continue
+        assert tb.gcnn_kernel_eligible(cfg), path
+        hw, width = int(np.prod(lat.shape)), 8 * m.channels[0]
+        n_cfg = k2.configs_per_block(hw, width, 9, m.complex_params,
+                                     "bfloat16")
+        plan = k2.bf16_plan(hw, width, 9, m.complex_params,
+                            n_cfg // k2.bf16_group_configs(hw))
+        assert plan.stages >= k2.BF16_MIN_STAGES, path
+        assert plan.smem_bytes <= k2.MAX_SMEM_BYTES, path
 
 
 def test_packed_weights_are_kept_per_route():

@@ -248,12 +248,19 @@ def test_gcnn_fused_log_psi_matches_model(character, sector):
 #: snapshot, as two plain versions summing in other orders differ: PERF.md)
 BF16_RTOL = 1e-2
 #: the bf16 cases: the f32 cases above, the gcnn_r2 hero shape (8x8, C = 10
-#: x 8, selu, residual, complex) and channel counts whose W = 8C is no
-#: multiple of 16 (the padded k step)
+#: x 8, selu, residual, complex), channel counts whose W = 8C is no
+#: multiple of 16 (the padded k step), a batch of 1, 10x10 (two ragged
+#: 64-row M tiles per configuration), 16x16 at W = 80 (four M tiles in two
+#: passes between two buffers: the largest block, one warpgroup) and W = 128
+#: complex (N = 256, one M tile of accumulators per warpgroup)
 GCNN_BF16_CASES = dict(GCNN_CASES, **{
     "w80_l8_selu_residual_r2": ((8, 8), 10, 8, True, "selu", True, 67),
     "w24_l3_selu_residual_odd_c": ((4, 4), 3, 3, True, "selu", True, 9),
     "w40_l3_lncosh_real_odd_c": ((6, 6), 5, 3, False, "lncosh", False, 11),
+    "w80_l3_selu_complex_b1": ((8, 8), 10, 3, True, "selu", False, 1),
+    "w80_l4_selu_residual_10x10": ((10, 10), 10, 4, True, "selu", True, 7),
+    "w80_l3_selu_complex_16x16": ((16, 16), 10, 3, True, "selu", False, 3),
+    "w128_l3_lncosh_complex": ((8, 8), 16, 3, True, "lncosh", False, 21),
 })
 
 
@@ -268,7 +275,8 @@ def _assert_sg_close(got, want, rtol):
 @pytest.mark.parametrize("name", sorted(GCNN_BF16_CASES))
 def test_gcnn_bf16_kernel_matches_plain_version(name):
     """K2's bf16 route against its plain bf16 version; it counts on its own
-    counter, is deterministic, and differs from the f32 route."""
+    counter, is deterministic, and differs from the f32 route (its plain
+    version, as 16x16 at W = 80 takes no f32 kernel)."""
     dev = _card()
     _, x, ws, kw = _gcnn_setup(name, dev, GCNN_BF16_CASES)
     before = (k2.gcnn_group_sums.launches, k2.gcnn_group_sums.launches_bf16)
@@ -281,7 +289,7 @@ def test_gcnn_bf16_kernel_matches_plain_version(name):
     _assert_sg_close(got, want, BF16_RTOL)
     again = k2.gcnn_group_sums(x, ws, compute_dtype="bfloat16", **kw)
     assert torch.equal(again.re, got.re) and torch.equal(again.im, got.im)
-    f32 = k2.gcnn_group_sums(x, ws, **kw)
+    f32 = k2.gcnn_group_sums_reference(x, ws, **kw)
     assert not torch.equal(f32.re, got.re)
 
 

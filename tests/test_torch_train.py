@@ -151,6 +151,21 @@ def test_unported_options_raise(tmp_path):
             ttrain.train(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("override", ["run.checkify=true",
+                                      "run.heartbeat_path=hb.json"])
+def test_unported_run_options_raise_before_building(override, monkeypatch):
+    """run.checkify and run.heartbeat_path are refused, not ignored: train()
+    raises before it builds anything (tooling, ROADMAP.md A19)."""
+    cfg = tcfg.load(HEIS, SMALL + (override,))
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("train() built the model")
+
+    monkeypatch.setattr(ttrain, "build", no_build)
+    with pytest.raises(NotImplementedError, match="A19"):
+        ttrain.train(cfg, device="cpu")
+
+
 def test_port_imports_no_jax():
     """Importing every qmcnn_tpu_torch module and chip_smoke loads neither
     JAX (nor flax/optax/orbax) nor the JAX package."""
