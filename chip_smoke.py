@@ -61,6 +61,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 0.01/site of -0.670410; K1 0); the complex CNN: the
                 tfim12_h2 snapshot (tail within 1e-3 of the ED energy) and
                 configs/j1j2_8x8_complex.yaml at full width (3 steps);
+                then walker sharding: the same code in 2 ranks spawned on
+                cuda:0 (this script with ``--sharded-rank``; a gloo group,
+                since NCCL refuses two ranks on one card) against the
+                1-rank run in this process, each leg's counters zeroed just
+                before and read just after it on every rank: heis10x10_sr
+                at full width from the fixture (100 thermalization sweeps, 2
+                pcg steps), j1j2_8x8_gcnn at full width with the gather and
+                the ring minSR assembly (2 steps each) and the
+                MULTICHIP_r05.json dryrun's shape (pcg and cg): walkers
+                bitwise equal to the 1-rank run's through step 1's
+                sampling, params bitwise equal across ranks after every
+                step and within tolerance of the 1-rank run, K1 / K2
+                launches per rank as ``expected_launches`` gives for the
+                rank's walkers, each rank's heis10x10_sr step split; then
+                the CLI under ``torch.distributed.run`` with NCCL, one rank
+                per card shown (at most 4), 3 steps;
   5. timings  — CUDA-event times of each kernel, its plain version and its
                 bounds at the main path's shapes (``bound_ms``: the least
                 work as f32-accurate 3xTF32 on the tensor cores, or the
@@ -74,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 tensor-core bound and K2's f32 route at the same shapes, and
                 the per-phase split of a training step of each path (``qmcnn_tpu_torch.step_timing``);
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
-                K2's bf16 route), the card line, and the final
+                K2's bf16 route; the sharded phase printed its own
+                ``{"sharded": ...}`` line), the card line, and the final
                 ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
@@ -557,16 +574,17 @@ def compare_gcnn_log_psi(name: str, model, params, x, fused_kw: dict,
     check_log_psi(name, got, want, amplitudes, 1e-4, 1e-3)
 
 
-def expected_launches(cfg, vmc) -> dict:
+def expected_launches(cfg, vmc, m=None) -> dict:
     """Launches of the kernel behind ``vmc``'s evaluation forward in one
     training step (the refresh; the sweeps: one launch of the fused sweep,
     or one per proposal of the torch loop; one per E_loc chunk) and in the
     whole train() run (the initial refresh, then a refresh and the sweeps
-    per thermalization chunk)."""
+    per thermalization chunk), for ``m`` walkers (None: all of the
+    config's; a rank's share under walker sharding)."""
     import numpy as np
     from qmcnn_tpu_torch.train import therm_chunks
 
-    m = cfg.sampler.n_walkers
+    m = cfg.sampler.n_walkers if m is None else m
     sweep = cfg.sampler.sweep_size or int(np.prod(cfg.lattice.shape))
 
     def sweeps(n):
@@ -1143,6 +1161,333 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
             "f32_route_bound_ms": f32_bound}
 
 
+# ---------------------------------------------------------------------------
+# walker sharding: ranks on the card against the 1-rank run
+# ---------------------------------------------------------------------------
+
+#: ranks of the sharded legs, spawned as processes on cuda:0 with a gloo
+#: group (NCCL refuses two ranks on one card)
+SHARD_RANKS = 2
+
+
+def dryrun_config(n_ranks: int, solver: str):
+    """The MULTICHIP_r05.json dryrun's shape (``__graft_entry__.py``): the
+    4x4 Heisenberg CNN C=(4,4), exchange moves, 4 walkers per rank, pcg
+    with cg_maxiter 20 (or cg), 2 thermalization sweeps, 1 step."""
+    from qmcnn_tpu_torch import configs as c
+
+    return c.Config(
+        name="dryrun", lattice=c.LatticeConfig(shape=(4, 4)),
+        model=c.ModelConfig(channels=(4, 4), kernel_size=3),
+        hamiltonian=c.HamiltonianConfig(kind="heisenberg"),
+        sampler=c.SamplerConfig(n_walkers=4 * n_ranks, move="exchange",
+                                n_sweeps_per_step=1, n_therm_sweeps=2),
+        sr=c.SRConfig(enabled=True, solver=solver, cg_maxiter=20),
+        run=c.RunConfig(n_steps=1))
+
+
+def sharded_configs(n_ranks: int) -> dict:
+    """The sharded legs' configs: (a) heis10x10_sr at full width from the
+    fixture (the config's 100 thermalization sweeps, 2 steps), (b)
+    j1j2_8x8_gcnn at full width with each minSR assembly (4 sweeps, 2
+    steps), (c) the dryrun shape with pcg and with cg."""
+    from qmcnn_tpu_torch import configs
+
+    heis = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"), (
+        f"run.init_from={FIXTURE}", "run.n_steps=2"))
+    gcnn = {a: configs.load(str(GCNN_CONFIG), (
+        "sampler.n_therm_sweeps=4", "run.n_steps=2",
+        f"sr.minsr_assembly={a}")) for a in ("gather", "ring")}
+    return {"heis10x10_sr": heis, "gcnn_gather": gcnn["gather"],
+            "gcnn_ring": gcnn["ring"],
+            "dryrun_pcg": dryrun_config(n_ranks, "pcg"),
+            "dryrun_cg": dryrun_config(n_ranks, "cg")}
+
+
+def shard_leg(cfg, group) -> dict:
+    """``cfg`` trained as train() does it, on this rank's walkers (``group``)
+    or on all (None), the launch counters zeroed just before and read just
+    after: walkers after thermalization and after each step's sampling,
+    params and metrics after each step, and the launches beside
+    ``expected_launches`` at this rank's walker count."""
+    import torch
+    from qmcnn_tpu_torch.builder import build, build_sharded
+    from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
+    from qmcnn_tpu_torch.train import chunked_thermalize
+    from qmcnn_tpu_torch.utils.transfer import warm_start
+
+    m = cfg.sampler.n_walkers
+    if group is None:
+        vmc, params, _ = build(cfg, device="cuda")
+    else:
+        sharded, params, _ = build_sharded(cfg, group)
+        vmc = sharded.vmc
+    if cfg.run.init_from:
+        params = warm_start(params, cfg.run.init_from)
+    m_local = m if group is None else m // group.world_size
+    want = expected_launches(cfg, vmc, m_local)
+    key = prng_key(cfg.run.seed + 100)
+    reset_counts()
+    if group is None:
+        state = vmc.init_state(fold_in(key, 0), m, params, device="cuda")
+        ids = torch.arange(m, device="cuda")
+    else:
+        state = sharded.init_state(fold_in(key, 0), m, params)
+        ids = sharded.local_ids(state)
+    state = chunked_thermalize(vmc, state, fold_in(key, 1), ids,
+                               cfg.sampler.n_therm_sweeps,
+                               cfg.run.therm_sweeps_per_dispatch)
+    rec = {"s_therm": state.walkers.s.cpu(), "steps": []}
+    base_key = fold_in(key, 2)
+    for _ in range(cfg.run.n_steps):
+        state, mt = vmc.step(state, fold_in(base_key, state.step), ids)
+        rec["steps"].append({
+            "s": state.walkers.s.cpu(),
+            "params": {k: v.cpu() for k, v in state.params.items()},
+            "energy_re": float(mt.energy_re), "accept": float(mt.accept_rate),
+            "sr_iters": int(mt.sr_iters)})
+    torch.cuda.synchronize()
+    rec.update(launches=counts(), expected=want["run"],
+               fused=type(vmc.eval_log_psi_fn).__name__,
+               backend=vmc.sampler.backend)
+    return rec, vmc, state
+
+
+def sharded_legs(group, n_ranks: int) -> dict:
+    """Every sharded leg on this rank of ``n_ranks`` (or on all walkers with
+    no group), and this rank's heis10x10_sr step split
+    (``step_timing.step_split``, collectives included)."""
+    from qmcnn_tpu_torch.step_timing import step_split as split
+
+    out = {}
+    for name, cfg in sharded_configs(n_ranks).items():
+        if group is None and name.startswith("gcnn_ring"):
+            continue  # one rank takes no assembly: gcnn_gather serves both
+        out[name], vmc, state = shard_leg(cfg, group)
+        if name == "heis10x10_sr":
+            out["heis_split"] = split(vmc, state, 3)
+    return out
+
+
+def sharded_rank_main(argv) -> int:
+    """One spawned rank: ``chip_smoke.py --sharded-rank R --world W --port
+    P --out DIR --backend B`` joins a group at tcp://localhost:P (gloo: on
+    cuda:0; nccl: on cuda:R, one rank per card), runs :func:`sharded_legs`
+    and saves them to DIR/rank<R>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from qmcnn_tpu_torch.parallel.mesh import walker_group
+
+    rank, world, port, out, backend = (int(argv[1]), int(argv[3]),
+                                       int(argv[5]), Path(argv[7]), argv[9])
+    device = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    group = walker_group(device=device)
+    recs = sharded_legs(group, world)
+    torch.save(recs, out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_cards_main(n_cards: int) -> int:
+    """``python3 chip_smoke.py --sharded-cards N`` (N cards): only the
+    sharded phase, its N ranks over NCCL one per card, against 1 rank on
+    cuda:0 — what one card cannot show (NCCL between cards, the step time
+    per rank without two ranks sharing a card)."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke: --sharded-cards {n_cards} needs {n_cards} CUDA "
+              "devices", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+
+    card = card_line()
+    print(f"[1] device: {card}; {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}", flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(lambda mod: mod.build(), (k1, k2)))
+    out_dir = ROOT / ".runs" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sharded_phase(out_dir, card, n_cards, "nccl")
+    print(f"    sharded phase {time.perf_counter() - t0:.1f} s")
+    print(card)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(out_dir: Path, card: str, n_ranks: int = SHARD_RANKS,
+                  backend: str = "gloo") -> dict:
+    """The sharded legs in ``n_ranks`` spawned ranks (gloo: all on cuda:0;
+    nccl: one per card) against the 1-rank run on cuda:0, then the CLI
+    under torchrun with NCCL. Checks: walkers bitwise equal to the 1-rank run's after
+    thermalization and after step 1's sampling; energies per step within
+    rtol 2e-5; params within rtol 2e-4 / atol 2e-6 (heis10x10_sr) or 5e-4
+    / 5e-6 (the minSR GCNN, as the JAX hero-path test); params bitwise
+    equal across ranks after every step; each rank's launches of K1
+    (heis10x10_sr, the dryrun) or K2 f32 (the GCNN) as expected_launches
+    gives for its walkers, and no plain evaluation forward; the dryrun's
+    energy finite and S^z = 0."""
+    import numpy as np
+    import torch
+
+    work = out_dir / "sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ref = sharded_legs(None, n_ranks)
+    t_ref = time.perf_counter() - t0
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+         str(r), "--world", str(n_ranks), "--port", str(port), "--out",
+         str(work), "--backend", backend], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n_ranks)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:  # stop every rank if one failed or hung
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"sharded rank {r} failed "
+              f"(rc {p.returncode}):\n{log[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True)
+             for r in range(n_ranks)]
+    t_ranks = time.perf_counter() - t0 - t_ref
+
+    report = {"ranks": n_ranks, "backend": backend,
+              "devices": "cuda:0" if backend == "gloo" else "one per rank",
+              "legs": {}}
+    for name in sharded_configs(n_ranks):
+        got = [rk[name] for rk in ranks]
+        want = ref["gcnn_gather" if name == "gcnn_ring" else name]
+        dry = name.startswith("dryrun")
+        kernel = "k2_f32" if name.startswith("gcnn") else "k1"
+        launches = [g["launches"] for g in got]
+        for r, (g, n) in enumerate(zip(got, launches)):
+            check(n[kernel] == g["expected"] and sum(n.values()) == n[kernel],
+                  f"sharded {name} rank {r}: launches {n}, expected "
+                  f"{g['expected']} on {kernel}")
+            check(g["fused"] in ("FusedCNNLogPsi", "FusedLogPsi"),
+                  f"sharded {name}: evaluation forward {g['fused']}")
+        rec = {"launches_per_rank": [n[kernel] for n in launches],
+               "kernel": kernel, "expected_per_rank": got[0]["expected"],
+               "launches_1rank": want["launches"][kernel]}
+        walkers_eq = [torch.equal(torch.cat([g["s_therm"] for g in got]),
+                                  want["s_therm"])]
+        if not dry:
+            walkers_eq.append(torch.equal(torch.cat(
+                [g["steps"][0]["s"] for g in got]), want["steps"][0]["s"]))
+        rec["walkers_bitwise"] = all(walkers_eq)
+        check(rec["walkers_bitwise"], f"sharded {name}: walkers differ from "
+              f"the 1-rank run ({walkers_eq})")
+        e_rel, p_viol, p_abs = 0.0, 0.0, 0.0
+        rtol, atol = (5e-4, 5e-6) if kernel == "k2_f32" else (2e-4, 2e-6)
+        for i, w in enumerate(want["steps"]):
+            gs = [g["steps"][i] for g in got]
+            for g in gs[1:]:
+                check(all(torch.equal(gs[0]["params"][k], g["params"][k])
+                          for k in w["params"]),
+                      f"sharded {name} step {i + 1}: params differ across "
+                      "ranks")
+            e_rel = max(e_rel, abs(gs[0]["energy_re"] - w["energy_re"])
+                        / abs(w["energy_re"]))
+            for k, v in w["params"].items():
+                d = (gs[0]["params"][k] - v).abs()
+                p_abs = max(p_abs, float(d.max()))
+                p_viol = max(p_viol, float((d - rtol * v.abs()).max()) / atol)
+            if dry:
+                check(np.isfinite(gs[0]["energy_re"]),
+                      f"sharded {name}: non-finite energy")
+                check(all(bool((g["s"].sum(dim=1) == 0).all()) for g in gs),
+                      f"sharded {name}: S^z != 0")
+        rec.update(energy_max_rel_diff=e_rel, params_max_abs_diff=p_abs,
+                   energies=[g["energy_re"] for g in got[0]["steps"]],
+                   energies_1rank=[w["energy_re"] for w in want["steps"]],
+                   sr_iters=[g["sr_iters"] for g in got[0]["steps"]],
+                   sr_iters_1rank=[w["sr_iters"] for w in want["steps"]])
+        if not dry:  # the dryrun's 1 step is held to finiteness and S^z
+            check(e_rel <= 2e-5, f"sharded {name}: energies differ by "
+                  f"{e_rel} relative")
+            check(p_viol <= 1.0, f"sharded {name}: params outside rtol "
+                  f"{rtol} / atol {atol} of the 1-rank run")
+        print(f"    sharded {name}: launches per rank {rec['launches_per_rank']}"
+              f" (expected {rec['expected_per_rank']}; 1 rank "
+              f"{rec['launches_1rank']}), walkers bitwise {rec['walkers_bitwise']},"
+              f" E {rec['energies']} (1 rank {rec['energies_1rank']}), max rel "
+              f"{e_rel:.2e}, params max abs diff {p_abs:.2e}, sr_iters "
+              f"{rec['sr_iters']} (1 rank {rec['sr_iters_1rank']})")
+        report["legs"][name] = rec
+    splits = [ref["heis_split"]] + [rk["heis_split"] for rk in ranks]
+    for label, sp in zip(["1 rank"] + [f"rank {r} of {n_ranks}"
+                                       for r in range(n_ranks)], splits):
+        print(f"    heis10x10_sr step ({card}), {label}: "
+              f"{sum(sp.values()):.2f} ms = "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sp.items()) + " ms")
+    report["heis_step_split_ms"] = {"1rank": ref["heis_split"],
+                                    "ranks": [rk["heis_split"]
+                                              for rk in ranks]}
+
+    # (d) the CLI under torchrun, one rank per card shown, NCCL
+    n_cards = min(torch.cuda.device_count(), 4)
+    csv = out_dir / "torchrun_heis10x10_sr.csv"
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n_cards}", "-m", "qmcnn_tpu_torch.train",
+         "--config", str(ROOT / "configs" / "heis10x10_sr.yaml"),
+         "--override", "run.distributed=true", "--override",
+         "sampler.n_therm_sweeps=4", "--override", "run.n_steps=3",
+         "--override", "run.log_every=1", "--override",
+         f"run.csv_path={csv}"], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=600)
+    check(run.returncode == 0, f"torchrun ({n_cards} ranks, NCCL) failed "
+          f"(rc {run.returncode}):\n{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    meta = json.loads(Path(str(csv) + ".meta.json").read_text())
+    import csv as csvlib
+
+    with open(csv, newline="") as f:
+        rows = list(csvlib.DictReader(f))
+    check(len(rows) == 3 and meta["n_devices"] == n_cards
+          and all(np.isfinite(float(r["energy_re"])) for r in rows),
+          f"torchrun: {len(rows)} CSV rows, n_devices {meta['n_devices']}")
+    report["torchrun"] = {"nproc_per_node": n_cards, "backend": "nccl",
+                          "rc": run.returncode, "steps": len(rows),
+                          "final_energy_tail": meta["final_energy_tail"],
+                          "seconds": time.perf_counter() - t1,
+                          "train_seconds": float(rows[-1]["wall_time"])}
+    print(f"    torchrun --nproc_per_node={n_cards} (NCCL): rc 0, 3 steps, "
+          f"tail E/site {meta['final_energy_tail'] / 100:.5f}, "
+          f"{report['torchrun']['seconds']:.1f} s in all, of which "
+          f"{report['torchrun']['train_seconds']:.1f} s from the logger's "
+          "start to step 3")
+    report["seconds"] = {"1rank": t_ref, "ranks": t_ranks,
+                         "torchrun": report["torchrun"]["seconds"]}
+    print(json.dumps({"sharded": report}))
+    return report
+
 
 def main() -> int:
     try:
@@ -1150,6 +1495,10 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1 and sys.argv[1] == "--sharded-rank":
+        return sharded_rank_main(sys.argv[1:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--sharded-cards":
+        return sharded_cards_main(int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -1377,6 +1726,12 @@ def main() -> int:
     cnn_bf16_leg(out_dir)
     print("[4] the complex CNN: tfim12_h2 and j1j2_8x8_complex", flush=True)
     complex_cnn_legs(out_dir)
+    print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
+          "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
+          "with pcg and cg), then torchrun with NCCL", flush=True)
+    t0 = time.perf_counter()
+    sharded_phase(out_dir, card)
+    print(f"    sharded phase {time.perf_counter() - t0:.1f} s")
 
     # 5. timings
     print(f"[5] timings ({card})", flush=True)

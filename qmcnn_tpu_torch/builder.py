@@ -1,8 +1,10 @@
 """Config -> framework objects (port of ``qmcnn_tpu/builder.py``, the CNN
-and square-lattice GCNN training paths on one device).
+and square-lattice GCNN training paths).
 
 ``build(cfg, device)`` wires lattice, ansatz, Hamiltonian, sampler,
-optimizer and (optionally) SR into a :class:`qmcnn_tpu_torch.vmc.VMC`.
+optimizer and (optionally) SR into a :class:`qmcnn_tpu_torch.vmc.VMC`;
+``build_sharded(cfg, group)`` builds the same over a walker group
+(:mod:`qmcnn_tpu_torch.parallel.mesh`).
 
 The optimizer is written out here with optax's formulas (``torch.optim``
 differs: ``clip_grad_norm_`` adds 1e-6 to the norm, and its SGD momentum
@@ -269,7 +271,8 @@ def model_log_psi_is_real(cfg: Config) -> bool:
 
 
 def build_sr(cfg: Config, lattice=None, ham=None,
-             n_params: Optional[int] = None, device="cpu") -> Optional[SR]:
+             n_params: Optional[int] = None, device="cpu",
+             world_size: int = 1) -> Optional[SR]:
     s = cfg.sr
     if not s.enabled:
         return None
@@ -291,7 +294,8 @@ def build_sr(cfg: Config, lattice=None, ham=None,
         from qmcnn_tpu_torch.utils import memory
 
         jacobian_chunk = memory.auto_jacobian_chunk(
-            cfg, lattice, ham, n_params, device=device)
+            cfg, lattice, ham, n_params, device=device,
+            world_size=world_size)
     return SR(
         solver=solver,
         diag_shift0=s.diag_shift0,
@@ -302,6 +306,7 @@ def build_sr(cfg: Config, lattice=None, ham=None,
         cg_maxiter=s.cg_maxiter,
         jacobian_chunk=jacobian_chunk,
         real_log_psi=model_log_psi_is_real(cfg),
+        minsr_assembly=s.minsr_assembly,
     )
 
 
@@ -433,8 +438,12 @@ def resolve_sampler_backend(cfg: Config, device) -> str:
     raise ValueError(f"unknown sampler backend {b!r}")
 
 
-def build(cfg: Config, device="cuda") -> Tuple[VMC, dict, Lattice]:
-    """Returns (vmc, initial params on ``device``, lattice)."""
+def build(cfg: Config, device="cuda", group=None
+          ) -> Tuple[VMC, dict, Lattice]:
+    """Returns (vmc, initial params on ``device``, lattice). With a walker
+    ``group`` the VMC's means all-reduce over its ranks, and the memory
+    estimates count this rank's walkers."""
+    world = 1 if group is None else group.world_size
     if cfg.sampler.kind not in ("auto", "metropolis"):
         raise NotImplementedError(f"sampler.kind={cfg.sampler.kind!r} is "
                                   "not ported yet (ROADMAP.md)")
@@ -479,18 +488,31 @@ def build(cfg: Config, device="cuda") -> Tuple[VMC, dict, Lattice]:
         from qmcnn_tpu_torch.utils import memory
 
         chunk_size = memory.auto_chunk_size(cfg, lattice, ham, n_params,
-                                            device=device)
+                                            device=device, world_size=world)
     vmc = VMC(
         log_psi_fn=log_psi_fn,
         ham=ham,
         sampler=sampler,
         optimizer=build_optimizer(cfg),
         n_sweeps=cfg.sampler.n_sweeps_per_step,
-        sr=build_sr(cfg, lattice, ham, n_params, device=device),
+        sr=build_sr(cfg, lattice, ham, n_params, device=device,
+                    world_size=world),
         chunk_size=chunk_size,
         eval_log_psi_fn=eval_log_psi_fn,
+        group=group,
     )
     return vmc, params, lattice
+
+
+def build_sharded(cfg: Config, group):
+    """(ShardedVMC over ``group``, initial params on its device, lattice):
+    this rank's part of a run over the walker group (JAX ``build_sharded``;
+    ``run.n_devices`` is checked against the world size by
+    ``parallel.mesh.walker_group``)."""
+    from qmcnn_tpu_torch.parallel.mesh import make_sharded_vmc
+
+    vmc, params, lattice = build(cfg, device=group.device, group=group)
+    return make_sharded_vmc(vmc, group), params, lattice
 
 
 def fused_gcnn_log_psi(cfg: Config, lattice: Lattice):

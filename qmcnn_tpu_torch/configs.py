@@ -260,7 +260,8 @@ class SRConfig:
     cg_maxiter: int = 200
     jacobian_chunk: Optional[int] = None
     #: distributed-minSR Gram assembly: 'gather' (default) or 'ring'
-    #: (ppermute; O(M_local x P) peak memory — for very large P)
+    #: (score shards broadcast in turn; O(M_local x P) peak memory — for
+    #: very large P)
     minsr_assembly: str = "gather"
     #: SPRING momentum mu (minsr solver only; 0 = plain SR). The previous
     #: natural gradient seeds the regularized solve, and the current step's
@@ -296,7 +297,9 @@ class RunConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 200
     ckpt_keep: int = 3
-    n_devices: Optional[int] = None  # None = all visible devices
+    #: ranks of a run.distributed run (None: the world size, which it must
+    #: equal where set); one process drives one card
+    n_devices: Optional[int] = None
     chunk_size: Optional[int] = None  # local-energy walker chunking
     validate_against_ed: bool = True  # only runs when n_sites <= 20
     #: wrap the train step in jax.experimental.checkify (utils/debug.py):
@@ -344,12 +347,13 @@ class RunConfig:
     #: logs save/dispatch timestamps to <heartbeat_path>.events; this knob
     #: adds a cool-down for wedge-prone workloads. 0 = ping only.
     save_settle_s: float = 0.0
-    #: multi-host: call jax.distributed.initialize() before any device use
-    #: (SURVEY.md P3). On TPU pods leave the address/count/id fields null —
-    #: they auto-detect from the pod metadata; for manual process groups
-    #: (e.g. the 2-process CPU integration test) set all three. The walker
-    #: mesh then spans every process's devices and all pmean/psum hooks
-    #: reduce globally; walkers shard by global device order.
+    #: walker sharding over torch.distributed, one process per card: the
+    #: CLI calls parallel.mesh.init_distributed before any device use. Under
+    #: torchrun leave the address/count/id fields null (they come from its
+    #: environment); for a manual process group set all three (a tcp://
+    #: rendezvous at coordinator_address). The walkers then shard by rank
+    #: and every mean all-reduces over the ranks (NCCL on CUDA, gloo on the
+    #: CPU).
     distributed: bool = False
     coordinator_address: Optional[str] = None  # "host:port"
     num_processes: Optional[int] = None

@@ -125,7 +125,7 @@ class WalkerState(NamedTuple):
 def init_walkers(key: int, n_walkers: int, n_sites: int,
                  sector: Optional[str] = None, device="cpu") -> torch.Tensor:
     """Random initial configurations [n_walkers, n_sites] (drawn on the host
-    from ``key``, so every device starts from the same walkers).
+    from ``key``, so every device and every rank draws the same walkers).
 
     sector=None: i.i.d. uniform spins. sector='sz0': the minimal-|S^z|
     sector (S^z = 0 for even N, +1/2 for odd N) that exchange moves keep.
@@ -237,15 +237,20 @@ class MetropolisSampler:
             return None
         return self.n_sites if self.move == "flip" else len(self.bonds)
 
-    def init_state(self, params, key: int, n_walkers: int,
-                   device="cpu") -> WalkerState:
+    def init_state(self, params, key: int, n_walkers: int, device="cpu",
+                   rows: Optional[slice] = None) -> WalkerState:
+        """``n_walkers`` initial walkers drawn from ``key`` on the host;
+        ``rows`` keeps (and evaluates) only those of them (a rank's shard)."""
         sector = "sz0" if self.move.startswith("exchange") else None
-        s = init_walkers(key, n_walkers, self.n_sites, sector=sector,
-                         device=device)
-        zeros = torch.zeros(n_walkers, dtype=torch.int32, device=device)
+        s = init_walkers(key, n_walkers, self.n_sites, sector=sector)
+        if rows is not None:
+            s = s[rows]
+        s = s.to(device)
+        m = s.shape[0]
+        zeros = torch.zeros(m, dtype=torch.int32, device=device)
         return self.refresh(params, WalkerState(
-            s=s, log_psi=C(torch.zeros(n_walkers, device=device),
-                           torch.zeros(n_walkers, device=device)),
+            s=s, log_psi=C(torch.zeros(m, device=device),
+                           torch.zeros(m, device=device)),
             n_accept=zeros, n_prop=zeros.clone()))
 
     def refresh(self, params, state: WalkerState) -> WalkerState:

@@ -30,10 +30,14 @@ PHASES = ("sample", "e_loc", "gradient", "sr", "update")
 
 def step_split(vmc, state, n_steps: int = 3) -> dict:
     """Mean ms per step of each phase over ``n_steps`` steps after one
-    warm-up step, starting from ``state`` (params, walkers, step)."""
+    warm-up step, starting from ``state`` (params, walkers, step). With a
+    walker group (``vmc.group``) this rank's split, collectives included."""
     params, walkers = state.params, state.walkers
     opt_state = vmc.optimizer.init(params)
-    ids = torch.arange(walkers.s.shape[0], device=walkers.s.device)
+    group = vmc.group
+    m = walkers.s.shape[0]
+    ids = (torch.arange(m, device=walkers.s.device) if group is None
+           else group.local_ids(m))
     totals = dict.fromkeys(PHASES, 0.0)
 
     def lap(t0):
@@ -53,12 +57,12 @@ def step_split(vmc, state, n_steps: int = 3) -> dict:
         t0 = time.perf_counter()
         _, _, grads, e_loc = energy_and_grad(
             vmc.log_psi_fn, vmc.ham, params, w, chunk_size=vmc.chunk_size,
-            eval_log_psi_fn=vmc.eval_log_psi_fn)
+            eval_log_psi_fn=vmc.eval_log_psi_fn, group=group)
         t_grad = lap(t0) - t_eloc
         t0 = time.perf_counter()
         if vmc.sr is not None:
             grads, _, _ = vmc.sr.solve(vmc.log_psi_fn, params, w.s, grads,
-                                       state.step, e_loc=e_loc)
+                                       state.step, e_loc=e_loc, group=group)
         t_sr = lap(t0)
         t0 = time.perf_counter()
         upd, opt_state = vmc.optimizer.update(grads, opt_state)

@@ -4,7 +4,16 @@
       [--override section.key=value ...] [--device cuda|cpu]
 
 Runs the VMC loop on one device (CUDA by default; without a GPU the run
-raises unless ``--device cpu`` is given), streams metrics to stdout/CSV,
+raises unless ``--device cpu`` is given). With ``run.distributed: true`` the
+walkers shard over the ranks of ``torch.distributed``, one process per card
+(where the JAX entry point drives every device of a host from one process):
+
+  python -m torch.distributed.run --nproc_per_node=N -m qmcnn_tpu_torch.train \
+      --config configs/heis10x10_sr.yaml --override run.distributed=true
+
+over NCCL (gloo with ``--device cpu``); rank 0 alone logs and writes the
+files. A single process given ``run.n_devices > 1`` raises. The run streams
+metrics to stdout/CSV,
 checkpoints to ``run.ckpt_dir`` (``utils/checkpoint.py``; a run whose
 directory holds a checkpoint resumes from it), writes the
 ``<csv>.params.npz`` snapshot and ``<csv>.meta.json`` manifest in the JAX
@@ -85,18 +94,19 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def train(cfg, device="cuda", ckpt_manager=None, logger=None):
+def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     """Run the configured experiment; returns (final state, logger).
 
     With ``ckpt_manager`` (``utils.checkpoint.CheckpointManager``) the state
     is saved every ``run.ckpt_every`` steps and at the end; if the manager
     holds a checkpoint already, the run resumes from it (no warm start, no
     thermalization, the CSV appended), and ``run.nan_policy: rollback``
-    restores the latest checkpoint on a non-finite energy."""
-    dev = _resolve_device(device)
-    if cfg.run.distributed or (cfg.run.n_devices or 1) > 1:
-        raise NotImplementedError("walker sharding over several devices is "
-                                  "not ported yet (ROADMAP.md, A10)")
+    restores the latest checkpoint on a non-finite energy.
+
+    With ``run.distributed`` this process is one rank of the walker group
+    (``group``, else the default process group, which must be initialized:
+    ``parallel.mesh.init_distributed``): the state holds its walkers, its
+    device is the group's, and only rank 0 logs and writes files."""
     if cfg.run.checkify or cfg.run.heartbeat_path:
         raise NotImplementedError(
             "run.checkify and run.heartbeat_path (the checked step and the "
@@ -104,14 +114,36 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
             "A19)")
     if cfg.run.nan_policy not in ("rollback", "halt", "ignore"):
         raise ValueError(f"unknown run.nan_policy {cfg.run.nan_policy!r}")
-    vmc, params, lattice = build(cfg, device=dev)
-    n_sites = lattice.n_sites
+    if not cfg.run.distributed and (cfg.run.n_devices or 1) > 1:
+        raise ValueError(
+            f"run.n_devices={cfg.run.n_devices} in one process: the port runs "
+            "one process per card, so start them with torchrun (python -m "
+            "torch.distributed.run --nproc_per_node="
+            f"{cfg.run.n_devices} -m qmcnn_tpu_torch.train ... --override "
+            "run.distributed=true)")
+    if group is not None and not cfg.run.distributed:
+        raise ValueError("a walker group needs run.distributed: true")
     m = cfg.sampler.n_walkers
+    if cfg.run.distributed:
+        from qmcnn_tpu_torch.builder import build_sharded
+        from qmcnn_tpu_torch.parallel.mesh import walker_group
+
+        if group is None:
+            group = walker_group(cfg.run.n_devices, device)
+        sharded, params, lattice = build_sharded(cfg, group)
+        vmc, dev = sharded.vmc, group.device
+    else:
+        dev = _resolve_device(device)
+        vmc, params, lattice = build(cfg, device=dev)
+        sharded = None
+    is_main = group is None or group.rank == 0
+    n_sites = lattice.n_sites
     resuming = (ckpt_manager is not None
                 and ckpt_manager.latest_step() is not None)
     logger = logger or MetricsLogger(
-        csv_path=cfg.run.csv_path, print_every=cfg.run.log_every,
-        tensorboard_dir=cfg.run.tensorboard_dir,
+        csv_path=cfg.run.csv_path if is_main else None,
+        print_every=cfg.run.log_every if is_main else 0,
+        tensorboard_dir=cfg.run.tensorboard_dir if is_main else None,
         # a resumed run must not truncate the earlier attempt's CSV
         append=resuming)
     if cfg.run.init_from and not resuming:
@@ -128,17 +160,22 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
                       for k, v in params.items()}
 
     key = prng_key(cfg.run.seed + 100)
-    walker_ids = torch.arange(m, device=dev)
-    state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
+    if sharded is None:
+        state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
+        walker_ids = torch.arange(m, device=dev)
+    else:  # this rank's walkers and their global ids
+        state = sharded.init_state(fold_in(key, 0), m, params)
+        walker_ids = sharded.local_ids(state)
     if resuming:
-        state = ckpt_manager.restore(state)
-        print(f"resumed from checkpoint at step {state.step}", flush=True)
+        state = ckpt_manager.restore(state, group=group)
+        if is_main:
+            print(f"resumed from checkpoint at step {state.step}", flush=True)
     else:
         state = chunked_thermalize(vmc, state, fold_in(key, 1), walker_ids,
                                    cfg.sampler.n_therm_sweeps,
                                    cfg.run.therm_sweeps_per_dispatch)
 
-    e_exact = exact_reference_energy(cfg)
+    e_exact = exact_reference_energy(cfg) if is_main else None
     sweeps_per_step = cfg.sampler.n_sweeps_per_step
     nan_retries = 0
     base_key0 = fold_in(key, 2)
@@ -155,6 +192,8 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
                                     mt.sr_iters)] for mt in metrics]
         dt = (time.perf_counter() - t0) / chunk
         e_re = np.asarray([r[0] for r in rows])
+        # the energies are all-reduce outputs, the same on every rank, so
+        # every rank takes this branch alike
         if cfg.run.nan_policy != "ignore" and not np.isfinite(e_re).all():
             bad_step = it + int(np.flatnonzero(~np.isfinite(e_re))[0]) + 1
             no_ckpt = (ckpt_manager is None
@@ -170,14 +209,16 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
                     + ") — a diverged state NaNs every later step; lower "
                     "optimizer.lr or raise sr.diag_shift0")
             nan_retries += 1
-            state = ckpt_manager.restore(state)
+            state = ckpt_manager.restore(state, group=group)
             it = state.step
             # a replay from the checkpoint would NaN at the same step:
             # re-fold the key so the retry draws another sample path
             base_key = fold_in(base_key0, nan_retries)
-            print(f"non-finite energy at step {bad_step}: rolled back to "
-                  f"checkpoint step {it} with a re-folded key (retry "
-                  f"{nan_retries}/{cfg.run.nan_max_retries})", flush=True)
+            if is_main:
+                print(f"non-finite energy at step {bad_step}: rolled back "
+                      f"to checkpoint step {it} with a re-folded key (retry "
+                      f"{nan_retries}/{cfg.run.nan_max_retries})",
+                      flush=True)
             continue
         for j, (er, ei, ev, acc, gn, sri) in enumerate(rows):
             step_no = it + j + 1
@@ -198,10 +239,12 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
         it += chunk
         if (ckpt_manager is not None and (it // cfg.run.ckpt_every)
                 > ((it - chunk) // cfg.run.ckpt_every)):
-            ckpt_manager.save(it, state)
+            ckpt_manager.save(it, state, group=group)
 
     if ckpt_manager is not None:
-        ckpt_manager.save(cfg.run.n_steps, state)
+        ckpt_manager.save(cfg.run.n_steps, state, group=group)
+    if not is_main:
+        return state, logger
     e_tail, e_err = logger.tail_energy()
     print(f"final energy (tail mean): {e_tail:.6f} +- {e_err:.6f}"
           f"  ({e_tail / n_sites:.6f}/site)")
@@ -209,7 +252,8 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None):
         rel = abs(e_tail - e_exact) / abs(e_exact)
         print(f"exact: {e_exact:.6f}  relative error: {rel:.3e}")
     if cfg.run.csv_path:
-        _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev)
+        _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev,
+                        1 if group is None else group.world_size)
         _write_snapshot(cfg, state)
     return state, logger
 
@@ -228,9 +272,11 @@ def _write_snapshot(cfg, state) -> None:
           flush=True)
 
 
-def _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev) -> None:
+def _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev,
+                    world_size: int) -> None:
     """Provenance sidecar '<csv_path>.meta.json': resolved config, code
-    revision, software/device environment and the headline result."""
+    revision, software/device environment (one process per card: devices
+    = processes = ranks) and the headline result."""
     try:
         rev = subprocess.run(
             ["git", "-C", os.path.dirname(os.path.abspath(__file__)),
@@ -247,7 +293,8 @@ def _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev) -> None:
         "platform": dev.type,
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else platform.processor()),
-        "n_devices": 1,
+        "n_devices": world_size,
+        "n_processes": world_size,
         "finished_unix": time.time(),
         "final_energy_tail": e_tail,
         "final_energy_stderr": e_err,
@@ -269,14 +316,25 @@ def main(argv=None):
                    help="torch device (default cuda; 'cpu' to run there)")
     args = p.parse_args(argv)
     cfg = cfglib.load(args.config, tuple(args.override))
-    print(f"=== {cfg.name} ===")
-    print(cfglib.to_yaml(cfg))
+    group = None
+    if cfg.run.distributed:
+        # before any device use: the rank's card and the process group
+        from qmcnn_tpu_torch.parallel.mesh import init_distributed
+
+        group = init_distributed(cfg.run, device=args.device)
+    if group is None or group.rank == 0:
+        print(f"=== {cfg.name} ===")
+        print(cfglib.to_yaml(cfg))
     ckpt = None
     if cfg.run.ckpt_dir:
         from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(cfg.run.ckpt_dir, keep=cfg.run.ckpt_keep)
-    train(cfg, device=args.device, ckpt_manager=ckpt)
+    try:
+        train(cfg, device=args.device, ckpt_manager=ckpt, group=group)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

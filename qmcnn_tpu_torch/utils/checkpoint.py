@@ -13,6 +13,14 @@ each a ``torch.save`` of a dict of CPU tensors and plain Python values that
 loads with ``weights_only=True``. A save is written under a temporary name
 and moved into place with ``os.replace``, so a reader never sees a partial
 checkpoint; the last ``keep`` steps are kept.
+
+Under walker sharding (``group``, a ``parallel.mesh.WalkerGroup``) a save
+gathers every rank's walkers to one global state, which rank 0 writes in
+the same format, then all ranks wait for it; a restore loads the global
+state on every rank, which keeps its own rows. So a checkpoint written by
+n ranks restores in any number of ranks that divides its walkers, one
+included. The ranks share the directory (one host, or a shared file
+system).
 """
 from __future__ import annotations
 
@@ -38,15 +46,19 @@ def _to(tree, fn):
     return tree
 
 
-def state_to_dict(state: TrainState) -> dict:
-    """The train state as plain dicts of CPU tensors and Python values."""
+def state_to_dict(state: TrainState, group=None) -> dict:
+    """The train state as plain dicts of CPU tensors and Python values; with
+    a walker ``group``, every rank's walkers in rank order (a collective)."""
     w = state.walkers
+    walkers = {"s": w.s, "log_psi_re": w.log_psi.re,
+               "log_psi_im": w.log_psi.im, "n_accept": w.n_accept,
+               "n_prop": w.n_prop}
+    if group is not None:
+        walkers = {k: group.all_gather(v) for k, v in walkers.items()}
     return {
         "params": _to(state.params, lambda t: t.detach().cpu()),
         "opt_state": _to(state.opt_state, lambda t: t.detach().cpu()),
-        "walkers": {"s": w.s.cpu(), "log_psi_re": w.log_psi.re.cpu(),
-                    "log_psi_im": w.log_psi.im.cpu(),
-                    "n_accept": w.n_accept.cpu(), "n_prop": w.n_prop.cpu()},
+        "walkers": {k: v.cpu() for k, v in walkers.items()},
         "step": int(state.step),
     }
 
@@ -106,12 +118,22 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
 
-    def save(self, step: int, state: TrainState) -> None:
+    def save(self, step: int, state: TrainState, group=None) -> None:
+        """Write ``state`` as ``step``; with a walker ``group``, a collective
+        that gathers the walkers, rank 0 writing, and returns on every rank
+        once the checkpoint is in place."""
+        d = state_to_dict(state, group)
+        if group is None or group.rank == 0:
+            self._write(step, d)
+        if group is not None:
+            group.barrier()
+
+    def _write(self, step: int, d: dict) -> None:
         final = os.path.join(self.directory, str(int(step)))
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state_to_dict(state), os.path.join(tmp, STATE_FILE))
+        torch.save(d, os.path.join(tmp, STATE_FILE))
         if os.path.exists(final):  # the same step again (the final save)
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -122,12 +144,17 @@ class CheckpointManager:
         steps = saved_steps(self.directory)
         return steps[-1] if steps else None
 
-    def restore(self, template: TrainState, step: Optional[int] = None
-                ) -> TrainState:
+    def restore(self, template: TrainState, step: Optional[int] = None,
+                group=None) -> TrainState:
         """Restore ``step`` (None: the latest) onto the devices and dtypes
-        of ``template``."""
-        return state_from_dict(load_state_dict(self.directory, step),
-                               template)
+        of ``template``; with a walker ``group``, this rank's walkers."""
+        state = state_from_dict(load_state_dict(self.directory, step),
+                                template)
+        if group is None:
+            return state
+        from qmcnn_tpu_torch.parallel.mesh import shard_train_state
+
+        return shard_train_state(state, group)
 
     def close(self) -> None:
         """Nothing to release: every save is complete when it returns."""

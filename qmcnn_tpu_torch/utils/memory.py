@@ -5,7 +5,9 @@
 ``chunk_size: null`` / ``jacobian_chunk: null`` mean "fit it for me": the
 estimators return None (no chunking) whenever the unchunked batch fits the
 budget. The memory size is the device's own: ``total_memory`` of the CUDA
-device, or the host's physical memory for a CPU run.
+device, or the host's physical memory for a CPU run. The walker count is
+the per-rank one: M / world size under walker sharding (one rank per
+card).
 
 Model: peak memory of a batched conv forward ~ batch x (live-layer window
 of activations), ~2 layers for a forward-only pass and ~all layers for a
@@ -118,34 +120,37 @@ def _persistent_bytes(cfg, n_params: Optional[int], m_local: int) -> float:
     return pad + jac + gram
 
 
-def _budget(cfg, n_params, mem: int) -> float:
-    m_local = cfg.sampler.n_walkers
+def _local_walkers(cfg, world_size: int) -> int:
+    return max(1, cfg.sampler.n_walkers // max(1, world_size))
+
+
+def _budget(cfg, n_params, mem: int, m_local: int) -> float:
     budget = _BUDGET_FRACTION * mem - _persistent_bytes(cfg, n_params, m_local)
     return max(budget, 0.05 * mem)
 
 
 def auto_chunk_size(cfg, lattice, ham, n_params: Optional[int] = None,
-                    mem_bytes: Optional[int] = None,
-                    device="cuda") -> Optional[int]:
+                    mem_bytes: Optional[int] = None, device="cuda",
+                    world_size: int = 1) -> Optional[int]:
     """Local-energy walker chunk (run.chunk_size) or None for unchunked."""
     mem = device_memory_bytes(device) if mem_bytes is None else mem_bytes
-    m_local = cfg.sampler.n_walkers
+    m_local = _local_walkers(cfg, world_size)
     k1 = ham.n_conn + 1
     fp = model_footprint(cfg, lattice.n_sites)
-    budget = _budget(cfg, n_params, mem)
+    budget = _budget(cfg, n_params, mem, m_local)
     if m_local * k1 * fp.fwd_bytes() <= budget:
         return None
     return _largest_pow2_divisor_leq(m_local, budget / (k1 * fp.fwd_bytes()))
 
 
 def auto_jacobian_chunk(cfg, lattice, ham, n_params: Optional[int] = None,
-                        mem_bytes: Optional[int] = None,
-                        device="cuda") -> Optional[int]:
+                        mem_bytes: Optional[int] = None, device="cuda",
+                        world_size: int = 1) -> Optional[int]:
     """Sample chunk for the materialized SR Jacobian, or None."""
     mem = device_memory_bytes(device) if mem_bytes is None else mem_bytes
-    m_local = cfg.sampler.n_walkers
+    m_local = _local_walkers(cfg, world_size)
     fp = model_footprint(cfg, lattice.n_sites)
-    budget = _budget(cfg, n_params, mem)
+    budget = _budget(cfg, n_params, mem, m_local)
     if m_local * fp.bwd_bytes() <= budget:
         return None
     return _largest_pow2_divisor_leq(m_local, budget / fp.bwd_bytes())

@@ -1,5 +1,5 @@
 """The VMC driver: estimators, gradient and the training step (port of
-``qmcnn_tpu/vmc.py``, single device, ground-state path).
+``qmcnn_tpu/vmc.py``, ground-state path).
 
 One training step:
   refresh -> sample -> local energy -> covariance gradient (surrogate
@@ -18,6 +18,10 @@ fused GCNN kernel, or the sweep kernel's recompute forward for the plain
 real CNN, where the builder finds it eligible, else the model itself).
 The stored walker log psi and the E_loc ratios both come from the latter,
 so they are consistent.
+
+Distribution: every estimator mean goes through ``pmean(x, group)``, the
+identity with no walker group (one device) and a mean all-reduce over the
+ranks of ``parallel.mesh.WalkerGroup`` otherwise; SR uses the same hook.
 """
 from __future__ import annotations
 
@@ -31,6 +35,24 @@ from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy
 from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler,
                                                 WalkerState, fold_in)
+
+
+def pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """Mean over the walker group's ranks; identity when not distributed."""
+    return x if group is None else group.mean(x)
+
+
+def pmean_all(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The pmean of each tensor, in one all-reduce."""
+    if group is None:
+        return tensors
+    flat = group.mean(torch.cat([t.reshape(-1) for t in tensors]))
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.reshape(t.shape) for p, t in zip(parts, tensors)]
+
+
+def pmean_c(z: C, group) -> C:
+    return C(*pmean_all([z.re, z.im], group))
 
 
 class TrainState(NamedTuple):
@@ -59,16 +81,17 @@ def global_norm(tree) -> torch.Tensor:
 
 def energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
                     chunk_size: Optional[int] = None,
-                    eval_log_psi_fn: Optional[Callable[..., C]] = None):
+                    eval_log_psi_fn: Optional[Callable[..., C]] = None,
+                    group=None):
     """(e_mean C, e_var, grads dict, e_loc C[M]) from the walkers. E_loc
     uses ``eval_log_psi_fn`` (None: the model, ``log_psi_fn``), the
-    gradient ``log_psi_fn``."""
+    gradient ``log_psi_fn``; the means run over the walker ``group``."""
     if eval_log_psi_fn is None:
         eval_log_psi_fn = log_psi_fn
     e_loc = local_energy(eval_log_psi_fn, params, ham, walkers.s,
                          walkers.log_psi, chunk_size=chunk_size)
-    e_mean = e_loc.mean()
-    e_var = (e_loc - e_mean).abs2().mean()
+    e_mean = pmean_c(e_loc.mean(), group)
+    e_var = pmean((e_loc - e_mean).abs2().mean(), group)
     centered = e_loc - e_mean
     delta = C(centered.re.detach(), centered.im.detach())
 
@@ -78,6 +101,7 @@ def energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
         return torch.mean(delta.re * lp.re + delta.im * lp.im)
 
     grads = grad(loss_fn)(params)
+    grads = dict(zip(grads, pmean_all(list(grads.values()), group)))
     return e_mean, e_var, grads, e_loc
 
 
@@ -85,8 +109,10 @@ def energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
 class VMC:
     """Binds model, Hamiltonian, sampler and optimizer into a train step.
 
-    ``step(state, key, walker_ids) -> (state, metrics)``. Excited-state
-    penalties, deflation, sector targeting, SPRING and EMA are later
+    ``step(state, key, walker_ids) -> (state, metrics)``; with ``group``
+    (a ``parallel.mesh.WalkerGroup``) the state holds this rank's walkers
+    and the step runs over :mod:`qmcnn_tpu_torch.parallel.mesh`. Excited-
+    state penalties, deflation, sector targeting, SPRING and EMA are later
     slices (ROADMAP.md).
     """
 
@@ -99,15 +125,18 @@ class VMC:
     chunk_size: Optional[int] = None
     #: evaluation-only forward of the sampler and E_loc (None: log_psi_fn)
     eval_log_psi_fn: Optional[Callable[..., C]] = None
+    #: the walker group (None: one device, no collective)
+    group: Optional[Any] = None
 
     def __post_init__(self):
         if self.eval_log_psi_fn is None:
             object.__setattr__(self, "eval_log_psi_fn", self.log_psi_fn)
 
-    def init_state(self, key: int, n_walkers: int, params,
-                   device="cpu") -> TrainState:
+    def init_state(self, key: int, n_walkers: int, params, device="cpu",
+                   rows: Optional[slice] = None) -> TrainState:
+        """``rows``: keep only these of the ``n_walkers`` walkers drawn."""
         walkers = self.sampler.init_state(params, key, n_walkers,
-                                          device=device)
+                                          device=device, rows=rows)
         return TrainState(params=params, opt_state=self.optimizer.init(params),
                           walkers=walkers, step=0)
 
@@ -121,18 +150,20 @@ class VMC:
                                       n_sweeps=self.n_sweeps, noise=noise)
         e_mean, e_var, grads, e_loc = energy_and_grad(
             self.log_psi_fn, self.ham, params, walkers,
-            chunk_size=self.chunk_size, eval_log_psi_fn=self.eval_log_psi_fn)
+            chunk_size=self.chunk_size, eval_log_psi_fn=self.eval_log_psi_fn,
+            group=self.group)
         sr_iters = 0
         sr_residual = torch.zeros((), device=walkers.s.device)
         if self.sr is not None:
             grads, sr_iters, sr_residual = self.sr.solve(
                 self.log_psi_fn, params, walkers.s, grads, state.step,
-                e_loc=e_loc)
+                e_loc=e_loc, group=self.group)
         updates, opt_state = self.optimizer.update(grads, state.opt_state)
         new_params = {k: params[k] + updates[k] for k in params}
         metrics = StepMetrics(
             energy_re=e_mean.re, energy_im=e_mean.im, energy_var=e_var,
-            accept_rate=MetropolisSampler.acceptance_rate(walkers),
+            accept_rate=pmean(MetropolisSampler.acceptance_rate(walkers),
+                              self.group),
             grad_norm=global_norm(grads), sr_iters=sr_iters,
             sr_residual=sr_residual)
         return TrainState(params=new_params, opt_state=opt_state,

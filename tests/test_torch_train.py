@@ -141,11 +141,11 @@ def test_helpers_match_jax():
 
 def test_unported_options_raise(tmp_path):
     """Options of later slices raise (complex parameters, bf16 and
-    checkpoints are ported since slice 5)."""
-    for ov in (("model.kind=rbm",), ("sr.solver=cg",),
+    checkpoints are ported since slice 5; sr.solver=cg and run.distributed
+    since slice 7)."""
+    for ov in (("model.kind=rbm",),
                ("model.jastrow=true",), ("optimizer.ema_decay=0.9",),
-               ("model.translation_average=true",), ("sr.momentum=0.9",),
-               ("run.distributed=true",)):
+               ("model.translation_average=true",), ("sr.momentum=0.9",)):
         cfg = tcfg.load(HEIS, SMALL + ov)
         with pytest.raises(NotImplementedError):
             ttrain.train(cfg, device="cpu")

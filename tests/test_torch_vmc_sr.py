@@ -193,8 +193,11 @@ def test_resolve_and_real_flags():
                ("model.spin_flip_sector=-1",), ("model.phase_bias=marshall",)):
         c_j, c_t = jcfg.load(BASE, ov), tcfg.load(BASE, ov)
         assert tb.model_log_psi_is_real(c_t) == jb.model_log_psi_is_real(c_j)
-    with pytest.raises(NotImplementedError):
-        TSR(solver="cg")
+    with pytest.raises(ValueError):
+        TSR(solver="lsq")
+    with pytest.raises(ValueError):
+        TSR(solver="minsr", minsr_assembly="tree")
+    assert TSR(solver="cg").solver == "cg"
     assert TSR(solver="minsr").solver == "minsr"
     cfg = dataclasses.replace(tcfg.load(BASE), sr=dataclasses.replace(
         tcfg.load(BASE).sr, enabled=False))

@@ -1,0 +1,218 @@
+"""Ranks of the PyTorch port's walker-sharding tests
+(``tests/test_torch_distributed.py``): one process per rank, joined by gloo
+over a ``FileStore`` on the CPU, so parallel test workers never race for a
+port. Imports torch and the port only, never JAX.
+
+Run as:  python tests/torch_dist_ranks.py <rank> <world size> <work dir>
+
+The work dir holds ``spec.pt`` (the parent's shared inputs); each rank
+writes ``rank<r>.pt`` with what the parent compares against the 1-rank
+run, which the parent computes with the same functions and no group.
+"""
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from qmcnn_tpu_torch import builder as tb  # noqa: E402
+from qmcnn_tpu_torch import configs as tcfg  # noqa: E402
+from qmcnn_tpu_torch.builder import Optimizer  # noqa: E402
+from qmcnn_tpu_torch.lattice import chain  # noqa: E402
+from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply  # noqa: E402
+from qmcnn_tpu_torch.ops.cplx import C  # noqa: E402
+from qmcnn_tpu_torch.ops.hamiltonians import TFIM, Heisenberg  # noqa: E402
+from qmcnn_tpu_torch.parallel.mesh import (make_sharded_vmc,  # noqa: E402
+                                           walker_group)
+from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler,  # noqa: E402
+                                                fold_in, prng_key)
+from qmcnn_tpu_torch.sr import SR  # noqa: E402
+from qmcnn_tpu_torch.vmc import VMC  # noqa: E402
+
+N = 8
+M = 64
+MOVES = ("flip", "exchange", "exchange_anti")
+#: the JAX distributed tests' SR settings (tests/test_distributed.py)
+SR_KW = dict(diag_shift0=0.1, diag_shift_decay=1.0, diag_shift_min=0.1)
+SOLVERS = {
+    "pcg": SR(solver="pcg", **SR_KW),
+    "dense": SR(solver="dense", **SR_KW),
+    "minsr_gather": SR(solver="minsr", real_log_psi=True, **SR_KW),
+    "minsr_ring": SR(solver="minsr", real_log_psi=True,
+                     minsr_assembly="ring", **SR_KW),
+    "cg": SR(solver="cg", cg_tol=1e-6, cg_maxiter=200, **SR_KW),
+}
+GCNN = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")
+GCNN_SMALL = ("lattice.shape=[4,4]", "model.channels=[2,2]",
+              "sampler.n_walkers=32", "run.chunk_size=8")
+
+
+def build_case(move="flip", sr=None, group=None):
+    """The 8-site chain CNN of the JAX distributed tests: TFIM with flip
+    moves, else Heisenberg; SGD at 0.02."""
+    lat = chain(N)
+    ham = TFIM(lat, h=1.0) if move == "flip" else Heisenberg(lat)
+    model = LogPsiCNN(lattice_shape=(N,), channels=(4,), param_scale=0.1)
+
+    def log_psi_fn(p, s):
+        return log_psi_apply(model, p, s)
+
+    bonds = lat.nn_bonds if move.startswith("exchange") else None
+    sampler = MetropolisSampler(log_psi_fn, n_sites=N, move=move, bonds=bonds)
+    vmc = VMC(log_psi_fn=log_psi_fn, ham=ham, sampler=sampler,
+              optimizer=Optimizer(kind="sgd", lr=lambda count: 0.02),
+              n_sweeps=1, sr=sr, group=group)
+    return vmc, model.init(0)
+
+
+class Runner:
+    """``ShardedVMC``'s methods on this rank's walkers, or, with no group,
+    the plain VMC's on all M walkers (the 1-rank run)."""
+
+    def __init__(self, vmc, group):
+        self.vmc = vmc
+        self.sharded = None if group is None else make_sharded_vmc(vmc, group)
+
+    def init(self, params, n_walkers=M):
+        if self.sharded is None:
+            return self.vmc.init_state(prng_key(1), n_walkers, params)
+        return self.sharded.init_state(prng_key(1), n_walkers, params)
+
+    def step(self, state, key):
+        if self.sharded is None:
+            return self.vmc.step(state, key, torch.arange(M))
+        return self.sharded.step(state, key)
+
+    def thermalize(self, state, key, n_sweeps):
+        if self.sharded is None:
+            return self.vmc.thermalize(state, key, torch.arange(M), n_sweeps)
+        return self.sharded.thermalize(state, key, n_sweeps)
+
+    def run_steps(self, state, key, n_steps):
+        if self.sharded is None:
+            return self.vmc.run_steps(state, key, torch.arange(M), n_steps)
+        return self.sharded.run_steps(state, key, n_steps)
+
+
+def record(state, mt=None) -> dict:
+    out = {"s": state.walkers.s.clone(),
+           "params": {k: v.clone() for k, v in state.params.items()}}
+    if mt is not None:
+        out.update(energy_re=float(mt.energy_re),
+                   energy_var=float(mt.energy_var),
+                   accept=float(mt.accept_rate), sr_iters=int(mt.sr_iters))
+    return out
+
+
+def leg_moves(move, group):
+    """3 steps from the init walkers, as test_sharded_step_matches."""
+    vmc, params = build_case(move, group=group)
+    run = Runner(vmc, group)
+    state = run.init(params)
+    out = [record(state)]
+    for it in range(3):
+        state, mt = run.step(state, fold_in(prng_key(2), it))
+        out.append(record(state, mt))
+    return out
+
+
+def leg_sr(name, group):
+    """One step with each SR solver (TFIM, flip)."""
+    vmc, params = build_case("flip", sr=SOLVERS[name], group=group)
+    run = Runner(vmc, group)
+    return record(*run.step(run.init(params), prng_key(5)))
+
+
+def leg_thermalize(group):
+    vmc, params = build_case(group=group)
+    run = Runner(vmc, group)
+    return record(run.thermalize(run.init(params), prng_key(7), 2))
+
+
+def leg_run_steps(group):
+    """4 steps in one run_steps call, and 4 step calls with the keys it
+    derives (fold_in(base_key, step))."""
+    vmc, params = build_case(group=group)
+    run = Runner(vmc, group)
+    fused, ms = run.run_steps(run.init(params), prng_key(9), 4)
+    loop = run.init(params)
+    singles = []
+    for _ in range(4):
+        loop, mt = run.step(loop, fold_in(prng_key(9), loop.step))
+        singles.append(float(mt.energy_re))
+    return {"fused": record(fused), "loop": record(loop),
+            "fused_e": [float(mt.energy_re) for mt in ms],
+            "loop_e": singles, "step": fused.step}
+
+
+def minsr_deltas(spec, group):
+    """The distributed minSR solve of the complex GCNN on this rank's rows
+    of the parent's walkers, per assembly."""
+    vmc, _, _ = tb.build(tcfg.load(GCNN, GCNN_SMALL), device="cpu")
+    s, e_re, e_im = spec["s"], spec["e_re"], spec["e_im"]
+    rows = slice(None) if group is None else group.rows(s.shape[0])
+    out = {}
+    for assembly in ("gather", "ring"):
+        sr = SR(solver="minsr", real_log_psi=False, diag_shift0=0.5,
+                minsr_assembly=assembly)
+        delta, _, resid = sr.solve(vmc.log_psi_fn, spec["params"], s[rows],
+                                   spec["grads"], 2,
+                                   e_loc=C(e_re[rows], e_im[rows]),
+                                   group=group)
+        out[assembly] = {"delta": delta, "resid": float(resid)}
+    return out
+
+
+def leg_checkpoint(spec, group, work):
+    """Restore the parent's 1-rank checkpoint on this rank; then save this
+    rank's state as a checkpoint of the group."""
+    from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
+
+    vmc, params = build_case(group=group)
+    run = Runner(vmc, group)
+    template = run.init(params)
+    restored = CheckpointManager(spec["ckpt_1rank"]).restore(template,
+                                                             group=group)
+    state, _ = run.step(template, prng_key(3))
+    CheckpointManager(os.path.join(work, "ckpt_nrank")).save(
+        state.step, state, group=group)
+    return {"restored_s": restored.walkers.s, "restored_step": restored.step,
+            "saved": record(state)}
+
+
+def run_all(spec, group, work=None) -> dict:
+    out = {"moves": {mv: leg_moves(mv, group) for mv in MOVES},
+           "sr": {name: leg_sr(name, group) for name in SOLVERS},
+           "thermalize": leg_thermalize(group),
+           "run_steps": leg_run_steps(group),
+           "minsr": minsr_deltas(spec, group)}
+    if group is not None:
+        out["checkpoint"] = leg_checkpoint(spec, group, work)
+        try:
+            walker_group(n_devices=group.world_size + 1, device="cpu")
+        except ValueError as e:
+            out["n_devices_error"] = str(e)
+    return out
+
+
+def main():
+    rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(work, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    group = walker_group(device="cpu")
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=True)
+    out = run_all(spec, group, work)
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "qmcnn_tpu"))
+    assert not jax_mods, f"a rank imported {jax_mods[:3]}"
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
