@@ -61,6 +61,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 0.01/site of -0.670410; K1 0); the complex CNN: the
                 tfim12_h2 snapshot (tail within 1e-3 of the ED energy) and
                 configs/j1j2_8x8_complex.yaml at full width (3 steps);
+                frustrated lattices and SPRING: the gcnn_r2 leg again with
+                the round-2 SPRING run's overrides (sr.momentum 0.9, shift
+                0.001, lr 0.025; runs/j1j2_8x8_spring.csv.meta.json), its
+                K2 bf16 counts as the plain leg's, SPRING's carried delta
+                finite, non-zero and restored bitwise with the checkpoint;
+                the tri6x3_j1j2 snapshot (phase prior, Jastrow amplitude
+                and phase; 100 sweeps, 10 steps) within 0.01/site of its
+                JAX run and 2% of the port's ED; the kagome GCNN and
+                PhaseNet snapshots (SPRING, 100 sweeps, 4 steps) within
+                0.01/site of their JAX runs with |E_im| under 3 binned
+                stderr; tri6x6_tgcnn at full width from a fresh init (W =
+                96, radius-2 star; 10 sweeps, 2 steps), printing its auto
+                chunk size; K1 and K2 launched 0 times on the prior and D6
+                legs;
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -88,9 +102,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 j1j2_8x8_gcnn_r2 E_loc chunk and sweep shapes and at the
                 depth-12 fixture beside its plain version, its bf16
                 tensor-core bound and K2's f32 route at the same shapes, and
-                the per-phase split of a training step of each path (``qmcnn_tpu_torch.step_timing``);
+                the per-phase split of a training step of each path
+                (``qmcnn_tpu_torch.step_timing``), the SPRING, tri6x6_tgcnn
+                and kagome3x3_kgcnn legs included;
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
-                K2's bf16 route; the sharded phase printed its own
+                K2's bf16 route with the SPRING leg's launches beside the
+                plain leg's; the sharded phase printed its own
                 ``{"sharded": ...}`` line), the card line, and the final
                 ``{"ok": true, ...}`` line.
 
@@ -150,6 +167,24 @@ E_TFIM12_ED = -25.525138
 #: flips (PERF.md); two plain versions that sum in other orders (cuDNN and
 #: oneDNN) differ as much, printed beside it as the witness
 BF16_TOL = 1e-2
+#: the round-2 SPRING run (runs/j1j2_8x8_spring.csv.meta.json): the gcnn_r2
+#: config with these overrides
+SPRING_OVERRIDES = ("sr.momentum=0.9", "sr.diag_shift0=0.001",
+                    "sr.diag_shift_decay=1.0", "sr.diag_shift_min=0.001",
+                    "optimizer.lr=0.025", "optimizer.lr_min_ratio=0.1")
+#: the frustrated-lattice snapshots of the JAX package and their runs' tail
+#: E/site: tri6x3_j1j2 (phase prior and Jastrow amplitude and phase on the
+#: complex CNN; 18 sites, within ED range), the kagome GCNN and PhaseNet
+#: (both trained with SPRING)
+TRI_META = ROOT / "runs" / "tri6x3_j1j2_jphase.csv.meta.json"
+TRI_FIXTURE = ROOT / "runs" / "tri6x3_j1j2_jphase.csv.params.npz"
+E_SITE_TRI = -0.53379
+KGCNN_META = ROOT / "runs" / "kagome3x3_r3_kgcnn.csv.meta.json"
+KGCNN_FIXTURE = ROOT / "runs" / "kagome3x3_r3_kgcnn.csv.params.npz"
+E_SITE_KGCNN = -0.39368
+PHASENET_META = ROOT / "runs" / "kagome3x3_r3_phasenet.csv.meta.json"
+PHASENET_FIXTURE = ROOT / "runs" / "kagome3x3_r3_phasenet.csv.params.npz"
+E_SITE_PHASENET = -0.42255
 
 
 def check(cond, msg: str) -> None:
@@ -881,7 +916,8 @@ def train_quiet(cfg, **kw):
 
 
 def states_equal(a, b) -> bool:
-    """Params, optimizer state and walkers bitwise equal."""
+    """Params, optimizer state, SPRING's carry and walkers bitwise
+    equal."""
     import torch
 
     def eq(x, y):
@@ -892,21 +928,27 @@ def states_equal(a, b) -> bool:
         return x == y
 
     wa, wb = a.walkers, b.walkers
+    same_aux = (a.sr_aux is None and b.sr_aux is None) or (
+        a.sr_aux is not None and b.sr_aux is not None
+        and eq(a.sr_aux, b.sr_aux))
     return (a.step == b.step and eq(a.params, b.params)
-            and eq(a.opt_state, b.opt_state)
+            and eq(a.opt_state, b.opt_state) and same_aux
             and all(torch.equal(x, y) for x, y in (
                 (wa.s, wb.s), (wa.log_psi.re, wb.log_psi.re),
                 (wa.log_psi.im, wb.log_psi.im), (wa.n_accept, wb.n_accept),
                 (wa.n_prop, wb.n_prop))))
 
 
-def gcnn_r2_main_path(out_dir: Path) -> dict:
+def gcnn_r2_main_path(out_dir: Path, label: str = "gcnn_r2",
+                      extra: tuple = ()) -> dict:
     """configs/j1j2_8x8_gcnn_r2.yaml at full width (M=1024, W=80, L=8, bf16,
-    minSR, exchange_anti) through train(): 3 steps after 20 thermalization
-    sweeps, checkpointed every step, the counters zeroed just before and
-    read just after; then train() again to step 4, which must resume at
-    step 3 from a checkpoint equal to the first run's state; then one more
-    step by hand for the launches per step, E_im and the minSR residual."""
+    minSR, exchange_anti), with the overrides ``extra``, through train(): 3
+    steps after 20 thermalization sweeps, checkpointed every step, the
+    counters zeroed just before and read just after; then train() again to
+    step 4, which must resume at step 3 from a checkpoint equal to the first
+    run's state (SPRING's carried delta included, finite and non-zero where
+    the run has one); then one more step by hand for the launches per step,
+    E_im and the minSR (or SPRING) residual."""
     import numpy as np
     import torch
     from qmcnn_tpu_torch import configs
@@ -914,17 +956,17 @@ def gcnn_r2_main_path(out_dir: Path) -> dict:
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
     from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
 
-    ckpt_dir = out_dir / "j1j2_8x8_gcnn_r2_ckpt"
+    ckpt_dir = out_dir / f"j1j2_8x8_{label}_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    csv = out_dir / "j1j2_8x8_gcnn_r2.csv"
+    csv = out_dir / f"j1j2_8x8_{label}.csv"
     over = ("sampler.n_therm_sweeps=20", "run.log_every=1",
             f"run.ckpt_dir={ckpt_dir}", "run.ckpt_every=1",
-            f"run.csv_path={csv}")
+            f"run.csv_path={csv}") + tuple(extra)
     cfg = configs.load(str(GCNN_R2_CONFIG), over + ("run.n_steps=3",))
     vmc, _, _ = build(cfg, device="cuda")
     check(isinstance(vmc.eval_log_psi_fn, k2.FusedLogPsi)
           and vmc.eval_log_psi_fn.compute_dtype == "bfloat16",
-          "gcnn_r2: K2's bf16 route does not serve the evaluation forward")
+          f"{label}: K2's bf16 route does not serve the evaluation forward")
     want = expected_launches(cfg, vmc)
     reset_counts()
     t0 = time.perf_counter()
@@ -935,28 +977,36 @@ def gcnn_r2_main_path(out_dir: Path) -> dict:
     hist = logger.history
     e = np.asarray(hist["energy_re"])
     acc = np.asarray(hist["accept"])
-    print(f"    j1j2_8x8_gcnn_r2: {time.perf_counter() - t0:.1f} s, K2 bf16 "
+    print(f"    j1j2_8x8_{label}: {time.perf_counter() - t0:.1f} s, K2 bf16 "
           f"launches {n['k2_bf16']} (expected {want['run']}; K2 f32 "
           f"{n['k2_f32']}, sweep kernel {n['k1']}), E/site "
           f"{[round(float(v) / 64, 5) for v in e]}, E_im "
           f"{[round(v, 5) for v in hist['energy_im']]}, accept "
           f"{acc.tolist()}")
-    check(np.isfinite(e).all(), "gcnn_r2: non-finite energies")
-    check(((acc > 0) & (acc < 1)).all(), "gcnn_r2: accept outside (0, 1)")
-    check(n["k2_bf16"] == want["run"], f"gcnn_r2: {n['k2_bf16']} K2 bf16 "
+    check(np.isfinite(e).all(), f"{label}: non-finite energies")
+    check(((acc > 0) & (acc < 1)).all(), f"{label}: accept outside (0, 1)")
+    check(n["k2_bf16"] == want["run"], f"{label}: {n['k2_bf16']} K2 bf16 "
           f"launches, expected {want['run']}")
     check(n["k2_f32"] == 0 and n["k1"] == 0,
-          f"gcnn_r2: launched K2 f32 {n['k2_f32']} / K1 {n['k1']} times")
+          f"{label}: launched K2 f32 {n['k2_f32']} / K1 {n['k1']} times")
     launches = n["k2_bf16"]
 
     # resume: the checkpoint of step 3 holds the first run's state bitwise
     mgr = CheckpointManager(str(ckpt_dir), keep=cfg.run.ckpt_keep)
-    check(mgr.latest_step() == 3, f"gcnn_r2: latest checkpoint "
+    check(mgr.latest_step() == 3, f"{label}: latest checkpoint "
           f"{mgr.latest_step()}, expected 3")
     same = states_equal(mgr.restore(state), state)
     print(f"    checkpoint of step 3 restored: params, optimizer state and "
           f"walkers bitwise equal to the first run's final state: {same}")
-    check(same, "gcnn_r2: the restored state differs from the saved one")
+    check(same, f"{label}: the restored state differs from the saved one")
+    spring = state.sr_aux is not None
+    if spring:
+        aux = state.sr_aux
+        print(f"    SPRING carry after step 3: |delta| "
+              f"{float(torch.linalg.norm(aux)):.4e} over {aux.numel()} "
+              f"params, saved and restored bitwise: {same}")
+        check(bool(torch.isfinite(aux).all()) and bool((aux != 0).any()),
+              f"{label}: SPRING's delta is not finite and non-zero")
     cfg4 = configs.load(str(GCNN_R2_CONFIG), over + ("run.n_steps=4",))
     reset_counts()
     state4, logger4, text = train_quiet(cfg4, ckpt_manager=mgr)
@@ -967,14 +1017,19 @@ def gcnn_r2_main_path(out_dir: Path) -> dict:
           f"{1 + want['per_step']}: the initial refresh and step 4), E/site "
           f"{[round(float(v) / 64, 5) for v in e4]}")
     check("resumed from checkpoint at step 3" in text,
-          "gcnn_r2: the second run did not resume at step 3")
+          f"{label}: the second run did not resume at step 3")
     check(state4.step == 4 and len(e4) == 1 and np.isfinite(e4).all(),
-          "gcnn_r2: the resumed run did not take step 4 with a finite "
+          f"{label}: the resumed run did not take step 4 with a finite "
           "energy")
     check(n4["k2_bf16"] == 1 + want["per_step"],
-          f"gcnn_r2: resumed run launched K2 bf16 {n4['k2_bf16']} times")
+          f"{label}: resumed run launched K2 bf16 {n4['k2_bf16']} times")
 
-    new, per_step = one_more_step("gcnn_r2", vmc, state4, "k2_bf16",
+    if spring:
+        aux4 = state4.sr_aux
+        check(bool(torch.isfinite(aux4).all()) and bool((aux4 != 0).any())
+              and not torch.equal(aux4, state.sr_aux),
+              f"{label}: the resumed step did not update SPRING's delta")
+    new, per_step = one_more_step(label, vmc, state4, "k2_bf16",
                                   want["per_step"])
     return {"launches": launches, "per_step": per_step, "cfg": cfg,
             "state": new}
@@ -1110,6 +1165,130 @@ def complex_cnn_legs(out_dir: Path) -> None:
     check(min(hist["sr_iters"]) > 0, "j1j2_8x8_complex: pcg ran no "
           "iterations")
     check(n["k1"] == 0, "j1j2_8x8_complex: the complex CNN launched K1")
+
+
+def e_im_check(label: str, vmc, state) -> None:
+    """E_loc on the final walkers at the final params (the evaluation
+    forward): |mean E_im| must stay under 3 binned stderr."""
+    import numpy as np
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+
+    w = state.walkers
+    lp = vmc.eval_log_psi_fn(state.params, w.s)
+    e_loc = local_energy(vmc.eval_log_psi_fn, state.params, vmc.ham, w.s,
+                         lp, chunk_size=vmc.chunk_size)
+    e_im = float(e_loc.im.double().mean())
+    err = binned_stderr(e_loc.im.double().cpu().numpy())
+    print(f"    {label}: E_im on the final walkers {e_im:.5f} vs 3 x binned "
+          f"stderr {3 * err:.5f}")
+    check(np.isfinite(e_im) and abs(e_im) < 3 * err,
+          f"{label}: |E_im| {e_im} >= 3 stderr {err}")
+
+
+def fixture_leg(label: str, meta: Path, fixture: Path, e_site_ref: float,
+                out_dir: Path, extra: tuple = ()) -> tuple:
+    """A trained JAX snapshot of a frustrated lattice warm-started in its
+    run's own config (rebuilt from its meta.json) at full width, on the
+    card, the counters zeroed just before and read just after: the tail
+    E/site within 0.01 of ``e_site_ref`` (the JAX run's tail), K1 and K2
+    launched 0 times (priors, D6 GCNNs and complex weights take the plain
+    model), |E_im| under 3 binned stderr. Returns (config, state, tail
+    energy)."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+
+    cfg = configs.apply_overrides(
+        configs.from_yaml(json.loads(meta.read_text())["config"]), (
+            f"run.init_from={fixture}", "run.ckpt_dir=null",
+            "run.heartbeat_path=null", "run.log_every=1",
+            f"run.csv_path={out_dir / (label + '.csv')}") + tuple(extra))
+    vmc, _, lattice = build(cfg, device="cuda")
+    n_sites = lattice.n_sites
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logger, _ = train_quiet(cfg)
+    n = counts()
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    tail, err = logger.tail_energy()
+    print(f"    {label}: {time.perf_counter() - t0:.1f} s, M="
+          f"{cfg.sampler.n_walkers}, SR momentum {cfg.sr.momentum}, chunk "
+          f"{vmc.chunk_size}, E/site "
+          f"{[round(float(v) / n_sites, 5) for v in e]}, tail "
+          f"{tail / n_sites:.6f} +- {err / n_sites:.6f} (JAX run "
+          f"{e_site_ref}), accept {hist['accept'][-1]:.4f}, launches {n}")
+    check(np.isfinite(e).all(), f"{label}: non-finite energies")
+    check(sum(n.values()) == 0, f"{label}: launched a kernel {n}")
+    check(abs(tail / n_sites - e_site_ref) <= 0.01,
+          f"{label}: E/site {tail / n_sites} not within 0.01 of "
+          f"{e_site_ref}")
+    if cfg.sr.momentum:
+        check(state.sr_aux is not None
+              and bool(torch.isfinite(state.sr_aux).all()),
+              f"{label}: SPRING's delta is missing or not finite")
+    e_im_check(label, vmc, state)
+    return cfg, state, tail
+
+
+def frustrated_phase(out_dir: Path) -> dict:
+    """Frustrated lattices and SPRING: the SPRING run's config (gcnn_r2 with
+    sr.momentum 0.9) on K2's bf16 route with checkpoint and resume; the
+    tri6x3_j1j2 snapshot (phase prior and Jastrow factors) against the
+    port's ED; the kagome GCNN and PhaseNet snapshots with SPRING; and
+    tri6x6_tgcnn at full width from a fresh init. Returns the SPRING leg's
+    record and the D6 legs' configs and states for the step splits."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.train import exact_reference_energy
+
+    t0 = time.perf_counter()
+    spring = gcnn_r2_main_path(out_dir, "gcnn_r2_spring", SPRING_OVERRIDES)
+    print(f"    SPRING leg {time.perf_counter() - t0:.1f} s")
+
+    tri_cfg, _, tail = fixture_leg(
+        "tri6x3_j1j2", TRI_META, TRI_FIXTURE, E_SITE_TRI, out_dir,
+        ("sampler.n_therm_sweeps=100", "run.n_steps=10"))
+    e_exact = exact_reference_energy(tri_cfg)
+    rel = abs(tail - e_exact) / abs(e_exact)
+    print(f"    tri6x3_j1j2 vs the port's ED {e_exact:.6f}: relative error "
+          f"{rel:.3e}")
+    check(tri_cfg.model.jastrow and tri_cfg.model.jastrow_phase,
+          "tri6x3_j1j2: the snapshot's config lost its Jastrow factors")
+    check(rel < 0.02, f"tri6x3_j1j2: relative error {rel} vs ED >= 0.02")
+
+    kg = fixture_leg("kagome3x3_kgcnn", KGCNN_META, KGCNN_FIXTURE,
+                     E_SITE_KGCNN, out_dir,
+                     ("sampler.n_therm_sweeps=100", "run.n_steps=4"))
+    fixture_leg("kagome3x3_phasenet", PHASENET_META, PHASENET_FIXTURE,
+                E_SITE_PHASENET, out_dir,
+                ("sampler.n_therm_sweeps=100", "run.n_steps=4"))
+
+    csv = out_dir / "tri6x6_tgcnn.csv"
+    cfg = configs.load(str(ROOT / "configs" / "tri6x6_tgcnn.yaml"), (
+        "sampler.n_therm_sweeps=10", "run.n_steps=2", "run.log_every=1",
+        f"run.csv_path={csv}"))
+    vmc, _, _ = build(cfg, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logger, _ = train_quiet(cfg)
+    n = counts()
+    hist = logger.history
+    e = np.asarray(hist["energy_re"])
+    acc = np.asarray(hist["accept"])
+    print(f"    tri6x6_tgcnn (W=96, radius-2 star, fresh init): "
+          f"{time.perf_counter() - t0:.1f} s, auto chunk_size "
+          f"{vmc.chunk_size} (jacobian_chunk {vmc.sr.jacobian_chunk}), "
+          f"E/site {[round(float(v) / 36, 5) for v in e]}, accept "
+          f"{acc.tolist()}, launches {n}")
+    check(np.isfinite(e).all(), "tri6x6_tgcnn: non-finite energies")
+    check(((acc > 0) & (acc < 1)).all(),
+          "tri6x6_tgcnn: accept outside (0, 1)")
+    check(sum(n.values()) == 0, f"tri6x6_tgcnn: launched a kernel {n}")
+    return {"spring": spring, "tgcnn": (cfg, state), "kgcnn": kg[:2]}
 
 
 def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
@@ -1726,6 +1905,12 @@ def main() -> int:
     cnn_bf16_leg(out_dir)
     print("[4] the complex CNN: tfim12_h2 and j1j2_8x8_complex", flush=True)
     complex_cnn_legs(out_dir)
+    print("[4] frustrated lattices and SPRING: the SPRING run's config on "
+          "K2 bf16, tri6x3_j1j2 vs ED, the kagome GCNN and PhaseNet "
+          "snapshots, tri6x6_tgcnn", flush=True)
+    t0 = time.perf_counter()
+    frustrated = frustrated_phase(out_dir)
+    print(f"    frustrated phase {time.perf_counter() - t0:.1f} s")
     print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
           "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
           "with pcg and cg), then torchrun with NCCL", flush=True)
@@ -1763,6 +1948,12 @@ def main() -> int:
     print(f"  K2 bf16 launches per j1j2_8x8_gcnn_r2 training step: "
           f"{r2['per_step']}")
     step_split(r2["cfg"], r2["state"], card, "j1j2_8x8_gcnn_r2")
+    print(f"  K2 bf16 launches per SPRING step: "
+          f"{frustrated['spring']['per_step']}")
+    step_split(frustrated["spring"]["cfg"], frustrated["spring"]["state"],
+               card, "j1j2_8x8_gcnn_r2 with SPRING")
+    step_split(*frustrated["tgcnn"], card, "tri6x6_tgcnn")
+    step_split(*frustrated["kgcnn"], card, "kagome3x3_kgcnn")
 
     # 6. report
     rec = {
@@ -1810,6 +2001,7 @@ def main() -> int:
         "source": "qmcnn_tpu_torch/csrc/gcnn_forward.cu",
         "replaces": "qmcnn_tpu/kernels/gcnn_pallas.py:259",
         "launches": r2["launches"],
+        "spring_launches": frustrated["spring"]["launches"],
         "max_abs_err": bf16_err["max_abs_err"],
         "ms": t_r2["ms"],
         "plain_ms": t_r2["plain_ms"],

@@ -1,5 +1,6 @@
-"""Config -> framework objects (port of ``qmcnn_tpu/builder.py``, the CNN
-and square-lattice GCNN training paths).
+"""Config -> framework objects (port of ``qmcnn_tpu/builder.py``: the CNN,
+the square, triangular and kagome GCNNs, their phase priors, Jastrow
+factors and PhaseNet wrappers, and SR with SPRING).
 
 ``build(cfg, device)`` wires lattice, ansatz, Hamiltonian, sampler,
 optimizer and (optionally) SR into a :class:`qmcnn_tpu_torch.vmc.VMC`;
@@ -24,6 +25,11 @@ from qmcnn_tpu_torch.configs import Config
 from qmcnn_tpu_torch.lattice import Lattice
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply
 from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
+from qmcnn_tpu_torch.models.jastrow import wrap_jastrow
+from qmcnn_tpu_torch.models.kgcnn import LogPsiKagomeGCNN
+from qmcnn_tpu_torch.models.phase import PhaseBias, phase_half_angles
+from qmcnn_tpu_torch.models.phasenet import wrap_phase_net
+from qmcnn_tpu_torch.models.tgcnn import LogPsiTriGCNN
 from qmcnn_tpu_torch.ops.hamiltonians import TFIM, Heisenberg
 from qmcnn_tpu_torch.sampler.metropolis import MetropolisSampler
 from qmcnn_tpu_torch.sr import SR
@@ -60,8 +66,10 @@ def _set(value) -> bool:
 
 
 def build_model(cfg: Config, lattice: Lattice):
-    """The CNN or the square-lattice GCNN, optionally spin-flip projected;
-    other kinds and wrappers raise (later slices of the port, ROADMAP.md)."""
+    """The CNN or the GCNN (C4v on the square lattice, D6 on the
+    triangular and kagome ones), with its phase priors, Jastrow factor and
+    PhaseNet, optionally spin-flip projected; other kinds and wrappers raise
+    (later slices of the port, ROADMAP.md)."""
     m = cfg.model
     if m.kind not in ("cnn", "gcnn"):
         raise NotImplementedError(f"model.kind={m.kind!r} is not ported yet "
@@ -75,19 +83,29 @@ def build_model(cfg: Config, lattice: Lattice):
         if m.translation_average or m.point_group_average:
             raise ValueError("gcnn is already fully space-group symmetric; "
                              "drop translation/point_group averaging")
-        if lattice.geometry in ("triangular", "kagome"):
-            raise NotImplementedError(
-                f"the {lattice.geometry} GCNN is not ported yet (ROADMAP.md, "
-                "A13)")
-        if lattice.geometry != "hypercubic":
-            raise ValueError("gcnn is point-group equivariant for square, "
-                             "triangular and kagome lattices only — not "
-                             f"geometry={lattice.geometry!r}")
+        if lattice.geometry not in ("hypercubic", "triangular", "kagome"):
+            raise ValueError("gcnn is point-group equivariant for square "
+                             "(C4v), triangular (D6) and kagome (D6 via "
+                             "the depleted-triangular embedding) lattices "
+                             f"only — not geometry={lattice.geometry!r}")
     for name in _LATER_SLICE:
         if _set(getattr(m, name)):
             raise NotImplementedError(f"model.{name} is not ported yet "
                                       "(ROADMAP.md)")
-    if m.kind == "gcnn":
+    if m.kind == "gcnn" and lattice.geometry != "hypercubic":
+        # kernel_size names the enclosing grid: 3 -> the radius-1 star of
+        # 7 taps, 5 -> the radius-2 star of 19 taps
+        kw = dict(channels=tuple(m.channels),
+                  radius=max((m.kernel_size - 1) // 2, 1),
+                  complex_params=m.complex_params,
+                  param_scale=m.param_scale, character=m.gcnn_character,
+                  init_mode=m.init_mode, activation=m.activation,
+                  residual=m.residual, compute_dtype=m.compute_dtype)
+        if lattice.geometry == "kagome":
+            inner = LogPsiKagomeGCNN(cell_shape=tuple(lattice.shape), **kw)
+        else:
+            inner = LogPsiTriGCNN(lattice_shape=tuple(lattice.shape), **kw)
+    elif m.kind == "gcnn":
         inner = LogPsiGCNN(
             lattice_shape=tuple(lattice.shape),
             channels=tuple(m.channels),
@@ -102,17 +120,23 @@ def build_model(cfg: Config, lattice: Lattice):
         )
     else:
         inner = _cnn(m, lattice)
-    return _maybe_spin_flip(_maybe_priors(inner, m), m)
+    return _maybe_spin_flip(_maybe_priors(inner, m, lattice), m)
 
 
-def _maybe_priors(inner, m):
-    """Phase priors and Jastrow factors wrap the inner model in the JAX
-    package; none is ported yet."""
-    for name in _PRIORS:
-        if _set(getattr(m, name)):
-            raise NotImplementedError(f"model.{name} is not ported yet "
-                                      "(ROADMAP.md)")
-    return inner
+def _maybe_priors(inner, m, lattice: Lattice):
+    """The JAX wrapping order, all inside the spin-flip projection:
+    PhaseNet innermost, then the Jastrow factor, then the phase prior
+    outermost (each factor is isometry-invariant and Z2-even, so the
+    order only fixes the parameter names)."""
+    if m.phase_net_channels:
+        inner = wrap_phase_net(inner, lattice, channels=m.phase_net_channels,
+                               kernel_size=m.phase_net_kernel)
+    if m.jastrow or m.jastrow_phase:
+        inner = wrap_jastrow(inner, lattice, amplitude=m.jastrow,
+                             phase=m.jastrow_phase)
+    if not m.phase_bias:
+        return inner
+    return PhaseBias(inner, phase_half_angles(m.phase_bias, lattice))
 
 
 def _maybe_spin_flip(inner, m):
@@ -286,9 +310,9 @@ def build_sr(cfg: Config, lattice=None, ham=None,
         solver = resolve_solver(solver, cfg.sampler.n_walkers, n_params,
                                 model_log_psi_is_real(cfg))
         cfg = dataclasses.replace(cfg, sr=dataclasses.replace(s, solver=solver))
-    if s.momentum:
-        raise NotImplementedError("sr.momentum (SPRING) is not ported yet "
-                                  "(ROADMAP.md)")
+    if s.momentum and solver != "minsr":
+        raise ValueError("sr.momentum (SPRING) requires solver='minsr' "
+                         f"(resolved solver: {solver!r})")
     jacobian_chunk = s.jacobian_chunk
     if jacobian_chunk is None and lattice is not None and ham is not None:
         from qmcnn_tpu_torch.utils import memory
@@ -307,6 +331,7 @@ def build_sr(cfg: Config, lattice=None, ham=None,
         jacobian_chunk=jacobian_chunk,
         real_log_psi=model_log_psi_is_real(cfg),
         minsr_assembly=s.minsr_assembly,
+        momentum=s.momentum,
     )
 
 

@@ -311,6 +311,13 @@ class LogPsiCNN(nn.Module):
         return out
 
 
+def nest_params(prefix: str, params: Params) -> Params:
+    """``params`` of a submodule named ``prefix`` within its parent
+    ('params/X' -> 'params/<prefix>/X')."""
+    return {f"params/{prefix}/" + k[len("params/"):]: v
+            for k, v in params.items()}
+
+
 def module_names(params: Params) -> Params:
     """Flax flat keys -> module parameter names
     ('params/RealConv_0/kernel' -> 'RealConv_0.kernel')."""

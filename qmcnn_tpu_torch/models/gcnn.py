@@ -33,7 +33,7 @@ from torch import nn
 
 from qmcnn_tpu_torch.models.cnn import (Params, _circular_pad, activations,
                                         compute_dtype_of, kernel_std,
-                                        skip_scale, true_f32)
+                                        nest_params, skip_scale, true_f32)
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
 
@@ -149,6 +149,9 @@ class GroupConv(nn.Module):
     call. The bias is shared over the group axis. Runs in the dtype of its
     input."""
 
+    #: group order (C4v)
+    G = 8
+
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  lift: bool = False, complex_params: bool = False,
                  std: float = 0.05):
@@ -157,14 +160,17 @@ class GroupConv(nn.Module):
         self.lift = lift
         self.complex_params = complex_params
         self.std = std
-        G = 8
-        shape = ((kernel_size, kernel_size, in_features, features) if lift
-                 else (G, kernel_size, kernel_size, in_features, features))
+        shape = self.base_shape(in_features, features)
         self.kernel_re = nn.Parameter(torch.zeros(shape))
         self.bias_re = nn.Parameter(torch.zeros(features))
         if complex_params:
             self.kernel_im = nn.Parameter(torch.zeros(shape))
             self.bias_im = nn.Parameter(torch.zeros(features))
+
+    def base_shape(self, cin: int, cout: int) -> Tuple[int, ...]:
+        """Shape of the base kernel parameter (the Flax layout)."""
+        k = self.k
+        return (k, k, cin, cout) if self.lift else (self.G, k, k, cin, cout)
 
     def expand(self, w: torch.Tensor) -> torch.Tensor:
         _, _, elem_idx, tap_perm, _, _ = c4v_tables(self.k)
@@ -173,7 +179,7 @@ class GroupConv(nn.Module):
         return _group_kernel(w, elem_idx, tap_perm, self.k)
 
     def forward(self, z):
-        G = 8
+        G = self.G
         a = self.expand(self.kernel_re)
         if self.complex_params:
             b = self.expand(self.kernel_im)
@@ -198,6 +204,10 @@ class LogPsiGCNN(nn.Module):
     channels -> log((1/G) sum_g chi(g) exp(S_g)), with chi(g) = -1 entered
     as +i pi on S_g. Same fields as the JAX model."""
 
+    #: group order, and the layer class's name (the Flax module name)
+    G = 8
+    layer = "GroupConv"
+
     def __init__(self, lattice_shape: Tuple[int, ...],
                  channels: Sequence[int] = (8, 8), kernel_size: int = 3,
                  complex_params: bool = False, param_scale: float = 0.05,
@@ -219,8 +229,8 @@ class LogPsiGCNN(nn.Module):
         self.character = character
         self.activation = activation
         self.residual = residual
-        self.k = effective_kernel(kernel_size, self.lattice_shape)
-        G = 8
+        self.k = self._kernel(kernel_size)
+        G = self.G
         n_parts = 2 if complex_params else 1
         cin = 1
         for i, c in enumerate(self.channels):
@@ -230,34 +240,49 @@ class LogPsiGCNN(nn.Module):
                 # near-uniform (see the JAX model)
                 extra = 0.1 / np.sqrt(float(np.prod(self.lattice_shape))
                                       * G * c)
-            fan_in = self.k * self.k * (cin if i == 0 else G * cin)
+            fan_in = self._taps() * (cin if i == 0 else G * cin)
             std = extra * kernel_std(init_mode, param_scale, fan_in,
                                      n_parts=n_parts)
-            self.add_module(f"GroupConv_{i}", GroupConv(
-                cin, c, self.k, lift=(i == 0), complex_params=complex_params,
+            self.add_module(f"{self.layer}_{i}", self._new_layer(
+                cin, c, lift=(i == 0), complex_params=complex_params,
                 std=float(std)))
             cin = c
 
+    def _kernel(self, kernel_size: int) -> int:
+        return effective_kernel(kernel_size, self.lattice_shape)
+
+    def _taps(self) -> int:
+        return self.k * self.k
+
+    def _new_layer(self, cin: int, c: int, **kw) -> nn.Module:
+        return GroupConv(cin, c, self.k, **kw)
+
+    def _characters(self) -> dict:
+        return c4v_tables(self.k)[4]
+
+    def _activations(self):
+        return activations(self.activation, self.dtype)
+
     def forward(self, s: torch.Tensor) -> C:
         s_g = self.group_sums(s)
-        chi = c4v_tables(self.k)[4][self.character]
+        chi = self._characters()[self.character]
         phase = torch.as_tensor(np.where(chi < 0, np.pi, 0.0).astype(
             np.float32), device=s.device)
         return cplx.logmeanexp(C(s_g.re, s_g.im + phase[None, :]), dim=1)
 
     def group_sums(self, s: torch.Tensor) -> C:
-        """The per-element readout sums S_g [B, 8] (re, im) before the
+        """The per-element readout sums S_g [B, G] (re, im) before the
         character projection: the fused forward's contract."""
-        G = 8
+        G = self.G
         batch = s.shape[0]
-        act_c, act_r = activations(self.activation, self.dtype)
+        act_c, act_r = self._activations()
         scale = skip_scale(self.dtype)
         z = s.reshape(batch, 1, *self.lattice_shape).to(self.dtype)
         n_layers = len(self.channels)
         with true_f32():
             for i, c in enumerate(self.channels):
                 z_in = z
-                z = getattr(self, f"GroupConv_{i}")(z)
+                z = getattr(self, f"{self.layer}_{i}")(z)
                 z = act_c(z) if isinstance(z, C) else act_r(z)
                 if (self.residual and 0 < i < n_layers - 1
                         and c == self.channels[i - 1]):
@@ -278,9 +303,9 @@ class LogPsiGCNN(nn.Module):
         gen = torch.Generator().manual_seed(int(seed))
         out = {}
         for i in range(len(self.channels)):
-            layer = getattr(self, f"GroupConv_{i}")
+            layer = getattr(self, f"{self.layer}_{i}")
             for name, p in sorted(layer.named_parameters()):
-                key = f"params/GroupConv_{i}/{name}"
+                key = f"params/{self.layer}_{i}/{name}"
                 if name.startswith("kernel"):
                     out[key] = (torch.randn(p.shape, generator=gen)
                                 * layer.std).to(device)
@@ -312,5 +337,4 @@ class SpinFlipSymmetrized(nn.Module):
         return cplx.logmeanexp(pair, dim=0)
 
     def init(self, seed: int, device="cpu") -> Params:
-        return {"params/inner/" + k[len("params/"):]: v
-                for k, v in self.inner.init(seed, device=device).items()}
+        return nest_params("inner", self.inner.init(seed, device=device))

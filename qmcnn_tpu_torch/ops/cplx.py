@@ -81,20 +81,20 @@ def clog(z: C) -> C:
     return C(0.5 * torch.log(z.abs2()), torch.atan2(z.im, z.re))
 
 
-def lncosh(z: C) -> C:
+def lncosh(z: C, log2: float = LOG2) -> C:
     """Stable log(cosh(z)) for a complex pair: with t = z sign(Re z),
     log cosh z = t - log 2 + log(1 + e^{-2t}) and |e^{-2t}| <= 1."""
     s = torch.where(z.re >= 0, 1.0, -1.0).to(z.re.dtype)
     tr, ti = z.re * s, z.im * s
     w = cexp(C(-2.0 * tr, -2.0 * ti))
     lg = clog(C(1.0 + w.re, w.im))
-    return C(tr - LOG2 + lg.re, ti + lg.im)
+    return C(tr - log2 + lg.re, ti + lg.im)
 
 
-def lncosh_real(x: torch.Tensor) -> torch.Tensor:
+def lncosh_real(x: torch.Tensor, log2: float = LOG2) -> torch.Tensor:
     """Stable log(cosh(x)) = |x| - log 2 + log1p(e^{-2|x|})."""
     t = torch.abs(x)
-    return t - LOG2 + torch.log1p(torch.exp(-2.0 * t))
+    return t - log2 + torch.log1p(torch.exp(-2.0 * t))
 
 
 def selu_reim(z: C) -> C:

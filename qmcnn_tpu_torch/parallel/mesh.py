@@ -175,7 +175,8 @@ def _on(tree, dev):
 def shard_train_state(state: TrainState, group: WalkerGroup) -> TrainState:
     """This rank's part of a full train state (every rank builds the same
     one, e.g. from the seed or a checkpoint): its rows of the walkers, and
-    the replicated rest, on the group's device. The walker count must
+    the replicated rest (params, optimizer state, SPRING's carry), on the
+    group's device. The walker count must
     divide over the ranks."""
     rows = group.rows(state.walkers.s.shape[0])
     w, dev = state.walkers, group.device
@@ -185,7 +186,7 @@ def shard_train_state(state: TrainState, group: WalkerGroup) -> TrainState:
         n_accept=w.n_accept[rows].to(dev), n_prop=w.n_prop[rows].to(dev))
     return TrainState(params=_on(state.params, dev),
                       opt_state=_on(state.opt_state, dev), walkers=walkers,
-                      step=state.step)
+                      step=state.step, sr_aux=_on(state.sr_aux, dev))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -20,6 +20,8 @@ for real parameters, with F the covariance gradient from
     O_im) and the centered local energies eps, the push-through identity
     gives delta = O~^T (O~ O~^T / M + shift)^-1 eps / M, the same delta as
     'dense' from a [2M, 2M] Cholesky (Rende et al., arXiv:2310.05715).
+  * ``SR.solve_spring`` — minSR with SPRING momentum: the previous step's
+    delta is the regularization point, carried by the train state.
 
 Under walker sharding (``group``, a ``parallel.mesh.WalkerGroup``) every
 mean is a mean all-reduce, at the JAX package's ``_pmean`` sites, so each
@@ -362,6 +364,10 @@ class SR:
         skips the identically-zero J_im block (bit-identical delta).
       minsr_assembly: the distributed minSR Gram's assembly, 'gather' or
         'ring' (the same delta; one rank ignores it).
+      momentum: SPRING's mu ('minsr' only; 0 = plain SR), used through
+        :meth:`solve_spring` with the previous step's delta carried in
+        ``TrainState.sr_aux`` (Goldshlager, Abrahamsen & Lin,
+        arXiv:2401.10190).
     """
 
     solver: str = "pcg"
@@ -374,6 +380,7 @@ class SR:
     jacobian_chunk: Optional[int] = None
     real_log_psi: bool = False
     minsr_assembly: str = "gather"
+    momentum: float = 0.0
 
     def __post_init__(self):
         if self.solver not in ("pcg", "cg", "dense", "minsr"):
@@ -431,3 +438,44 @@ class SR:
         resid = torch.linalg.norm(a @ x - b) / torch.clamp(
             torch.linalg.norm(b), min=1e-30)
         return unravel(x), 0, resid
+
+    def solve_spring(self, log_psi_fn, params: Params, s: torch.Tensor,
+                     grads: Params, step: int, delta_prev: torch.Tensor,
+                     e_loc=None, group=None):
+        """The SPRING update: (delta params dict, iters 0, residual, new
+        flat delta [P] to carry as ``TrainState.sr_aux``).
+
+        delta = mu delta_prev + argmin_x ||O~ x - (eps - mu O~ delta_prev)||^2
+        / M + shift ||x||^2, i.e. (S + shift) delta = F + shift mu
+        delta_prev; at mu = 0 it is :meth:`solve`'s minSR delta. The
+        residual is reported against that right-hand side. Under a walker
+        group ``delta_prev`` is the replicated carry: S (mu delta_prev) is
+        a per-rank mean followed by a mean all-reduce, and every rank gets
+        the same delta."""
+        if self.solver != "minsr":
+            raise ValueError("SPRING momentum requires solver='minsr' "
+                             f"(got {self.solver!r})")
+        if e_loc is None:
+            raise ValueError("solve_spring needs e_loc")
+        mu = self.momentum
+        shift = torch.tensor(self.diag_shift(step), dtype=torch.float32,
+                             device=s.device)
+        op = make_jacobian_s(log_psi_fn, params, s,
+                             chunk_size=self.jacobian_chunk,
+                             with_im=not self.real_log_psi, group=group)
+        if self.proportional_shift:
+            shift = shift * torch.clamp(op.diag_s.mean(), min=1e-12)
+        o, eps = _minsr_rows(op, e_loc, group)
+        b, unravel = ravel(grads)
+        with true_f32():
+            # the momentum tail t = O~ (mu delta_prev) per local row, and
+            # its projection S (mu delta_prev), reused for the residual
+            t = o @ (mu * delta_prev)
+            s_mu = _pmean((o.T @ t) / op.m_local, group)
+        x, s_x = _minsr_delta(o, eps - t, shift, op.m_local, group,
+                              self.minsr_assembly)
+        delta = x + mu * delta_prev
+        b_spring = b + shift * mu * delta_prev
+        resid = torch.linalg.norm(s_x + s_mu + shift * delta - b_spring) / \
+            torch.clamp(torch.linalg.norm(b_spring), min=1e-30)
+        return unravel(delta), 0, resid, delta

@@ -32,7 +32,7 @@ def step_split(vmc, state, n_steps: int = 3) -> dict:
     """Mean ms per step of each phase over ``n_steps`` steps after one
     warm-up step, starting from ``state`` (params, walkers, step). With a
     walker group (``vmc.group``) this rank's split, collectives included."""
-    params, walkers = state.params, state.walkers
+    params, walkers, sr_aux = state.params, state.walkers, state.sr_aux
     opt_state = vmc.optimizer.init(params)
     group = vmc.group
     m = walkers.s.shape[0]
@@ -60,7 +60,11 @@ def step_split(vmc, state, n_steps: int = 3) -> dict:
             eval_log_psi_fn=vmc.eval_log_psi_fn, group=group)
         t_grad = lap(t0) - t_eloc
         t0 = time.perf_counter()
-        if vmc.sr is not None:
+        if vmc.sr is not None and sr_aux is not None:  # SPRING
+            grads, _, _, sr_aux = vmc.sr.solve_spring(
+                vmc.log_psi_fn, params, w.s, grads, state.step, sr_aux,
+                e_loc=e_loc, group=group)
+        elif vmc.sr is not None:
             grads, _, _ = vmc.sr.solve(vmc.log_psi_fn, params, w.s, grads,
                                        state.step, e_loc=e_loc, group=group)
         t_sr = lap(t0)

@@ -3,7 +3,8 @@
 
 A checkpoint holds everything the next step reads: the params and the
 optimizer state, the walkers' configurations, their stored log psi and the
-sampler's counters, and the step counter (the per-step random key is
+sampler's counters, SPRING's carried delta (``sr_aux``), and the step
+counter (the per-step random key is
 ``fold_in(base_key, step)``, and SR's shift and the learning-rate schedule
 are functions of the step and the optimizer count). So a run resumed from a
 checkpoint continues exactly as the uninterrupted run would have.
@@ -60,6 +61,8 @@ def state_to_dict(state: TrainState, group=None) -> dict:
         "opt_state": _to(state.opt_state, lambda t: t.detach().cpu()),
         "walkers": {k: v.cpu() for k, v in walkers.items()},
         "step": int(state.step),
+        "sr_aux": (None if state.sr_aux is None
+                   else state.sr_aux.detach().cpu()),
     }
 
 
@@ -79,9 +82,20 @@ def state_from_dict(d: dict, template: TrainState) -> TrainState:
         s=w["s"].to(dev), log_psi=C(w["log_psi_re"].to(dev),
                                      w["log_psi_im"].to(dev)),
         n_accept=w["n_accept"].to(dev), n_prop=w["n_prop"].to(dev))
+    sr_aux = d.get("sr_aux")
+    if template.sr_aux is None:
+        sr_aux = None
+    elif sr_aux is None:  # saved without SPRING: its carry starts at 0
+        sr_aux = torch.zeros_like(template.sr_aux)
+    elif sr_aux.shape != template.sr_aux.shape:
+        raise ValueError(f"the checkpoint's SPRING carry has shape "
+                         f"{tuple(sr_aux.shape)}, the model "
+                         f"{tuple(template.sr_aux.shape)}")
+    else:
+        sr_aux = like(sr_aux, template.sr_aux)
     return TrainState(params=params,
                       opt_state=_to(d["opt_state"], lambda t: t.to(dev)),
-                      walkers=walkers, step=int(d["step"]))
+                      walkers=walkers, step=int(d["step"]), sr_aux=sr_aux)
 
 
 def saved_steps(directory: str) -> list:

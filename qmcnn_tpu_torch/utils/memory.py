@@ -11,7 +11,8 @@ card).
 
 Model: peak memory of a batched conv forward ~ batch x (live-layer window
 of activations), ~2 layers for a forward-only pass and ~all layers for a
-backward pass (saved activations); a GCNN's width is G-expanded, complex
+backward pass (saved activations); a GCNN's width is G-expanded (C4v or
+D6, kagome's fine torus folded in), a PhaseNet trunk adds its layers, complex
 stacks count two parts and a wider window, the spin-flip projection doubles
 the batch, and the per-sample gradients of the expanded group kernels add
 to the backward pass. The constants are the JAX package's; they have not
@@ -20,6 +21,7 @@ been recalibrated against PyTorch's allocator.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Optional
 
@@ -66,27 +68,45 @@ class ModelFootprint:
 
 
 def model_footprint(cfg, n_sites: int) -> ModelFootprint:
-    """Footprint of the CNN and the square-lattice GCNN (the models this
-    port builds), with the JAX package's constants."""
+    """Footprint of the CNN and the GCNNs (the models this port builds),
+    with the JAX package's constants: a GCNN's width is G-expanded (C4v:
+    8 on the square lattice; D6: 12 on the triangular and kagome ones, the
+    kagome width also times the 4/3 fine-torus points per site), and a
+    PhaseNet trunk adds its layers and may raise the width."""
     m = cfg.model
     channels = tuple(m.channels) or (1,)
-    gcnn = m.kind == "gcnn"
+    geometry = cfg.lattice.geometry
+    tri = geometry in ("triangular", "kagome")
+    g = (12 if tri else 8) if m.kind == "gcnn" else 1
+    width_group = g
+    if m.kind == "gcnn" and geometry == "kagome":
+        width_group = int(math.ceil(g * 4.0 / 3.0))
+    width = max(channels) * width_group
+    n_layers = len(channels)
+    if m.phase_net_channels:
+        width = max(width, max(m.phase_net_channels))
+        n_layers += len(m.phase_net_channels)
     n_parts = 2 if m.complex_params else 1
     bwd_param = 0.0
-    if gcnn:
+    if m.kind == "gcnn":
         # per-sample expanded-kernel gradients: sum over layers of
-        # G_in * G * k^2 * Cin * Cout floats (the lift layer has G_in = 1);
+        # G_in * G * taps * Cin * Cout floats (the lift layer has G_in = 1;
+        # hexagonal stars carry 1 + 3r(r + 1) taps, square kernels k^2);
         # 1.5: liveness beyond one buffer
-        taps = int(m.kernel_size or 3) ** 2
+        ksz = int(m.kernel_size or 3)
+        if tri:
+            r = max(1, (ksz - 1) // 2)
+            taps = 1 + 3 * r * (r + 1)
+        else:
+            taps = ksz * ksz
         floats, cin = 0.0, 1
         for cout in channels:
-            floats += (1 if cin == 1 else 8) * 8 * taps * cin * cout
+            floats += (1 if cin == 1 else g) * g * taps * cin * cout
             cin = cout
         bwd_param = floats * 4.0 * n_parts * 1.5
     return ModelFootprint(
-        n_sites=n_sites, max_width=max(channels) * (8 if gcnn else 1),
-        n_layers=len(channels), n_parts=n_parts,
-        sym_batch=2 if m.spin_flip_sector else 1,
+        n_sites=n_sites, max_width=width, n_layers=n_layers,
+        n_parts=n_parts, sym_batch=2 if m.spin_flip_sector else 1,
         # complex conv stacks keep four real conv outputs live per layer
         fwd_window=4.0 if m.complex_params else _FWD_WINDOW,
         bwd_param_bytes=bwd_param)

@@ -60,6 +60,9 @@ class TrainState(NamedTuple):
     opt_state: Any
     walkers: WalkerState
     step: int
+    #: SPRING's carry (sr.momentum > 0): the previous step's flat natural
+    #: gradient [P], replicated over a walker group; None when unused
+    sr_aux: Optional[torch.Tensor] = None
 
 
 class StepMetrics(NamedTuple):
@@ -111,9 +114,10 @@ class VMC:
 
     ``step(state, key, walker_ids) -> (state, metrics)``; with ``group``
     (a ``parallel.mesh.WalkerGroup``) the state holds this rank's walkers
-    and the step runs over :mod:`qmcnn_tpu_torch.parallel.mesh`. Excited-
-    state penalties, deflation, sector targeting, SPRING and EMA are later
-    slices (ROADMAP.md).
+    and the step runs over :mod:`qmcnn_tpu_torch.parallel.mesh`. With SR
+    momentum > 0 the step solves SPRING (``SR.solve_spring``), carrying
+    delta in ``TrainState.sr_aux``. Excited-state penalties, deflation,
+    sector targeting and EMA are later slices (ROADMAP.md).
     """
 
     log_psi_fn: Callable[..., C]
@@ -137,8 +141,13 @@ class VMC:
         """``rows``: keep only these of the ``n_walkers`` walkers drawn."""
         walkers = self.sampler.init_state(params, key, n_walkers,
                                           device=device, rows=rows)
+        sr_aux = None
+        if self.sr is not None and self.sr.momentum > 0:
+            leaf = next(iter(params.values()))
+            sr_aux = torch.zeros(sum(v.numel() for v in params.values()),
+                                 device=leaf.device)
         return TrainState(params=params, opt_state=self.optimizer.init(params),
-                          walkers=walkers, step=0)
+                          walkers=walkers, step=0, sr_aux=sr_aux)
 
     def step(self, state: TrainState, key: int, walker_ids: torch.Tensor,
              noise=None):
@@ -154,7 +163,12 @@ class VMC:
             group=self.group)
         sr_iters = 0
         sr_residual = torch.zeros((), device=walkers.s.device)
-        if self.sr is not None:
+        sr_aux = state.sr_aux
+        if self.sr is not None and sr_aux is not None:
+            grads, sr_iters, sr_residual, sr_aux = self.sr.solve_spring(
+                self.log_psi_fn, params, walkers.s, grads, state.step,
+                sr_aux, e_loc=e_loc, group=self.group)
+        elif self.sr is not None:
             grads, sr_iters, sr_residual = self.sr.solve(
                 self.log_psi_fn, params, walkers.s, grads, state.step,
                 e_loc=e_loc, group=self.group)
@@ -167,7 +181,8 @@ class VMC:
             grad_norm=global_norm(grads), sr_iters=sr_iters,
             sr_residual=sr_residual)
         return TrainState(params=new_params, opt_state=opt_state,
-                          walkers=walkers, step=state.step + 1), metrics
+                          walkers=walkers, step=state.step + 1,
+                          sr_aux=sr_aux), metrics
 
     def thermalize(self, state: TrainState, key: int,
                    walker_ids: torch.Tensor, n_sweeps: int) -> TrainState:

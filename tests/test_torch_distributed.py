@@ -173,6 +173,31 @@ def test_sharded_sr_matches_one_rank(sharded_runs, world, solver):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("assembly", ["gather", "ring"])
+def test_sharded_spring_matches_one_rank(sharded_runs, world, assembly):
+    """2 SPRING steps (mu 0.9) with each minSR assembly: the params and the
+    carried delta bitwise equal on every rank after every step (a rank
+    whose delta drifted by one ulp would diverge silently), and within rtol
+    2e-3 of the 1-rank run."""
+    want = sharded_runs["ref"]["spring"][assembly]
+    got = [r["spring"][assembly] for r in sharded_runs["ranks"][world]]
+    for it in range(2):
+        recs = [g[it] for g in got]
+        _replicated(recs, f"spring {assembly} step {it}")
+        for r in recs[1:]:
+            assert torch.equal(r["sr_aux"], recs[0]["sr_aux"])
+        assert torch.equal(_cat(recs), want[it]["s"])
+        _close(recs[0]["params"], want[it]["params"], 2e-3, 2e-6,
+               f"spring {assembly} step {it}")
+        scale = float(want[it]["sr_aux"].abs().max())
+        np.testing.assert_allclose(recs[0]["sr_aux"].numpy(),
+                                   want[it]["sr_aux"].numpy(), rtol=2e-3,
+                                   atol=2e-3 * scale)
+        assert recs[0]["sr_aux"].any()
+        assert np.isfinite(recs[0]["resid"]) and recs[0]["resid"] < 1e-2
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_thermalize_sharded(sharded_runs, world):
     got = [r["thermalize"] for r in sharded_runs["ranks"][world]]
     assert torch.equal(_cat(got), sharded_runs["ref"]["thermalize"]["s"])

@@ -491,10 +491,21 @@ def test_gcnn_eligibility():
     assert tb.fused_gcnn_log_psi(bf16, tb.build_lattice(bf16)
                                  ).compute_dtype == "bfloat16"
     tb.build_model(bf16, tb.build_lattice(bf16))
-    for over in (("model.jastrow=true",), ("lattice.geometry=triangular",)):
+    # the Jastrow factor and the triangular GCNN build since slice 8 (on
+    # the plain model, as checked above); the Lanczos-dressed ansatz is
+    # still refused
+    from qmcnn_tpu_torch.models.jastrow import Jastrow
+    from qmcnn_tpu_torch.models.tgcnn import LogPsiTriGCNN
+
+    for over, kind in ((("model.jastrow=true",), Jastrow),
+                       (("lattice.geometry=triangular",), LogPsiTriGCNN)):
         cfg = _gcnn_cfg(*over)
-        with pytest.raises(NotImplementedError):
-            tb.build_model(cfg, tb.build_lattice(cfg))
+        model = tb.build_model(cfg, tb.build_lattice(cfg))
+        assert isinstance(model, tg.SpinFlipSymmetrized)
+        assert isinstance(model.inner, kind), over
+    cfg = _gcnn_cfg("model.lanczos_alpha=0.1")
+    with pytest.raises(NotImplementedError):
+        tb.build_model(cfg, tb.build_lattice(cfg))
     deep = tcfg.load(os.path.join(ROOT, "configs", "j1j2_8x8_gcnn_deep.yaml"))
     assert tb.gcnn_kernel_eligible(deep)
 

@@ -142,13 +142,24 @@ def test_helpers_match_jax():
 def test_unported_options_raise(tmp_path):
     """Options of later slices raise (complex parameters, bf16 and
     checkpoints are ported since slice 5; sr.solver=cg and run.distributed
-    since slice 7)."""
-    for ov in (("model.kind=rbm",),
-               ("model.jastrow=true",), ("optimizer.ema_decay=0.9",),
-               ("model.translation_average=true",), ("sr.momentum=0.9",)):
+    since slice 7; the Jastrow factor and SPRING since slice 8, which now
+    train)."""
+    for ov in (("model.kind=rbm",), ("optimizer.ema_decay=0.9",),
+               ("model.translation_average=true",)):
         cfg = tcfg.load(HEIS, SMALL + ov)
         with pytest.raises(NotImplementedError):
             ttrain.train(cfg, device="cpu")
+    for ov in (("model.jastrow=true",),
+               ("sr.solver=minsr", "sr.momentum=0.9")):
+        cfg = tcfg.load(HEIS, SMALL + ov + ("run.n_steps=1",
+                                            "run.csv_path=null"))
+        state, logger = ttrain.train(cfg, device="cpu")
+        assert state.step == 1
+        assert np.isfinite(logger.history["energy_re"]).all()
+        assert (state.sr_aux is not None) == (cfg.sr.momentum > 0)
+    with pytest.raises(ValueError, match="requires solver='minsr'"):
+        ttrain.train(tcfg.load(HEIS, SMALL + ("sr.momentum=0.9",)),
+                     device="cpu")
 
 
 @pytest.mark.parametrize("override", ["run.checkify=true",

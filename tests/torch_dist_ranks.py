@@ -165,6 +165,25 @@ def minsr_deltas(spec, group):
     return out
 
 
+def leg_spring(group):
+    """2 SPRING steps (mu 0.9) per minSR assembly: params and the carried
+    delta after each."""
+    out = {}
+    for assembly in ("gather", "ring"):
+        sr = SR(solver="minsr", real_log_psi=True, momentum=0.9,
+                minsr_assembly=assembly, **SR_KW)
+        vmc, params = build_case("flip", sr=sr, group=group)
+        run = Runner(vmc, group)
+        state = run.init(params)
+        steps = []
+        for it in range(2):
+            state, mt = run.step(state, fold_in(prng_key(4), it))
+            steps.append(dict(record(state, mt), sr_aux=state.sr_aux.clone(),
+                              resid=float(mt.sr_residual)))
+        out[assembly] = steps
+    return out
+
+
 def leg_checkpoint(spec, group, work):
     """Restore the parent's 1-rank checkpoint on this rank; then save this
     rank's state as a checkpoint of the group."""
@@ -187,7 +206,8 @@ def run_all(spec, group, work=None) -> dict:
            "sr": {name: leg_sr(name, group) for name in SOLVERS},
            "thermalize": leg_thermalize(group),
            "run_steps": leg_run_steps(group),
-           "minsr": minsr_deltas(spec, group)}
+           "minsr": minsr_deltas(spec, group),
+           "spring": leg_spring(group)}
     if group is not None:
         out["checkpoint"] = leg_checkpoint(spec, group, work)
         try:
