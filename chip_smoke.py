@@ -75,6 +75,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 96, radius-2 star; 10 sweeps, 2 steps), printing its auto
                 chunk size; K1 and K2 launched 0 times on the prior and D6
                 legs;
+                the last ansatz families (``families_phase``): the ViT
+                snapshots in their runs' configs (4x4, 100 sweeps and 10
+                steps, within 0.01/site of -0.528248 and 1e-2 of the
+                port's ED; 8x8, 100 sweeps and 4 steps, within 0.01/site of
+                -0.497066, |E_im| under 3 binned stderr), the kagome ARNN
+                snapshot with the direct sampler (4 steps, within 0.01/site
+                of -0.390776, acceptance exactly 1), tfim16_arnn and
+                j1j2_4x4_arnn (PixelCNN, S^z = 0) fresh with Sum |psi|^2
+                over all 65,536 / 12,870 configurations within 1e-4 of 1
+                and one step's sampled energy within 4 stderr of the
+                enumerated one, heis40_arnn (5 steps, every sample at
+                S^z = 0), both ViT configs fresh (2 steps), an RBM, a
+                translation- and point-group-averaged CNN and an XYZ chain
+                (a few steps, finite energies); K1 and K2 0 on every leg;
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -103,8 +117,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 depth-12 fixture beside its plain version, its bf16
                 tensor-core bound and K2's f32 route at the same shapes, and
                 the per-phase split of a training step of each path
-                (``qmcnn_tpu_torch.step_timing``), the SPRING, tri6x6_tgcnn
-                and kagome3x3_kgcnn legs included;
+                (``qmcnn_tpu_torch.step_timing``), the SPRING, tri6x6_tgcnn,
+                kagome3x3_kgcnn, ViT 8x8, kagome ARNN and heis40_arnn legs
+                included (the direct sampler's ms per site beside the
+                ARNNs');
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
                 K2's bf16 route with the SPRING leg's launches beside the
                 plain leg's; the sharded phase printed its own
@@ -185,6 +201,19 @@ E_SITE_KGCNN = -0.39368
 PHASENET_META = ROOT / "runs" / "kagome3x3_r3_phasenet.csv.meta.json"
 PHASENET_FIXTURE = ROOT / "runs" / "kagome3x3_r3_phasenet.csv.params.npz"
 E_SITE_PHASENET = -0.42255
+#: E/site: the ViT snapshots (4x4 on the patch torus 2x2, 6 blocks x 48; 8x8
+#: on 4x4, 8 blocks x 64) and the kagome ARNN (MADE 3 x 256, complex, the
+#: sqrt3 phase prior, the direct sampler) — each JAX run's
+#: final_energy_tail / N (their meta.json)
+VIT4_META = ROOT / "runs" / "j1j2_4x4_vit_cap.csv.meta.json"
+VIT4_FIXTURE = ROOT / "runs" / "j1j2_4x4_vit_cap.csv.params.npz"
+E_SITE_VIT4 = -0.528248
+VIT8_META = ROOT / "runs" / "j1j2_8x8_vit_cap.csv.meta.json"
+VIT8_FIXTURE = ROOT / "runs" / "j1j2_8x8_vit_cap.csv.params.npz"
+E_SITE_VIT8 = -0.497066
+KARNN_META = ROOT / "runs" / "kagome3x3_r3_arnn.csv.meta.json"
+KARNN_FIXTURE = ROOT / "runs" / "kagome3x3_r3_arnn.csv.params.npz"
+E_SITE_KARNN = -0.390776
 
 
 def check(cond, msg: str) -> None:
@@ -430,7 +459,7 @@ def step_split(cfg, state, card: str, label: str) -> dict:
     totals = split(vmc, state, 3)
     parts = ", ".join(f"{k} {v:.2f}" for k, v in totals.items())
     print(f"  {label} step ({card}): {sum(totals.values()):.2f} ms = "
-          f"{parts} ms (SR {vmc.sr.solver})")
+          f"{parts} ms (SR {vmc.sr.solver if vmc.sr else 'off'})")
     return totals
 
 
@@ -1291,6 +1320,153 @@ def frustrated_phase(out_dir: Path) -> dict:
     return {"spring": spring, "tgcnn": (cfg, state), "kgcnn": kg[:2]}
 
 
+def all_configs(n: int, sz0: bool, device):
+    """Every configuration of n spins [2^n, n] in {-1, +1} on ``device``,
+    or only those with S^z = 0."""
+    import torch
+
+    idx = torch.arange(2 ** n, device=device)[:, None]
+    bits = (idx >> torch.arange(n - 1, -1, -1, device=device)) & 1
+    s = (2.0 * bits - 1.0).to(torch.float32)
+    return s[s.sum(-1) == 0] if sz0 else s
+
+
+def exact_sampling_leg(label: str, config: str, n_configs: int) -> None:
+    """A fresh ARNN config on the card: Sum_s |psi(s)|^2 over every
+    configuration (of its sector) equals 1 within 1e-4, and the sampled
+    mean energy of one training step (vmc.step, the direct sampler's
+    walkers) lies within 4 stderr of Sum_s |psi(s)|^2 E_loc(s); K1 and K2
+    launched 0 times."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
+
+    cfg = configs.load(str(ROOT / "configs" / config))
+    vmc, params, lattice = build(cfg, device="cuda")
+    m = cfg.sampler.n_walkers
+    reset_counts()
+    t0 = time.perf_counter()
+    s = all_configs(lattice.n_sites, vmc.sampler.sz_zero, "cuda")
+    check(s.shape[0] == n_configs, f"{label}: {s.shape[0]} configurations")
+    with torch.no_grad():
+        lp = vmc.log_psi_fn(params, s)
+        prob = torch.exp(2.0 * lp.re.double())
+        norm = float(prob.sum())
+        e_loc = local_energy(vmc.log_psi_fn, params, vmc.ham, s, lp)
+        e_exact = float((prob * e_loc.re.double()).sum() / norm)
+    key = prng_key(cfg.run.seed + 100)
+    state = vmc.init_state(fold_in(key, 0), m, params, device="cuda")
+    state, mt = vmc.step(state, fold_in(key, 2),
+                         torch.arange(m, device="cuda"))
+    n = counts()
+    e_step = float(mt.energy_re)
+    err = float(np.sqrt(float(mt.energy_var) / m))
+    print(f"    {label} (fresh, {n_configs} configurations): "
+          f"{time.perf_counter() - t0:.1f} s, Sum |psi|^2 = {norm:.7f}, "
+          f"exact <E> {e_exact:.5f}, one step's sampled mean {e_step:.5f} "
+          f"+- {err:.5f}, accept {float(mt.accept_rate)}, launches {n}")
+    check(abs(norm - 1.0) < 1e-4, f"{label}: Sum |psi|^2 = {norm}")
+    check(abs(e_step - e_exact) < 4 * err,
+          f"{label}: sampled <E> {e_step} not within 4 stderr of {e_exact}")
+    check(float(mt.accept_rate) == 1.0, f"{label}: acceptance != 1")
+    check(sum(n.values()) == 0, f"{label}: launched a kernel {n}")
+
+
+def small_leg(label: str, config: str, over: tuple, out_dir: Path):
+    """A few steps of a config with overrides through train(): finite
+    energies, K1 and K2 launched 0 times. Returns (config, state,
+    logger)."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+
+    cfg = configs.load(str(ROOT / "configs" / config), over + (
+        "run.log_every=1", f"run.csv_path={out_dir / (label + '.csv')}"))
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logger, _ = train_quiet(cfg)
+    n = counts()
+    e = np.asarray(logger.history["energy_re"])
+    print(f"    {label}: {time.perf_counter() - t0:.1f} s, E/site "
+          f"{[round(float(v) / state.walkers.s.shape[1], 5) for v in e]}, "
+          f"accept {logger.history['accept']}, launches {n}")
+    check(np.isfinite(e).all(), f"{label}: non-finite energies")
+    check(sum(n.values()) == 0, f"{label}: launched a kernel {n}")
+    return cfg, state, logger
+
+
+def families_phase(out_dir: Path) -> dict:
+    """The last ansatz families and the XYZ model: the ViT snapshots (4x4
+    against the port's ED, 8x8), the kagome ARNN snapshot with the direct
+    sampler, exact sampling checked by enumeration (tfim16_arnn, and
+    j1j2_4x4_arnn in its S^z = 0 sector), heis40_arnn in its sector, both
+    ViT configs from a fresh init, an RBM, a translation- and point-group-
+    averaged CNN and an XYZ chain; K1 and K2 launched 0 times on every
+    leg. Returns the configs and states for the step splits."""
+    import torch
+    from qmcnn_tpu_torch.builder import resolve_move
+    from qmcnn_tpu_torch.train import exact_reference_energy
+
+    vit4_cfg, _, tail = fixture_leg(
+        "j1j2_4x4_vit_cap", VIT4_META, VIT4_FIXTURE, E_SITE_VIT4, out_dir,
+        ("sampler.n_therm_sweeps=100", "run.n_steps=10"))
+    e_exact = exact_reference_energy(vit4_cfg)
+    rel = abs(tail - e_exact) / abs(e_exact)
+    print(f"    j1j2_4x4_vit_cap vs the port's ED {e_exact:.6f}: relative "
+          f"error {rel:.3e}")
+    check(rel < 1e-2, f"j1j2_4x4_vit_cap: relative error {rel} vs ED")
+    vit8 = fixture_leg("j1j2_8x8_vit_cap", VIT8_META, VIT8_FIXTURE,
+                       E_SITE_VIT8, out_dir,
+                       ("sampler.n_therm_sweeps=100", "run.n_steps=4"))
+    karnn = fixture_leg("kagome3x3_r3_arnn", KARNN_META, KARNN_FIXTURE,
+                        E_SITE_KARNN, out_dir, ("run.n_steps=4",))
+    check(karnn[1].walkers.n_accept.sum() == karnn[1].walkers.n_prop.sum(),
+          "kagome3x3_r3_arnn: acceptance != 1")
+
+    exact_sampling_leg("tfim16_arnn", "tfim16_arnn.yaml", 2 ** 16)
+    exact_sampling_leg("j1j2_4x4_arnn", "j1j2_4x4_arnn.yaml", 12870)
+
+    heis = small_leg("heis40_arnn", "heis40_arnn.yaml", ("run.n_steps=5",),
+                     out_dir)
+    s = heis[1].walkers.s
+    check(bool((s.sum(-1) == 0).all()) and set(s.unique().tolist())
+          == {-1.0, 1.0}, "heis40_arnn: a sample left S^z = 0")
+    check(heis[2].history["accept"] == [1.0] * 5,
+          "heis40_arnn: acceptance != 1")
+
+    for config in ("j1j2_4x4_vit", "j1j2_8x8_vit"):
+        small_leg(config, f"{config}.yaml",
+                  ("sampler.n_therm_sweeps=10", "run.n_steps=2"), out_dir)
+    small = ("lattice.shape=[4,4]", "model.channels=[4,4]",
+             "sampler.n_walkers=256", "sampler.n_therm_sweeps=5",
+             "run.n_steps=3")
+    small_leg("rbm_4x4", "heis10x10_sr.yaml", small + (
+        "model.kind=rbm", "model.complex_params=true"), out_dir)
+    small_leg("cnn_4x4_averaged", "heis10x10_sr.yaml", small + (
+        "model.translation_average=true", "model.point_group_average=true"),
+        out_dir)
+    cfg, state, _ = small_leg("xyz16", "tfim16_sgd.yaml", (
+        "hamiltonian.kind=xyz", "hamiltonian.jx=1.0", "hamiltonian.jy=0.5",
+        "hamiltonian.jz=0.8", "hamiltonian.hx=0.3",
+        "model.complex_params=true", "run.n_steps=5",
+        "run.validate_against_ed=true"), out_dir)
+    check(resolve_move(cfg) == "flip" and state.walkers.s.shape[1] == 16,
+          "xyz16: not the flip-move chain")
+    torch.cuda.synchronize()
+    return {"vit8": vit8[:2], "karnn": karnn[:2], "heis40": heis[:2]}
+
+
+def direct_split(cfg, state, card: str, label: str) -> None:
+    """step_split of a direct-sampler run, with the sampler's ms per
+    site."""
+    totals = step_split(cfg, state, card, label)
+    n = state.walkers.s.shape[1]
+    print(f"  {label}: direct sampler {totals['sample'] / n:.3f} ms per "
+          f"site ({n} sites, M={state.walkers.s.shape[0]}; {card})")
+
+
 def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
     """K2's bf16 route, its plain bf16 version and K2's f32 route at one
     shape: ms per call, and the bf16 bound (the least FLOP at the dense bf16
@@ -1911,6 +2087,12 @@ def main() -> int:
     t0 = time.perf_counter()
     frustrated = frustrated_phase(out_dir)
     print(f"    frustrated phase {time.perf_counter() - t0:.1f} s")
+    print("[4] the last ansatz families: the ViT and kagome ARNN snapshots, "
+          "exact sampling by enumeration, heis40_arnn, fresh ViTs, an RBM, "
+          "an averaged CNN and an XYZ chain", flush=True)
+    t0 = time.perf_counter()
+    families = families_phase(out_dir)
+    print(f"    families phase {time.perf_counter() - t0:.1f} s")
     print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
           "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
           "with pcg and cg), then torchrun with NCCL", flush=True)
@@ -1954,6 +2136,9 @@ def main() -> int:
                card, "j1j2_8x8_gcnn_r2 with SPRING")
     step_split(*frustrated["tgcnn"], card, "tri6x6_tgcnn")
     step_split(*frustrated["kgcnn"], card, "kagome3x3_kgcnn")
+    step_split(*families["vit8"], card, "j1j2_8x8_vit_cap")
+    direct_split(*families["karnn"], card, "kagome3x3_r3_arnn")
+    direct_split(*families["heis40"], card, "heis40_arnn")
 
     # 6. report
     rec = {

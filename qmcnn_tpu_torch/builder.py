@@ -1,6 +1,9 @@
-"""Config -> framework objects (port of ``qmcnn_tpu/builder.py``: the CNN,
-the square, triangular and kagome GCNNs, their phase priors, Jastrow
-factors and PhaseNet wrappers, and SR with SPRING).
+"""Config -> framework objects (port of ``qmcnn_tpu/builder.py``: every
+model kind of the JAX package — the CNN with its translation and
+point-group averaging, the square, triangular and kagome GCNNs, the RBM,
+the ViT and the autoregressive ARNN with its direct sampler — their phase
+priors, Jastrow factors and PhaseNet wrappers, every Hamiltonian, and SR
+with SPRING).
 
 ``build(cfg, device)`` wires lattice, ansatz, Hamiltonian, sampler,
 optimizer and (optionally) SR into a :class:`qmcnn_tpu_torch.vmc.VMC`;
@@ -23,14 +26,19 @@ import torch
 
 from qmcnn_tpu_torch.configs import Config
 from qmcnn_tpu_torch.lattice import Lattice
-from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply
+from qmcnn_tpu_torch.models.arnn import LogPsiARNN, conditional_fn
+from qmcnn_tpu_torch.models.cnn import (LogPsiCNN, PointGroupAveraged,
+                                        TranslationAveraged, log_psi_apply)
 from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
-from qmcnn_tpu_torch.models.jastrow import wrap_jastrow
+from qmcnn_tpu_torch.models.jastrow import Jastrow, wrap_jastrow
 from qmcnn_tpu_torch.models.kgcnn import LogPsiKagomeGCNN
 from qmcnn_tpu_torch.models.phase import PhaseBias, phase_half_angles
 from qmcnn_tpu_torch.models.phasenet import wrap_phase_net
+from qmcnn_tpu_torch.models.rbm import LogPsiRBM
 from qmcnn_tpu_torch.models.tgcnn import LogPsiTriGCNN
-from qmcnn_tpu_torch.ops.hamiltonians import TFIM, Heisenberg
+from qmcnn_tpu_torch.models.vit import LogPsiViT
+from qmcnn_tpu_torch.ops.hamiltonians import TFIM, XYZ, Heisenberg
+from qmcnn_tpu_torch.sampler.direct import DirectSampler
 from qmcnn_tpu_torch.sampler.metropolis import MetropolisSampler
 from qmcnn_tpu_torch.sr import SR
 from qmcnn_tpu_torch.vmc import VMC, global_norm
@@ -51,13 +59,11 @@ def build_hamiltonian(cfg: Config, lattice: Lattice):
         return Heisenberg(lattice, j=h.j, j2=h.j2, marshall=h.marshall,
                           delta=h.delta)
     if h.kind == "xyz":
-        raise NotImplementedError("hamiltonian kind 'xyz' is not ported yet "
-                                  "(ROADMAP.md)")
+        return XYZ(lattice, jx=h.jx, jy=h.jy, jz=h.jz, hx=h.hx, hz=h.hz,
+                   marshall=h.marshall)
     raise ValueError(f"unknown hamiltonian kind {h.kind!r}")
 
 
-_LATER_SLICE = ("translation_average", "point_group_average",
-                "lanczos_alpha")
 _PRIORS = ("phase_bias", "jastrow", "jastrow_phase", "phase_net_channels")
 
 
@@ -66,61 +72,173 @@ def _set(value) -> bool:
 
 
 def build_model(cfg: Config, lattice: Lattice):
-    """The CNN or the GCNN (C4v on the square lattice, D6 on the
-    triangular and kagome ones), with its phase priors, Jastrow factor and
-    PhaseNet, optionally spin-flip projected; other kinds and wrappers raise
-    (later slices of the port, ROADMAP.md)."""
+    """Every model kind of the JAX package with the JAX guards, wrapping
+    order and parameter names: the CNN (optionally translation- and
+    point-group-averaged), the GCNN (C4v on the square lattice, D6 on the
+    triangular and kagome ones), the RBM and the ViT, each with its phase
+    priors, Jastrow factor and PhaseNet and optionally spin-flip projected,
+    and the ARNN with its phase prior baked in (a pure-phase Jastrow factor
+    may wrap it). ``model.lanczos_alpha`` raises (a later slice,
+    ROADMAP.md)."""
     m = cfg.model
-    if m.kind not in ("cnn", "gcnn"):
-        raise NotImplementedError(f"model.kind={m.kind!r} is not ported yet "
-                                  "(ROADMAP.md); only 'cnn' and 'gcnn'")
+    if _set(m.lanczos_alpha):
+        raise NotImplementedError("model.lanczos_alpha is not ported yet "
+                                  "(ROADMAP.md)")
+    if m.translation_average and not lattice.pbc:
+        raise ValueError("translation averaging requires periodic boundaries")
+    if lattice.basis > 1:
+        # honeycomb (2-site basis): only cell translations are symmetries
+        for flag, name in ((m.translation_average, "translation_average"),
+                           (m.point_group_average, "point_group_average")):
+            if flag:
+                raise ValueError(
+                    f"model.{name} rolls the flat site grid — not a "
+                    f"symmetry of geometry={lattice.geometry!r}; the CNN's "
+                    f"spatial-sum readout already gives exact cell-"
+                    f"translation invariance")
+        if m.kind == "rbm" and m.rbm_tie_translations:
+            raise ValueError("rbm_tie_translations ties per-site shifts — "
+                             f"not a symmetry of {lattice.geometry!r}; use "
+                             "rbm_tie_translations: false")
+        if m.kind == "arnn" and m.arnn_conv_kernel:
+            raise ValueError("the PixelCNN ARNN trunk rasterizes a 1-site-"
+                             f"basis grid; {lattice.geometry!r} needs the "
+                             "MADE trunk (arnn_conv_kernel: 0)")
     if m.momentum and any(m.momentum):
-        raise ValueError("model.momentum requires translation_average: true "
-                         "on the cnn ansatz")
-    if m.kind == "gcnn":
-        if len(lattice.shape) != 2 or not lattice.pbc:
-            raise ValueError("gcnn needs a periodic 2D lattice")
-        if m.translation_average or m.point_group_average:
-            raise ValueError("gcnn is already fully space-group symmetric; "
-                             "drop translation/point_group averaging")
-        if lattice.geometry not in ("hypercubic", "triangular", "kagome"):
-            raise ValueError("gcnn is point-group equivariant for square "
-                             "(C4v), triangular (D6) and kagome (D6 via "
-                             "the depleted-triangular embedding) lattices "
-                             f"only — not geometry={lattice.geometry!r}")
-    for name in _LATER_SLICE:
-        if _set(getattr(m, name)):
-            raise NotImplementedError(f"model.{name} is not ported yet "
-                                      "(ROADMAP.md)")
-    if m.kind == "gcnn" and lattice.geometry != "hypercubic":
-        # kernel_size names the enclosing grid: 3 -> the radius-1 star of
-        # 7 taps, 5 -> the radius-2 star of 19 taps
-        kw = dict(channels=tuple(m.channels),
-                  radius=max((m.kernel_size - 1) // 2, 1),
-                  complex_params=m.complex_params,
-                  param_scale=m.param_scale, character=m.gcnn_character,
-                  init_mode=m.init_mode, activation=m.activation,
-                  residual=m.residual, compute_dtype=m.compute_dtype)
-        if lattice.geometry == "kagome":
-            inner = LogPsiKagomeGCNN(cell_shape=tuple(lattice.shape), **kw)
-        else:
-            inner = LogPsiTriGCNN(lattice_shape=tuple(lattice.shape), **kw)
-    elif m.kind == "gcnn":
-        inner = LogPsiGCNN(
-            lattice_shape=tuple(lattice.shape),
-            channels=tuple(m.channels),
-            kernel_size=m.kernel_size,
+        if m.kind != "cnn":
+            raise ValueError(
+                f"model.momentum is only supported by the cnn ansatz via "
+                f"translation averaging (got kind={m.kind!r})")
+        if not m.translation_average:
+            raise ValueError("model.momentum requires translation_average: "
+                             "true (the sector is defined by the projection)")
+    if m.kind == "rbm":
+        if m.rbm_tie_translations and not lattice.pbc:
+            raise ValueError("tied-RBM weights require periodic boundaries")
+        return _maybe_spin_flip(_maybe_priors(LogPsiRBM(
+            lattice_shape=tuple(lattice.shape), alpha=m.rbm_alpha,
             complex_params=m.complex_params,
-            param_scale=m.param_scale,
-            character=m.gcnn_character,
-            init_mode=m.init_mode,
-            activation=m.activation,
-            residual=m.residual,
-            compute_dtype=m.compute_dtype,
-        )
-    else:
-        inner = _cnn(m, lattice)
-    return _maybe_spin_flip(_maybe_priors(inner, m, lattice), m)
+            tie_translations=m.rbm_tie_translations,
+            param_scale=m.param_scale), m, lattice), m)
+    if m.kind == "arnn":
+        return _arnn(cfg, lattice)
+    if m.kind == "gcnn":
+        return _maybe_spin_flip(_maybe_priors(_gcnn(m, lattice), m, lattice),
+                                m)
+    if m.kind == "vit":
+        if not lattice.pbc:
+            raise ValueError("vit projects translations by rolling the "
+                             "grid — periodic boundaries required")
+        if lattice.geometry != "hypercubic" or lattice.basis > 1:
+            raise ValueError("vit patchifies the hypercubic site grid; "
+                             f"geometry={lattice.geometry!r} is not "
+                             "supported")
+        if m.translation_average:
+            raise ValueError("vit is already exactly translation invariant "
+                             "(relpos attention + sub-patch projection); "
+                             "drop translation_average")
+        inner = _maybe_priors(LogPsiViT(
+            lattice_shape=tuple(lattice.shape), channels=tuple(m.channels),
+            patch=m.vit_patch, n_heads=m.vit_heads,
+            mlp_ratio=m.vit_mlp_ratio, factored=m.vit_factored,
+            complex_params=m.complex_params, param_scale=m.param_scale,
+            compute_dtype=m.compute_dtype), m, lattice)
+        if m.point_group_average:
+            if len(lattice.shape) != 2:
+                raise ValueError("point_group_average needs a 2D lattice")
+            inner = PointGroupAveraged(inner, tuple(lattice.shape))
+        return _maybe_spin_flip(inner, m)
+    if m.kind != "cnn":
+        raise ValueError(f"unknown model kind {m.kind!r}")
+    inner = _maybe_priors(_cnn(m, lattice), m, lattice)
+    if m.translation_average:
+        inner = TranslationAveraged(inner, tuple(lattice.shape),
+                                    shift_stride=m.shift_stride,
+                                    momentum=tuple(m.momentum or ()))
+    if m.point_group_average:
+        if len(lattice.shape) != 2 or not lattice.pbc:
+            raise ValueError("point_group_average needs a periodic 2D "
+                             "lattice")
+        if lattice.geometry != "hypercubic":
+            raise ValueError("point_group_average applies the square C4v "
+                             "group — not a symmetry of "
+                             f"geometry={lattice.geometry!r}")
+        inner = PointGroupAveraged(inner, tuple(lattice.shape))
+    return _maybe_spin_flip(inner, m)
+
+
+def _gcnn(m, lattice: Lattice):
+    if len(lattice.shape) != 2 or not lattice.pbc:
+        raise ValueError("gcnn needs a periodic 2D lattice")
+    if lattice.geometry not in ("hypercubic", "triangular", "kagome"):
+        raise ValueError("gcnn is point-group equivariant for square "
+                         "(C4v), triangular (D6) and kagome (D6 via "
+                         "the depleted-triangular embedding) lattices "
+                         f"only — not geometry={lattice.geometry!r}")
+    if m.translation_average or m.point_group_average:
+        raise ValueError("gcnn is already fully space-group symmetric; "
+                         "drop translation/point_group averaging")
+    kw = dict(channels=tuple(m.channels), complex_params=m.complex_params,
+              param_scale=m.param_scale, character=m.gcnn_character,
+              init_mode=m.init_mode, activation=m.activation,
+              residual=m.residual, compute_dtype=m.compute_dtype)
+    if lattice.geometry == "hypercubic":
+        return LogPsiGCNN(lattice_shape=tuple(lattice.shape),
+                          kernel_size=m.kernel_size, **kw)
+    # kernel_size names the enclosing grid: 3 -> the radius-1 star of 7
+    # taps, 5 -> the radius-2 star of 19 taps
+    radius = max((m.kernel_size - 1) // 2, 1)
+    if lattice.geometry == "kagome":
+        return LogPsiKagomeGCNN(cell_shape=tuple(lattice.shape),
+                                radius=radius, **kw)
+    return LogPsiTriGCNN(lattice_shape=tuple(lattice.shape), radius=radius,
+                         **kw)
+
+
+def _arnn(cfg: Config, lattice: Lattice):
+    """The ARNN with the JAX guards: no averaging, spin-flip projection,
+    Jastrow amplitude or PhaseNet (each breaks exact sampling or the
+    conditional contract); the phase prior is baked into its phase, and a
+    pure-phase Jastrow factor may wrap it."""
+    m = cfg.model
+    for flag, name in ((m.translation_average, "translation_average"),
+                       (m.point_group_average, "point_group_average"),
+                       (m.spin_flip_sector, "spin_flip_sector")):
+        if flag:
+            raise ValueError(
+                f"model.{name} is incompatible with the autoregressive "
+                f"ansatz: symmetrized sums of normalized amplitudes are "
+                f"no longer normalized, which breaks exact sampling")
+    if m.jastrow:
+        raise ValueError(
+            "model.jastrow is incompatible with the autoregressive "
+            "ansatz: a configuration-dependent amplitude factor breaks "
+            "the exact-sampling normalization (jastrow_phase — a pure "
+            "phase, |psi| untouched — composes fine)")
+    if m.phase_net_channels:
+        raise ValueError(
+            "model.phase_net_channels is not wired for the "
+            "autoregressive ansatz (it already has per-site phase "
+            "heads; the CNN-trunk wrapper cannot forward the exact-"
+            "sampling conditional contract)")
+    sz_zero = resolve_arnn_sector(cfg)
+    if sz_zero and lattice.n_sites % 2:
+        raise ValueError("sz0 sector needs an even number of sites")
+    if m.arnn_conv_kernel and len(lattice.shape) != 2:
+        raise ValueError("arnn_conv_kernel (PixelCNN trunk) needs a 2D "
+                         "lattice; chains use the MADE trunk (0)")
+    half = phase_half_angles(m.phase_bias, lattice) if m.phase_bias else None
+    arnn = LogPsiARNN(
+        n_sites=lattice.n_sites, hidden=tuple(m.channels),
+        complex_params=m.complex_params, sz_zero=sz_zero,
+        param_scale=m.param_scale,
+        # the ARNN's default activation stands in for the CNN's default
+        activation=m.activation if m.activation != "lncosh" else "selu",
+        conv_kernel=m.arnn_conv_kernel, lattice_shape=tuple(lattice.shape),
+        phase_half_angles=half)
+    if m.jastrow_phase:
+        return wrap_jastrow(arnn, lattice, amplitude=False, phase=True)
+    return arnn
 
 
 def _maybe_priors(inner, m, lattice: Lattice):
@@ -335,12 +453,51 @@ def build_sr(cfg: Config, lattice=None, ham=None,
     )
 
 
+def resolve_arnn_sector(cfg: Config) -> bool:
+    """True iff the ARNN conditionals bake in the S^z = 0 sector."""
+    sec = cfg.model.arnn_sector
+    if sec == "auto":
+        return cfg.hamiltonian.kind in ("heisenberg", "j1j2")
+    if sec == "sz0":
+        return True
+    if sec == "none":
+        return False
+    raise ValueError(f"unknown model.arnn_sector {sec!r}")
+
+
+def resolve_sampler_kind(cfg: Config) -> str:
+    """'direct' (exact ancestral sampling, the ARNN only) or
+    'metropolis'; 'auto' takes direct for the ARNN."""
+    k = cfg.sampler.kind
+    if k == "auto":
+        return "direct" if cfg.model.kind == "arnn" else "metropolis"
+    if k == "direct" and cfg.model.kind != "arnn":
+        raise ValueError("sampler.kind='direct' requires the autoregressive "
+                         "ansatz (model.kind='arnn'); other models are not "
+                         "normalized and cannot be sampled ancestrally")
+    if k not in ("metropolis", "direct"):
+        raise ValueError(f"unknown sampler.kind {k!r}")
+    return k
+
+
 def resolve_move(cfg: Config) -> str:
+    """The Metropolis move: 'auto' flips spins for TFIM and for an XYZ
+    model that breaks S^z, and exchanges them otherwise; exchange moves on
+    such an XYZ model raise (they would freeze the chain in one sector)."""
     h = cfg.hamiltonian
+    xyz_conserves_sz = h.jx == h.jy and h.hx == 0.0
     if cfg.sampler.move != "auto":
+        if (h.kind == "xyz" and not xyz_conserves_sz
+                and cfg.sampler.move.startswith("exchange")):
+            raise ValueError(
+                "xyz with jx != jy or hx != 0 does not conserve S^z; "
+                "exchange moves would freeze the sampler in one sector — "
+                "use sampler.move: flip (or auto)")
         return cfg.sampler.move
     if h.kind == "tfim":
         return "flip"
+    if h.kind == "xyz":
+        return "exchange" if xyz_conserves_sz else "flip"
     return "exchange"
 
 
@@ -469,9 +626,11 @@ def build(cfg: Config, device="cuda", group=None
     ``group`` the VMC's means all-reduce over its ranks, and the memory
     estimates count this rank's walkers."""
     world = 1 if group is None else group.world_size
-    if cfg.sampler.kind not in ("auto", "metropolis"):
-        raise NotImplementedError(f"sampler.kind={cfg.sampler.kind!r} is "
-                                  "not ported yet (ROADMAP.md)")
+    direct = resolve_sampler_kind(cfg) == "direct"
+    if direct and cfg.sampler.tempering_betas is not None:
+        raise ValueError("tempering_betas is a Metropolis mixing aid — "
+                         "exact ancestral sampling draws i.i.d. "
+                         "samples and needs no tempering")
     if cfg.sampler.tempering_betas is not None:
         raise NotImplementedError("sampler.tempering_betas is not ported "
                                   "yet (ROADMAP.md)")
@@ -489,7 +648,6 @@ def build(cfg: Config, device="cuda", group=None
         return log_psi_apply(model, params, s)
 
     params = model.init(cfg.run.seed, device=device)
-    move = resolve_move(cfg)
     eval_log_psi_fn = log_psi_fn
     if uses_fused_gcnn_forward(cfg, device):
         eval_log_psi_fn = fused_gcnn_log_psi(cfg, lattice)
@@ -497,15 +655,28 @@ def build(cfg: Config, device="cuda", group=None
         from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
 
         eval_log_psi_fn = FusedCNNLogPsi(lattice_shape=tuple(lattice.shape))
-    sampler = MetropolisSampler(
-        eval_log_psi_fn,
-        n_sites=lattice.n_sites,
-        move=move,
-        bonds=lattice.nn_bonds if move.startswith("exchange") else None,
-        sweep_size=cfg.sampler.sweep_size,
-        backend=resolve_sampler_backend(cfg, device),
-        lattice_shape=tuple(lattice.shape),
-    )
+    if direct:
+        # a pure-phase Jastrow factor leaves |psi|^2 alone: the sampler
+        # draws from the inner ARNN's conditionals (its params under
+        # inner/), while log psi stays the wrapped model's
+        if isinstance(model, Jastrow):
+            cond_fn = conditional_fn(model.inner, prefix="params/inner/")
+        else:
+            cond_fn = conditional_fn(model)
+        sampler = DirectSampler(log_psi_fn, cond_fn,
+                                n_sites=lattice.n_sites,
+                                sz_zero=resolve_arnn_sector(cfg))
+    else:
+        move = resolve_move(cfg)
+        sampler = MetropolisSampler(
+            eval_log_psi_fn,
+            n_sites=lattice.n_sites,
+            move=move,
+            bonds=lattice.nn_bonds if move.startswith("exchange") else None,
+            sweep_size=cfg.sampler.sweep_size,
+            backend=resolve_sampler_backend(cfg, device),
+            lattice_shape=tuple(lattice.shape),
+        )
     n_params = sum(v.numel() for v in params.values())
     chunk_size = cfg.run.chunk_size
     if chunk_size is None:

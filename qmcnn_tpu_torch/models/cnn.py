@@ -1,4 +1,5 @@
-"""CNN log-amplitude ansatz log psi_theta(s), real and complex (port of
+"""CNN log-amplitude ansatz log psi_theta(s), real and complex, and the
+translation and point-group averaging wrappers (port of
 ``qmcnn_tpu/models/cnn.py``).
 
 Stacked circular convolutions matching the lattice PBC, lncosh or selu
@@ -309,6 +310,81 @@ class LogPsiCNN(nn.Module):
                 else:
                     out[key] = torch.zeros(p.shape, device=device)
         return out
+
+
+class TranslationAveraged(nn.Module):
+    """Projection onto a momentum sector by explicit translation averaging:
+    log psi_k(s) = logmeanexp_a [log psi(T_a s) + i k.a] over the shifts a
+    of the lattice grid, every ``shift_stride``-th along each dimension.
+    ``momentum`` gives integer wavenumbers m_d (k_d = 2 pi m_d / L_d); ()
+    is the zero-momentum sector. One inner forward per shift; the inner
+    model's parameters nest under ``inner/``."""
+
+    def __init__(self, inner: nn.Module, lattice_shape: Tuple[int, ...],
+                 shift_stride: int = 1, momentum: Tuple[int, ...] = ()):
+        super().__init__()
+        self.inner = inner
+        self.lattice_shape = tuple(lattice_shape)
+        self.shifts = list(itertools.product(
+            *[range(0, n, shift_stride) for n in self.lattice_shape]))
+        self.phases = None
+        if momentum and any(momentum):
+            if len(momentum) != len(self.lattice_shape):
+                raise ValueError("momentum needs one wavenumber per "
+                                 "lattice dimension")
+            k = [2.0 * np.pi * m / n
+                 for m, n in zip(momentum, self.lattice_shape)]
+            self.phases = torch.tensor(np.asarray(
+                [sum(kd * ad for kd, ad in zip(k, shift))
+                 for shift in self.shifts], dtype=np.float32))
+
+    def forward(self, s: torch.Tensor) -> C:
+        batch = s.shape[0]
+        grid = s.reshape(batch, *self.lattice_shape)
+        dims = tuple(range(1, 1 + len(self.lattice_shape)))
+        stacked = torch.stack([torch.roll(grid, sh, dims=dims)
+                               .reshape(batch, -1) for sh in self.shifts])
+        t = stacked.shape[0]
+        logs = cplx.as_c(self.inner(stacked.reshape(t * batch, -1)))
+        logs = logs.reshape(t, batch)
+        if self.phases is not None:
+            logs = C(logs.re, logs.im + self.phases.to(s.device)[:, None])
+        return cplx.logmeanexp(logs, dim=0)
+
+    def init(self, seed: int, device="cpu") -> Params:
+        return nest_params("inner", self.inner.init(seed, device=device))
+
+
+class PointGroupAveraged(nn.Module):
+    """Projection onto the trivial representation of the square lattice's
+    point group: log psi = logmeanexp_g log psi(g s) over the 8 elements of
+    C4v (rot90^k after an optional flip of the second axis), or the 4 of
+    C2v on a rectangular lattice. The inner model's parameters nest under
+    ``inner/``."""
+
+    def __init__(self, inner: nn.Module, lattice_shape: Tuple[int, ...]):
+        super().__init__()
+        if len(lattice_shape) != 2:
+            raise ValueError("PointGroupAveraged needs a 2D lattice")
+        self.inner = inner
+        self.lattice_shape = tuple(lattice_shape)
+
+    def forward(self, s: torch.Tensor) -> C:
+        batch = s.shape[0]
+        grid = s.reshape(batch, *self.lattice_shape)
+        square = self.lattice_shape[0] == self.lattice_shape[1]
+        transforms = []
+        for flip in (False, True):
+            g0 = torch.flip(grid, dims=(2,)) if flip else grid
+            for k in ((0, 1, 2, 3) if square else (0, 2)):
+                transforms.append(torch.rot90(g0, k, dims=(1, 2)))
+        stacked = torch.stack([g.reshape(batch, -1) for g in transforms])
+        g = stacked.shape[0]
+        logs = cplx.as_c(self.inner(stacked.reshape(g * batch, -1)))
+        return cplx.logmeanexp(logs.reshape(g, batch), dim=0)
+
+    def init(self, seed: int, device="cpu") -> Params:
+        return nest_params("inner", self.inner.init(seed, device=device))
 
 
 def nest_params(prefix: str, params: Params) -> Params:

@@ -14,9 +14,11 @@ of activations), ~2 layers for a forward-only pass and ~all layers for a
 backward pass (saved activations); a GCNN's width is G-expanded (C4v or
 D6, kagome's fine torus folded in), a PhaseNet trunk adds its layers, complex
 stacks count two parts and a wider window, the spin-flip projection doubles
-the batch, and the per-sample gradients of the expanded group kernels add
-to the backward pass. The constants are the JAX package's; they have not
-been recalibrated against PyTorch's allocator.
+the batch and the CNN's translation and point-group averaging multiply it
+by N and 8, and the per-sample gradients of the expanded group kernels
+add to the backward pass. The RBM, the ARNN and the ViT have footprints of
+their own (:func:`model_footprint`). The constants are the JAX package's;
+they have not been recalibrated against PyTorch's allocator.
 """
 from __future__ import annotations
 
@@ -68,25 +70,45 @@ class ModelFootprint:
 
 
 def model_footprint(cfg, n_sites: int) -> ModelFootprint:
-    """Footprint of the CNN and the GCNNs (the models this port builds),
-    with the JAX package's constants: a GCNN's width is G-expanded (C4v:
-    8 on the square lattice; D6: 12 on the triangular and kagome ones, the
-    kagome width also times the 4/3 fine-torus points per site), and a
-    PhaseNet trunk adds its layers and may raise the width."""
+    """Footprint of every model kind, with the JAX package's constants: a
+    GCNN's width is G-expanded (C4v: 8 on the square lattice; D6: 12 on the
+    triangular and kagome ones, the kagome width also times the 4/3
+    fine-torus points per site); an RBM is one layer of alpha hidden units
+    per site; an ARNN's masked dense activations are [B, width] plus the
+    [B, 3N] heads, reported as one site of that width; a ViT's widest
+    tensor is the MLP hidden (the p^d shift copies and the N / p^d tokens
+    cancel); a PhaseNet trunk adds its layers and may raise the width; the
+    CNN's translation and point-group averaging multiply the batch by N and
+    8."""
     m = cfg.model
     channels = tuple(m.channels) or (1,)
     geometry = cfg.lattice.geometry
     tri = geometry in ("triangular", "kagome")
     g = (12 if tri else 8) if m.kind == "gcnn" else 1
-    width_group = g
-    if m.kind == "gcnn" and geometry == "kagome":
-        width_group = int(math.ceil(g * 4.0 / 3.0))
-    width = max(channels) * width_group
-    n_layers = len(channels)
+    if m.kind == "rbm":
+        width, n_layers = max(1, int(m.rbm_alpha)), 1
+    elif m.kind == "arnn":
+        return ModelFootprint(n_sites=1,
+                              max_width=max(max(channels), 3 * n_sites),
+                              n_layers=len(channels) + 1)
+    elif m.kind == "vit":
+        width = max(channels) * max(1, int(m.vit_mlp_ratio))
+        n_layers = len(channels)
+    else:
+        width_group = g
+        if m.kind == "gcnn" and geometry == "kagome":
+            width_group = int(math.ceil(g * 4.0 / 3.0))
+        width = max(channels) * width_group
+        n_layers = len(channels)
     if m.phase_net_channels:
         width = max(width, max(m.phase_net_channels))
         n_layers += len(m.phase_net_channels)
     n_parts = 2 if m.complex_params else 1
+    sym = 2 if m.spin_flip_sector else 1
+    if m.kind == "cnn" and m.translation_average:
+        sym *= n_sites  # one forward per translation (shift_stride aside)
+    if m.kind == "cnn" and m.point_group_average:
+        sym *= 8
     bwd_param = 0.0
     if m.kind == "gcnn":
         # per-sample expanded-kernel gradients: sum over layers of
@@ -106,9 +128,10 @@ def model_footprint(cfg, n_sites: int) -> ModelFootprint:
         bwd_param = floats * 4.0 * n_parts * 1.5
     return ModelFootprint(
         n_sites=n_sites, max_width=width, n_layers=n_layers,
-        n_parts=n_parts, sym_batch=2 if m.spin_flip_sector else 1,
+        n_parts=n_parts, sym_batch=sym,
         # complex conv stacks keep four real conv outputs live per layer
-        fwd_window=4.0 if m.complex_params else _FWD_WINDOW,
+        fwd_window=(4.0 if m.kind in ("cnn", "gcnn") and m.complex_params
+                    else _FWD_WINDOW),
         bwd_param_bytes=bwd_param)
 
 

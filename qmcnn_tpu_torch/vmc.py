@@ -33,8 +33,7 @@ from torch.func import grad
 
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy
-from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler,
-                                                WalkerState, fold_in)
+from qmcnn_tpu_torch.sampler.metropolis import WalkerState, fold_in
 
 
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
@@ -122,7 +121,9 @@ class VMC:
 
     log_psi_fn: Callable[..., C]
     ham: Any
-    sampler: MetropolisSampler
+    #: MetropolisSampler or, for the ARNN, sampler/direct.py's
+    #: DirectSampler (the same interface and WalkerState)
+    sampler: Any
     optimizer: Any  # builder.Optimizer: init(params) / update(g, state)
     n_sweeps: int = 1
     sr: Optional[Any] = None
@@ -176,7 +177,7 @@ class VMC:
         new_params = {k: params[k] + updates[k] for k in params}
         metrics = StepMetrics(
             energy_re=e_mean.re, energy_im=e_mean.im, energy_var=e_var,
-            accept_rate=pmean(MetropolisSampler.acceptance_rate(walkers),
+            accept_rate=pmean(self.sampler.acceptance_rate(walkers),
                               self.group),
             grad_norm=global_norm(grads), sr_iters=sr_iters,
             sr_residual=sr_residual)

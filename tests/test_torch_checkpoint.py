@@ -48,8 +48,9 @@ def _assert_states_equal(a, b):
     for k in a.params:
         assert torch.equal(a.params[k], b.params[k]), k
     assert a.opt_state["count"] == b.opt_state["count"]
-    for k, v in a.opt_state.get("trace", {}).items():
-        assert torch.equal(v, b.opt_state["trace"][k]), k
+    for part in ("trace", "mu", "nu"):
+        for k, v in a.opt_state.get(part, {}).items():
+            assert torch.equal(v, b.opt_state[part][k]), (part, k)
     wa, wb = a.walkers, b.walkers
     for x, y in ((wa.s, wb.s), (wa.log_psi.re, wb.log_psi.re),
                  (wa.log_psi.im, wb.log_psi.im), (wa.n_accept, wb.n_accept),
@@ -83,6 +84,31 @@ def test_resume_equals_uninterrupted_run_bitwise(tmp_path, capsys):
     assert logger2.history["energy_re"] == logger.history["energy_re"][4:]
     with open(csv) as f:
         assert f.readline() == "step,energy_re\n"  # appended, not truncated
+
+
+def test_direct_sampler_run_resumes_bitwise(tmp_path, capsys):
+    """tfim16_arnn (the ARNN with the direct sampler, Adam) for 4 steps
+    with a checkpoint every 2; a run resumed from the step-2 checkpoint
+    ends in the same state bit for bit."""
+    cfg = tcfg.load(os.path.join(ROOT, "configs", "tfim16_arnn.yaml"), (
+        "sampler.n_walkers=32", "run.n_steps=4", "run.ckpt_every=2",
+        "run.log_every=1", "run.steps_per_dispatch=1", "run.csv_path=null",
+        "run.validate_against_ed=false"))
+    full_dir = tmp_path / "full"
+    state, logger = ttrain.train(cfg, device="cpu",
+                                 ckpt_manager=CheckpointManager(
+                                     str(full_dir), keep=3))
+    assert logger.history["accept"] == [1.0] * 4
+    part_dir = tmp_path / "part"
+    shutil.copytree(full_dir, part_dir)
+    shutil.rmtree(part_dir / "4")
+    capsys.readouterr()
+    resumed, logger2 = ttrain.train(cfg, device="cpu",
+                                    ckpt_manager=CheckpointManager(
+                                        str(part_dir), keep=3))
+    assert "resumed from checkpoint at step 2" in capsys.readouterr().out
+    _assert_states_equal(resumed, state)
+    assert logger2.history["energy_re"] == logger.history["energy_re"][2:]
 
 
 def test_restore_equals_saved_state(tmp_path):

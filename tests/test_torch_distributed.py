@@ -155,6 +155,25 @@ def test_sharded_steps_match_one_rank(sharded_runs, world, move):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_sharded_direct_sampler_matches_one_rank(sharded_runs, world):
+    """tfim16_arnn: the direct sampler's draws are keyed by global walker
+    id, so n ranks sample walker for walker what 1 rank samples; the
+    params are bitwise equal across ranks and within tolerance of the
+    1-rank run after the step."""
+    ref = sharded_runs["ref"]["arnn"]
+    ranks = [r["arnn"] for r in sharded_runs["ranks"][world]]
+    for i, want in enumerate(ref):
+        got = [rk[i] for rk in ranks]
+        assert torch.equal(_cat(got), want["s"]), f"step {i}"
+        _replicated(got, f"arnn step {i}")
+    g = ranks[0][1]
+    assert g["accept"] == want["accept"] == 1.0
+    assert g["energy_re"] == pytest.approx(want["energy_re"], rel=2e-5,
+                                           abs=1e-5)
+    _close(g["params"], want["params"], 2e-4, 2e-6, "arnn")
+
+
+@pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("solver", list(R.SOLVERS))
 def test_sharded_sr_matches_one_rank(sharded_runs, world, solver):
     """Every SR solver under sharding reproduces the global solve: the

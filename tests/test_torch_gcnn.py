@@ -30,6 +30,7 @@ from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 from qmcnn_tpu_torch.models import gcnn as tg
 from qmcnn_tpu_torch.models.cnn import _SKIP_SCALE, true_f32
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
+from qmcnn_tpu_torch.models.cnn import module_names
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
@@ -92,7 +93,31 @@ def _norm_amp(re, im):
             np.where(mag > 0, mag * np.sin(im), 0.0))
 
 
-def _assert_log_psi_close(got, want, tol, amp):
+def _pre_wrap_phase(c, s):
+    """Per configuration, max_g |Im S_g| over the group-element readout
+    sums (of s and of -s under a spin-flip projection): the size of the
+    phase before the projection's logmeanexp wraps it into (-pi, pi]."""
+    spin = c["spin_flip"]
+    inner = c["tm"].inner if spin else c["tm"]
+    prefix = "params/inner/" if spin else "params/"
+    inner.load_state_dict(module_names(
+        {"params/" + k[len(prefix):]: v for k, v in c["p"].items()
+         if k.startswith(prefix)}), strict=True)
+    x = torch.from_numpy(s)
+    with torch.no_grad():
+        sizes = [inner.group_sums(y).im.abs().amax(1)
+                 for y in ((x, -x) if spin else (x,))]
+    return torch.stack(sizes).amax(0).numpy()
+
+
+def _assert_log_psi_close(got, want, tol, amp, pre_wrap):
+    """Re within rtol/atol ``tol``. The phase modulo 2 pi within
+    tol * (1 + the size of the phase before wrapping, ``pre_wrap``): the
+    phase is the wrapped sum of per-site terms that add up to tens or
+    hundreds of radians, each sum carrying f32 rounding of that size (as
+    rtol scales the real part with its size). An absolute 1e-4 alone held
+    the default case to 5.98e-5 against pre-wrap phases of 25-93, which a
+    different CPU or thread layout can push past the bound."""
     if amp:
         for g, w in zip(_norm_amp(got.re, got.im),
                         _norm_amp(want.re, want.im)):
@@ -102,7 +127,14 @@ def _assert_log_psi_close(got, want, tol, amp):
                                rtol=tol, atol=tol)
     dphi = np.asarray(got.im) - np.asarray(want.im)
     dphi = (dphi + np.pi) % (2 * np.pi) - np.pi
-    np.testing.assert_allclose(dphi, 0.0, atol=tol)
+    bound = tol * (1.0 + pre_wrap)
+    d_re = np.abs(np.asarray(got.re) - np.asarray(want.re)).max()
+    print(f"margins: max |d Re| {d_re:.3e}, "
+          f"max |d phase| {np.abs(dphi).max():.3e} = "
+          f"{np.abs(dphi).max() / tol:.3f} of {tol:g}, "
+          f"{np.max(np.abs(dphi) / bound):.4f} of the bound (pre-wrap "
+          f"phase {pre_wrap.min():.1f}-{pre_wrap.max():.1f})")
+    np.testing.assert_array_less(np.abs(dphi), bound)
 
 
 @pytest.mark.parametrize("k", [3, 5])
@@ -140,7 +172,7 @@ def test_model_matches_jax(kw):
     s = _spins(1)
     want = j_apply(c["jm"], c["v"], s)
     got = t_apply(c["tm"], c["p"], torch.from_numpy(s))
-    _assert_log_psi_close(got, want, tol, amp)
+    _assert_log_psi_close(got, want, tol, amp, _pre_wrap_phase(c, s))
     assert sorted(c["p"]) == sorted(c["tm"].init(0))
 
 
@@ -165,7 +197,8 @@ def test_fused_plain_version_matches_jax_pallas(kw):
     before = k2.gcnn_group_sums.launches
     got = k2.FusedLogPsi(**args)(c["p"], torch.from_numpy(s))
     assert k2.gcnn_group_sums.launches == before  # CPU: the plain version
-    _assert_log_psi_close(got, fast(c["v"], s), tol, amp)
+    _assert_log_psi_close(got, fast(c["v"], s), tol, amp,
+                          _pre_wrap_phase(c, s))
     # the readout sums themselves
     ws, sg_j, sums_kw = _jax_group_sums(CASES.index(kw_in))
     sg_t = k2.gcnn_group_sums(torch.from_numpy(s), ws, **sums_kw)

@@ -31,6 +31,7 @@ from qmcnn_tpu_torch.models import phase as tp
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
 from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized
 from qmcnn_tpu_torch.models.phasenet import PhaseNet
+from qmcnn_tpu_torch.sampler.direct import DirectSampler
 from qmcnn_tpu_torch.sampler.metropolis import WalkerState
 from qmcnn_tpu_torch.utils import transfer as ttransfer
 from qmcnn_tpu_torch.vmc import energy_and_grad as t_energy_and_grad
@@ -269,22 +270,17 @@ def test_warm_start_phase_net_from_control_matches_jax():
 
 CONFIGS = sorted(os.path.basename(p)[:-5]
                  for p in glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
-#: the ViT and ARNN families (ROADMAP A13c)
-UNPORTED = {"j1j2_4x4_vit", "j1j2_8x8_vit", "tfim16_arnn", "j1j2_4x4_arnn",
-            "heis40_arnn"}
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_every_config_builds_or_names_its_slice(config):
-    """25 of the 30 configs build on the CPU at full width; the ViT and
-    ARNN configs raise NotImplementedError."""
+    """All 30 configs build on the CPU at full width, the ARNN ones with
+    the direct sampler."""
     assert len(CONFIGS) == 30
     cfg = tcfg.load(os.path.join(ROOT, "configs", f"{config}.yaml"))
-    if config in UNPORTED:
-        with pytest.raises(NotImplementedError):
-            tb.build(cfg, device="cpu")
-        return
     vmc, params, lattice = tb.build(cfg, device="cpu")
+    assert isinstance(vmc.sampler, DirectSampler) == (
+        cfg.model.kind == "arnn")
     assert sum(x.numel() for x in params.values()) > 0
     assert (vmc.sr is None) == (not cfg.sr.enabled)
     if cfg.sr.enabled:

@@ -23,7 +23,8 @@ from qmcnn_tpu.models.cnn import log_psi_apply as j_apply
 from qmcnn_tpu.sampler.metropolis import MetropolisSampler as JSampler
 from qmcnn_tpu.utils.transfer import _flatten
 from qmcnn_tpu_torch import configs
-from qmcnn_tpu_torch.builder import (cnn_forward_eligible, kernel_eligible,
+from qmcnn_tpu_torch.builder import (cnn_forward_eligible,
+                                    gcnn_kernel_eligible, kernel_eligible,
                                     resolve_sampler_backend,
                                     uses_fused_cnn_forward)
 from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
@@ -479,12 +480,26 @@ SWEEP_CONFIGS = {"heis10x10_sr", "heis8x8_cnn", "tfim16_sgd"}
 FORWARD_CONFIGS = SWEEP_CONFIGS | {"heis10x10_hero", "heis8x8_hero"}
 
 
+#: the configs whose evaluation forward K2 serves (f32 and bf16 routes):
+#: no ViT, ARNN or RBM among them, and not the 16x16 GCNN, whose
+#: activations exceed a block's shared memory
+GCNN_CONFIGS = {"j1j2_10x10_gcnn", "j1j2_10x10_gcnn_deep",
+                "j1j2_12x12_gcnn_deep", "j1j2_8x8_gcnn",
+                "j1j2_8x8_gcnn_deep", "j1j2_8x8_gcnn_r2",
+                "j1j2_8x8_gcnn_res8"}
+
+
 def test_every_config_keeps_its_eligibility():
     for path in _config_paths():
         cfg = configs.load(path)
         name = os.path.basename(path)[:-len(".yaml")]
         assert kernel_eligible(cfg) == (name in SWEEP_CONFIGS), name
         assert cnn_forward_eligible(cfg) == (name in FORWARD_CONFIGS), name
+        assert gcnn_kernel_eligible(cfg) == (name in GCNN_CONFIGS), name
+    for kind in ("vit", "arnn", "rbm"):
+        other = configs.apply_overrides(_cfg(), (f"model.kind={kind}",))
+        assert not (kernel_eligible(other) or cnn_forward_eligible(other)
+                    or gcnn_kernel_eligible(other)), kind
     # a lattice whose one walker exceeds a block's shared memory keeps the
     # plain model instead of a kernel that would raise
     big = configs.apply_overrides(_cfg(), ("lattice.shape=[64,64]",))

@@ -289,12 +289,16 @@ def test_kagome_gcnn_fixture_matches_jax():
 
 
 @pytest.mark.parametrize("config", ["tri6x6_tgcnn", "kagome3x3_kgcnn",
-                                    "j1j2_8x8_gcnn", "kagome3x3_phasenet"])
+                                    "j1j2_8x8_gcnn", "kagome3x3_phasenet",
+                                    "j1j2_4x4_vit", "j1j2_8x8_vit",
+                                    "tfim16_arnn", "j1j2_4x4_arnn",
+                                    "heis40_arnn"])
 @pytest.mark.parametrize("mem_gib", [2, 80])
 def test_footprint_and_auto_chunks_match_jax(config, mem_gib):
     """model_footprint (G = 12 on the D6 lattices, kagome's 4/3 fine-torus
-    width, hexagonal-star taps, the PhaseNet trunk's layers) and both auto
-    chunk sizes equal JAX's."""
+    width, hexagonal-star taps, the PhaseNet trunk's layers; the ViT's MLP
+    width and the ARNN's dense heads) and both auto chunk sizes equal
+    JAX's."""
     from qmcnn_tpu.utils import memory as jmem
     from qmcnn_tpu_torch.utils import memory as tmem
 

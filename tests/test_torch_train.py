@@ -142,15 +142,16 @@ def test_helpers_match_jax():
 def test_unported_options_raise(tmp_path):
     """Options of later slices raise (complex parameters, bf16 and
     checkpoints are ported since slice 5; sr.solver=cg and run.distributed
-    since slice 7; the Jastrow factor and SPRING since slice 8, which now
-    train)."""
-    for ov in (("model.kind=rbm",), ("optimizer.ema_decay=0.9",),
-               ("model.translation_average=true",)):
+    since slice 7; the Jastrow factor and SPRING since slice 8; the RBM and
+    translation averaging since slice 9, which now train)."""
+    for ov in (("optimizer.ema_decay=0.9",), ("model.lanczos_alpha=0.1",),
+               ("sampler.tempering_betas=[1.0,0.5]",)):
         cfg = tcfg.load(HEIS, SMALL + ov)
         with pytest.raises(NotImplementedError):
             ttrain.train(cfg, device="cpu")
     for ov in (("model.jastrow=true",),
-               ("sr.solver=minsr", "sr.momentum=0.9")):
+               ("sr.solver=minsr", "sr.momentum=0.9"),
+               ("model.kind=rbm",), ("model.translation_average=true",)):
         cfg = tcfg.load(HEIS, SMALL + ov + ("run.n_steps=1",
                                             "run.csv_path=null"))
         state, logger = ttrain.train(cfg, device="cpu")

@@ -45,6 +45,7 @@ SOLVERS = {
     "cg": SR(solver="cg", cg_tol=1e-6, cg_maxiter=200, **SR_KW),
 }
 GCNN = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")
+ARNN = os.path.join(ROOT, "configs", "tfim16_arnn.yaml")
 GCNN_SMALL = ("lattice.shape=[4,4]", "model.channels=[2,2]",
               "sampler.n_walkers=32", "run.chunk_size=8")
 
@@ -201,8 +202,19 @@ def leg_checkpoint(spec, group, work):
             "saved": record(state)}
 
 
+def leg_arnn(group):
+    """configs/tfim16_arnn.yaml (the ARNN at its width, the direct
+    sampler) with M walkers: the init walkers and one step."""
+    cfg = tcfg.load(ARNN, (f"sampler.n_walkers={M}",))
+    vmc, params, _ = tb.build(cfg, device="cpu", group=group)
+    run = Runner(vmc, group)
+    state = run.init(params)
+    return [record(state), record(*run.step(state, prng_key(6)))]
+
+
 def run_all(spec, group, work=None) -> dict:
     out = {"moves": {mv: leg_moves(mv, group) for mv in MOVES},
+           "arnn": leg_arnn(group),
            "sr": {name: leg_sr(name, group) for name in SOLVERS},
            "thermalize": leg_thermalize(group),
            "run_steps": leg_run_steps(group),
