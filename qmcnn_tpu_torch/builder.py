@@ -78,12 +78,9 @@ def build_model(cfg: Config, lattice: Lattice):
     triangular and kagome ones), the RBM and the ViT, each with its phase
     priors, Jastrow factor and PhaseNet and optionally spin-flip projected,
     and the ARNN with its phase prior baked in (a pure-phase Jastrow factor
-    may wrap it). ``model.lanczos_alpha`` raises (a later slice,
-    ROADMAP.md)."""
+    may wrap it). ``model.lanczos_alpha`` wraps the composed model in
+    :func:`build` (``ops/lanczos.py``)."""
     m = cfg.model
-    if _set(m.lanczos_alpha):
-        raise NotImplementedError("model.lanczos_alpha is not ported yet "
-                                  "(ROADMAP.md)")
     if m.translation_average and not lattice.pbc:
         raise ValueError("translation averaging requires periodic boundaries")
     if lattice.basis > 1:
@@ -405,6 +402,10 @@ def model_log_psi_is_real(cfg: Config) -> bool:
     m = cfg.model
     if m.complex_params or m.spin_flip_sector == -1:
         return False
+    if m.lanczos_alpha is not None:
+        # arg(1 + alpha E_loc) puts a phase on phi even for a real model
+        # (the JAX rule misses it and drops the score's imaginary block)
+        return False
     if m.kind == "gcnn" and m.gcnn_character != "A1":
         return False
     if m.momentum and any(m.momentum):
@@ -624,22 +625,28 @@ def build(cfg: Config, device="cuda", group=None
           ) -> Tuple[VMC, dict, Lattice]:
     """Returns (vmc, initial params on ``device``, lattice). With a walker
     ``group`` the VMC's means all-reduce over its ranks, and the memory
-    estimates count this rank's walkers."""
+    estimates count this rank's walkers.
+
+    Options beyond the ground state, with the JAX guards: parallel
+    tempering (``sampler.tempering_betas``; the torch sweep, its evaluation
+    forward still the fused one), the (1 + alpha H) ansatz
+    (``model.lanczos_alpha``), frozen states for the penalty or the
+    deflation (``optimizer.orthogonalize_to``, each drawn once here), the
+    parameter EMA and momentum-sector optimization."""
     world = 1 if group is None else group.world_size
     direct = resolve_sampler_kind(cfg) == "direct"
-    if direct and cfg.sampler.tempering_betas is not None:
+    betas = cfg.sampler.tempering_betas
+    if direct and betas is not None:
         raise ValueError("tempering_betas is a Metropolis mixing aid — "
                          "exact ancestral sampling draws i.i.d. "
                          "samples and needs no tempering")
-    if cfg.sampler.tempering_betas is not None:
-        raise NotImplementedError("sampler.tempering_betas is not ported "
-                                  "yet (ROADMAP.md)")
     o = cfg.optimizer
-    if (o.orthogonalize_to or o.deflate_c > 0 or o.ema_decay > 0
-            or o.sector_momentum is not None):
-        raise NotImplementedError(
-            "excited-state, EMA and sector-optimization options are not "
-            "ported yet (ROADMAP.md)")
+    if o.sector_momentum is not None and (o.orthogonalize_to
+                                          or o.deflate_c > 0):
+        raise ValueError(
+            "optimizer.sector_momentum is incompatible with "
+            "orthogonalize_to/deflate_c: both redefine the effective "
+            "local energy the solvers see")
     lattice = build_lattice(cfg)
     ham = build_hamiltonian(cfg, lattice)
     model = build_model(cfg, lattice)
@@ -648,13 +655,27 @@ def build(cfg: Config, device="cuda", group=None
         return log_psi_apply(model, params, s)
 
     params = model.init(cfg.run.seed, device=device)
-    eval_log_psi_fn = log_psi_fn
-    if uses_fused_gcnn_forward(cfg, device):
-        eval_log_psi_fn = fused_gcnn_log_psi(cfg, lattice)
-    elif uses_fused_cnn_forward(cfg, device):
-        from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+    if cfg.model.lanczos_alpha is not None:
+        # phi = (1 + alpha H) psi: wrapped after the model is composed
+        # (priors and projections inside), before the sampler (the walk
+        # targets |phi|^2); alpha is a leaf of its own
+        from qmcnn_tpu_torch.ops.lanczos import (ALPHA_KEY,
+                                                 lanczos_init_alpha,
+                                                 lanczos_wrap)
 
-        eval_log_psi_fn = FusedCNNLogPsi(lattice_shape=tuple(lattice.shape))
+        if direct:
+            raise ValueError(
+                "model.lanczos_alpha needs Metropolis sampling: the ARNN "
+                "conditionals sample |psi|^2, not |(1+aH)psi|^2")
+        if cfg.sampler.backend == "pallas":
+            raise ValueError(
+                "model.lanczos_alpha runs on the xla sampler backend (the "
+                "fused Pallas sweep computes the bare CNN forward only)")
+        log_psi_fn = lanczos_wrap(log_psi_fn, ham)
+        params = dict(params)
+        params[ALPHA_KEY] = lanczos_init_alpha(cfg.model.lanczos_alpha,
+                                               device)
+    eval_log_psi_fn = evaluation_forward(cfg, lattice, device, log_psi_fn)
     if direct:
         # a pure-phase Jastrow factor leaves |psi|^2 alone: the sampler
         # draws from the inner ARNN's conditionals (its params under
@@ -668,36 +689,115 @@ def build(cfg: Config, device="cuda", group=None
                                 sz_zero=resolve_arnn_sector(cfg))
     else:
         move = resolve_move(cfg)
+        if (betas is not None and cfg.sampler.backend == "pallas"
+                and kernel_eligible(cfg)):
+            raise ValueError("tempering_betas runs on the xla backend")
+        backend = resolve_sampler_backend(cfg, device)
+        if betas is not None:
+            backend = "torch"  # an auto-selected sweep kernel defers
         sampler = MetropolisSampler(
             eval_log_psi_fn,
             n_sites=lattice.n_sites,
             move=move,
             bonds=lattice.nn_bonds if move.startswith("exchange") else None,
             sweep_size=cfg.sampler.sweep_size,
-            backend=resolve_sampler_backend(cfg, device),
+            backend=backend,
             lattice_shape=tuple(lattice.shape),
+            betas=tuple(betas) if betas is not None else None,
         )
     n_params = sum(v.numel() for v in params.values())
-    chunk_size = cfg.run.chunk_size
-    if chunk_size is None:
-        # null = auto: None (unchunked) when the E_loc batch fits
-        from qmcnn_tpu_torch.utils import memory
+    from qmcnn_tpu_torch.utils import memory
 
-        chunk_size = memory.auto_chunk_size(cfg, lattice, ham, n_params,
-                                            device=device, world_size=world)
+    chunk_size = memory.run_chunk_size(cfg, lattice, ham, n_params,
+                                       device=device, world_size=world)
+    sr = build_sr(cfg, lattice, ham, n_params, device=device,
+                  world_size=world)
+    penalty_states = tuple(
+        frozen_state(cfg, lattice, sampler, params, path, i, device,
+                     log_psi_fn)
+        for i, path in enumerate(o.orthogonalize_to or ()))
+    if (penalty_states and o.deflate_c <= 0 and sr is not None
+            and sr.solver == "minsr"):
+        import warnings
+
+        # the sample-space minSR metric projects the update onto the span
+        # of the current state's scores, which suppresses the penalty's
+        # move-away direction (the JAX package's measured failure mode)
+        warnings.warn(
+            "optimizer.orthogonalize_to with sr.solver='minsr' is a "
+            "documented silent-collapse mode: the sample-space natural-"
+            "gradient metric suppresses the orthogonality-penalty "
+            "direction and the run converges back onto the reference "
+            "state. Use sr.solver='dense' or 'pcg' (or sr.enabled=false) "
+            "for penalty/excited-state runs, or set optimizer.deflate_c "
+            "(exact H + c|psi0><psi0| deflation folded into e_loc, "
+            "which the sample-space solvers see natively).", stacklevel=2)
     vmc = VMC(
         log_psi_fn=log_psi_fn,
         ham=ham,
         sampler=sampler,
         optimizer=build_optimizer(cfg),
         n_sweeps=cfg.sampler.n_sweeps_per_step,
-        sr=build_sr(cfg, lattice, ham, n_params, device=device,
-                    world_size=world),
+        sr=sr,
         chunk_size=chunk_size,
         eval_log_psi_fn=eval_log_psi_fn,
         group=group,
+        penalty_states=penalty_states,
+        penalty_beta=o.orth_beta,
+        deflate_c=o.deflate_c,
+        sector_momentum=(tuple(o.sector_momentum)
+                         if o.sector_momentum is not None else None),
+        sector_kappa=o.sector_kappa,
+        lattice_shape=tuple(lattice.shape),
+        ema_decay=o.ema_decay,
     )
     return vmc, params, lattice
+
+
+def evaluation_forward(cfg: Config, lattice: Lattice, device, log_psi_fn):
+    """The evaluation-only forward of the sampler and E_loc: a fresh fused
+    GCNN forward (K2) or sweep-kernel recompute forward (K1) where the
+    config is eligible on ``device``, else ``log_psi_fn`` (the model). Each
+    call makes a new instance, so each parameter set (the live params, a
+    frozen state's) keeps its own weight cache."""
+    if uses_fused_gcnn_forward(cfg, device):
+        return fused_gcnn_log_psi(cfg, lattice)
+    if uses_fused_cnn_forward(cfg, device):
+        from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+
+        return FusedCNNLogPsi(lattice_shape=tuple(lattice.shape))
+    return log_psi_fn
+
+
+def frozen_state(cfg: Config, lattice: Lattice, sampler, params, path: str,
+                 index: int, device, log_psi_fn):
+    """The ``index``-th ``optimizer.orthogonalize_to`` state: its params
+    from ``path`` (a ``.npz`` snapshot or a port checkpoint, every leaf
+    matching this run's model), its own evaluation forward, and a batch of
+    ``n_walkers`` drawn once from |psi_k|^2 with max(n_therm_sweeps, 20)
+    sweeps from prng_key(seed + 7919 (index + 1)). Under tempering the
+    batch is the b = 1 chain (the physical ids drive the draw); every rank
+    of a walker group draws the same whole batch."""
+    from qmcnn_tpu_torch.ops.penalty import make_frozen_state
+    from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                transfer_params)
+
+    p_k, _, n_fresh = transfer_params(params, load_checkpoint_params(path))
+    if n_fresh:
+        raise ValueError(
+            f"orthogonalize_to checkpoint {path!r} does not match this "
+            f"run's model ({n_fresh} leaves missing/mismatched) — "
+            f"frozen states must use the same model config")
+    fwd = evaluation_forward(cfg, lattice, device, log_psi_fn)
+    k_sampler = dataclasses.replace(sampler, log_psi_fn=fwd)
+    m = cfg.sampler.n_walkers
+    key = prng_key(cfg.run.seed + 7919 * (index + 1))
+    st = k_sampler.init_state(p_k, key, m, device=device)
+    st = k_sampler.sample(p_k, st, fold_in(key, 1),
+                          torch.arange(m, device=device),
+                          n_sweeps=max(cfg.sampler.n_therm_sweeps, 20))
+    return make_frozen_state(fwd, p_k, k_sampler.physical(st).s)
 
 
 def build_sharded(cfg: Config, group):

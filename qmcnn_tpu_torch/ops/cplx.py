@@ -41,6 +41,13 @@ class C(NamedTuple):
     def __rmul__(self, o) -> "C":
         return self * o
 
+    def __truediv__(self, o) -> "C":
+        if isinstance(o, C):
+            d = o.re * o.re + o.im * o.im
+            return C((self.re * o.re + self.im * o.im) / d,
+                     (self.im * o.re - self.re * o.im) / d)
+        return C(self.re / o, self.im / o)
+
     def __neg__(self) -> "C":
         return C(-self.re, -self.im)
 

@@ -16,7 +16,8 @@ Design properties, as in the JAX package:
   * the per-rank step is the same ``VMC.step`` that runs on one device: a
     :class:`WalkerGroup` in ``VMC.group`` switches its mean all-reduces on
     (``vmc.pmean``; ``sr.py`` at every JAX ``_pmean`` site);
-  * rank r holds the walkers r * M_loc .. (r + 1) * M_loc - 1, and the
+  * rank r holds the walkers r * M_loc .. (r + 1) * M_loc - 1 (under
+    parallel tempering each with its whole ladder of R rows), and the
     noise is keyed by *global* walker id, so an n-rank run equals the
     1-rank run walker for walker;
   * only P-sized vectors, scalars and (for minSR) score rows cross ranks;
@@ -172,13 +173,16 @@ def _on(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def shard_train_state(state: TrainState, group: WalkerGroup) -> TrainState:
+def shard_train_state(state: TrainState, group: WalkerGroup,
+                      n_replicas: int = 1) -> TrainState:
     """This rank's part of a full train state (every rank builds the same
     one, e.g. from the seed or a checkpoint): its rows of the walkers, and
-    the replicated rest (params, optimizer state, SPRING's carry), on the
-    group's device. The walker count must
-    divide over the ranks."""
-    rows = group.rows(state.walkers.s.shape[0])
+    the replicated rest (params, optimizer state, SPRING's carry, the EMA),
+    on the group's device. The walker count must divide over the ranks;
+    under tempering (``n_replicas`` = R rows per walker) a rank takes
+    contiguous blocks of whole ladders, (M / n) * R rows."""
+    phys = group.rows(state.walkers.s.shape[0] // n_replicas)
+    rows = slice(phys.start * n_replicas, phys.stop * n_replicas)
     w, dev = state.walkers, group.device
     walkers = WalkerState(
         s=w.s[rows].to(dev),
@@ -186,7 +190,8 @@ def shard_train_state(state: TrainState, group: WalkerGroup) -> TrainState:
         n_accept=w.n_accept[rows].to(dev), n_prop=w.n_prop[rows].to(dev))
     return TrainState(params=_on(state.params, dev),
                       opt_state=_on(state.opt_state, dev), walkers=walkers,
-                      step=state.step, sr_aux=_on(state.sr_aux, dev))
+                      step=state.step, sr_aux=_on(state.sr_aux, dev),
+                      ema=_on(state.ema, dev))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -199,7 +204,10 @@ class ShardedVMC:
     group: WalkerGroup
 
     def local_ids(self, state: TrainState) -> torch.Tensor:
-        return self.group.local_ids(state.walkers.s.shape[0])
+        """Global ids of this rank's physical walkers (under tempering the
+        state holds R rows per walker)."""
+        phys = self.vmc.sampler.physical(state.walkers)
+        return self.group.local_ids(phys.s.shape[0])
 
     def init_state(self, key: int, n_walkers: int, params) -> TrainState:
         """Every rank draws the same ``n_walkers`` configurations from

@@ -19,13 +19,18 @@ recompute forward, ``FusedCNNLogPsi``) and the fused CUDA sweep
 kernel (``backend='cuda'``, the plain real CNN with flip or exchange moves;
 ``kernels/metropolis_sweep.py``).
 
+Parallel tempering (``betas``): R replicas per walker, row ``i*R + r``
+sampling |psi|^{2 b_r}, with one replica-exchange pass of adjacent pairs
+after every sweep; only the b = 1 rows (``physical``) feed the estimators.
+
 Random draws: JAX's threefry streams are not reproduced. Every draw is a
 counter-based hash of (step key, proposal index t, global walker id), so a
 walker's stream does not depend on how walkers are split over devices or
 chunks — the contract of the reference sampler. Keys are 64-bit Python
 ints derived with :func:`fold_in`. Callers may inject ``noise=(choices,
-log_u)`` instead (``(u_move, log_u)`` for exchange_anti; the parity tests
-feed the JAX sampler's draws).
+log_u)`` instead (``(u_move, log_u)`` for exchange_anti; with tempering
+``(choices, log_u, swap_log_u)``; the parity tests feed the JAX sampler's
+draws).
 """
 from __future__ import annotations
 
@@ -94,6 +99,17 @@ def _noise_hash(step_key: int, walker_ids: torch.Tensor, n_props: int):
 def _uniform(h: torch.Tensor, salt: int) -> torch.Tensor:
     """Uniform in (0, 1), float64, from 24 bits of a salted hash."""
     return ((_mix32(h ^ salt) >> 8).to(torch.float64) + 0.5) * 2.0 ** -24
+
+
+def swap_noise(swap_key: int, walker_ids: torch.Tensor, n_sweeps: int,
+               n_pairs: int) -> torch.Tensor:
+    """log-uniforms [n_sweeps, n_pairs, M] f32 of the replica-exchange
+    passes: sweep u, pair j, walker w from a hash of
+    (fold_in(fold_in(swap_key, u), j), w)."""
+    return torch.stack([
+        torch.log(_uniform(_noise_hash(fold_in(swap_key, u), walker_ids,
+                                       n_pairs), 0x1B873593))
+        for u in range(n_sweeps)]).to(torch.float32)
 
 
 def sweep_noise(step_key: int, walker_ids: torch.Tensor, n_props: int,
@@ -202,6 +218,12 @@ class MetropolisSampler:
         sweep kernel; plain real CNNs with flip/exchange, checked by the
         builder).
       lattice_shape: required for backend='cuda'.
+      betas: parallel tempering, a strictly decreasing ladder
+        (1.0, b_1, ..., b_{R-1}] of exponents: replica r samples
+        |psi|^{2 b_r}, and after every sweep adjacent replicas swap their
+        configurations (and stored log psi) with the replica-exchange
+        acceptance. Only the b = 1 rows (``physical``) feed the
+        estimators. None: plain Metropolis. Runs on the torch loop.
     """
 
     log_psi_fn: LogPsiFn
@@ -211,6 +233,7 @@ class MetropolisSampler:
     sweep_size: Optional[int] = None
     backend: str = "torch"
     lattice_shape: Optional[tuple] = None
+    betas: Optional[tuple] = None
 
     def __post_init__(self):
         if self.move not in ("flip", "exchange", "exchange_anti"):
@@ -224,6 +247,24 @@ class MetropolisSampler:
         if self.backend == "cuda" and self.move == "exchange_anti":
             raise ValueError("backend='cuda' (the sweep kernel) supports "
                              "flip/exchange moves")
+        if self.backend == "cuda" and self.betas is not None:
+            raise ValueError("tempering runs on the torch backend")
+        if self.betas is not None:
+            b = tuple(float(x) for x in self.betas)
+            if len(b) < 2:
+                raise ValueError("tempering needs >= 2 replicas "
+                                 "(betas=None for plain Metropolis)")
+            if b[0] != 1.0:
+                raise ValueError(f"betas[0] must be 1.0 (the physical "
+                                 f"chain), got {b[0]}")
+            if any(x <= 0.0 or x > 1.0 for x in b):
+                raise ValueError(f"betas must lie in (0, 1], got {b}")
+            if any(b[i + 1] >= b[i] for i in range(len(b) - 1)):
+                raise ValueError(f"betas must be strictly decreasing: {b}")
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self.betas) if self.betas is not None else 1
 
     @property
     def _sweep_size(self) -> int:
@@ -237,14 +278,22 @@ class MetropolisSampler:
             return None
         return self.n_sites if self.move == "flip" else len(self.bonds)
 
+    def _row_betas(self, n_rows: int, device) -> torch.Tensor:
+        """[n_rows] per-row exponent, replica-fastest layout."""
+        return torch.tensor(self.betas, dtype=torch.float32,
+                            device=device).repeat(n_rows // self.n_replicas)
+
     def init_state(self, params, key: int, n_walkers: int, device="cpu",
                    rows: Optional[slice] = None) -> WalkerState:
-        """``n_walkers`` initial walkers drawn from ``key`` on the host;
-        ``rows`` keeps (and evaluates) only those of them (a rank's shard)."""
+        """``n_walkers`` physical walkers drawn from ``key`` on the host;
+        with tempering the state holds n_walkers * R rows (replica-fastest:
+        row i*R + r is walker i's replica r). ``rows`` (physical walkers)
+        keeps (and evaluates) only those walkers' rows (a rank's shard)."""
         sector = "sz0" if self.move.startswith("exchange") else None
-        s = init_walkers(key, n_walkers, self.n_sites, sector=sector)
+        r = self.n_replicas
+        s = init_walkers(key, n_walkers * r, self.n_sites, sector=sector)
         if rows is not None:
-            s = s[rows]
+            s = s[rows.start * r:rows.stop * r]
         s = s.to(device)
         m = s.shape[0]
         zeros = torch.zeros(m, dtype=torch.int32, device=device)
@@ -253,23 +302,41 @@ class MetropolisSampler:
                            torch.zeros(m, device=device)),
             n_accept=zeros, n_prop=zeros.clone()))
 
+    def physical(self, state: WalkerState) -> WalkerState:
+        """The beta = 1 chain (rows [::R]) that the estimators consume;
+        the state itself when tempering is off."""
+        if self.betas is None:
+            return state
+        r = self.n_replicas
+        return WalkerState(s=state.s[::r],
+                           log_psi=C(state.log_psi.re[::r],
+                                     state.log_psi.im[::r]),
+                           n_accept=state.n_accept[::r],
+                           n_prop=state.n_prop[::r])
+
     def refresh(self, params, state: WalkerState) -> WalkerState:
         """Recompute stored log psi (call after every parameter update)."""
         return state._replace(log_psi=self.log_psi_fn(params, state.s))
 
     def _proposal_step(self, params, state: WalkerState,
                        choice: torch.Tensor, log_u: torch.Tensor,
-                       bonds: Optional[torch.Tensor]) -> WalkerState:
+                       bonds: Optional[torch.Tensor],
+                       beta_rows: Optional[torch.Tensor] = None
+                       ) -> WalkerState:
         """One Metropolis proposal for every walker from one noise row
-        (choice: the site or bond, or u_move for exchange_anti)."""
+        (choice: the site or bond, or u_move for exchange_anti).
+        beta_rows: per-row tempering exponent (None: 1 everywhere)."""
         log_corr = 0.0
         if self.move == "exchange_anti":
             s_new, log_corr = _propose_exchange_anti(state.s, choice, bonds)
         else:
             s_new = _propose(state.s, choice, self.move, bonds)
         log_psi_new = self.log_psi_fn(params, s_new)
-        # accept with prob min(1, q(s'->s)/q(s->s') |psi'/psi|^2)
-        accept = log_u < 2.0 * (log_psi_new.re - state.log_psi.re) + log_corr
+        # accept with prob min(1, q(s'->s)/q(s->s') |psi'/psi|^{2 beta});
+        # the Hastings counting correction is beta-independent
+        factor = 2.0 if beta_rows is None else beta_rows * 2.0
+        accept = log_u < factor * (log_psi_new.re - state.log_psi.re) \
+            + log_corr
         return WalkerState(
             s=torch.where(accept[:, None], s_new, state.s),
             log_psi=C(torch.where(accept, log_psi_new.re, state.log_psi.re),
@@ -284,10 +351,16 @@ class MetropolisSampler:
         """Advance every walker by ``n_sweeps`` sweeps.
 
         walker_ids: [M] *global* walker indices (the streams are keyed by
-        them). ``noise=(choices, log_u)`` ([n_props, M] each; choices are
-        u_move for exchange_anti) replaces the generated draws.
+        them; with tempering the M physical ids). ``noise=(choices,
+        log_u)`` ([n_props, M] each; choices are u_move for exchange_anti)
+        replaces the generated draws; with tempering ``(choices, log_u,
+        swap_log_u)``: [n_props, M * R] for every row, and the exchange
+        passes' [n_sweeps, R - 1, M].
         """
         n_props = n_sweeps * self._sweep_size
+        if self.betas is not None:
+            return self._sample_tempered(params, state, step_key, walker_ids,
+                                         n_sweeps, noise)
         if noise is None:
             noise = sweep_noise(step_key, walker_ids.to(state.s.device),
                                 n_props, self.n_choices)
@@ -300,12 +373,71 @@ class MetropolisSampler:
                                n_accept=state.n_accept + acc,
                                n_prop=state.n_prop + n_props)
         choices, log_u = (x.to(state.s.device) for x in noise)
-        bonds = (None if self.bonds is None else torch.as_tensor(
-            np.asarray(self.bonds, np.int64), device=state.s.device))
+        bonds = self._bonds(state.s.device)
         for t in range(n_props):
             state = self._proposal_step(params, state, choices[t], log_u[t],
                                         bonds)
         return state
+
+    def _bonds(self, device) -> Optional[torch.Tensor]:
+        return (None if self.bonds is None else torch.as_tensor(
+            np.asarray(self.bonds, np.int64), device=device))
+
+    def _sample_tempered(self, params, state: WalkerState, step_key: int,
+                         walker_ids: torch.Tensor, n_sweeps: int,
+                         noise=None) -> WalkerState:
+        """Replica-exchange sampling: per-replica Metropolis sweeps with
+        |psi|^{2 b_r} acceptance, then one adjacent-pair exchange pass per
+        sweep. Row r of walker i draws its proposals from stream id
+        i * R + r under fold_in(step_key, 0), the exchange passes from the
+        physical id under fold_in(step_key, 1), so a sharded run stays
+        walker for walker the 1-rank run."""
+        r, ss = self.n_replicas, self._sweep_size
+        dev = state.s.device
+        ids = walker_ids.to(dev)
+        if noise is None:
+            row_ids = (ids[:, None] * r + torch.arange(r, device=dev)
+                       ).reshape(-1)
+            noise = sweep_noise(fold_in(step_key, 0), row_ids, n_sweeps * ss,
+                                self.n_choices) + (swap_noise(
+                                    fold_in(step_key, 1), ids, n_sweeps,
+                                    r - 1),)
+        choices, log_u, swap_log_u = (x.to(dev) for x in noise)
+        beta_rows = self._row_betas(state.s.shape[0], dev)
+        bonds = self._bonds(dev)
+        for u in range(n_sweeps):
+            for i in range(ss):
+                t = u * ss + i
+                state = self._proposal_step(params, state, choices[t],
+                                            log_u[t], bonds, beta_rows)
+            state = self._swap_step(state, swap_log_u[u])
+        return state
+
+    def _swap_step(self, state: WalkerState,
+                   log_u: torch.Tensor) -> WalkerState:
+        """One replica-exchange pass over the pairs (j, j+1) in order, with
+        log-uniforms [R - 1, M]: the swap is accepted with
+          min(1, exp(2 (b_j - b_{j+1}) (log|psi(s_{j+1})| - log|psi(s_j)|))).
+        Configurations and both parts of log psi travel together (log psi
+        does not depend on b), so the pass costs no forward; the
+        acceptance counters are per-row Metropolis statistics and stay."""
+        r = self.n_replicas
+        m = state.s.shape[0] // r
+        betas = torch.tensor(self.betas, dtype=torch.float32)
+        s = state.s.reshape(m, r, -1).clone()
+        lp_re = state.log_psi.re.reshape(m, r).clone()
+        lp_im = state.log_psi.im.reshape(m, r).clone()
+        for j in range(r - 1):
+            gap = float(2.0 * (betas[j] - betas[j + 1]))
+            acc = log_u[j] < gap * (lp_re[:, j + 1] - lp_re[:, j])
+            for arr in (s, lp_re, lp_im):
+                a, b = arr[:, j].clone(), arr[:, j + 1].clone()
+                sel = acc[:, None] if arr.dim() == 3 else acc
+                arr[:, j] = torch.where(sel, b, a)
+                arr[:, j + 1] = torch.where(sel, a, b)
+        return state._replace(s=s.reshape(m * r, -1),
+                              log_psi=C(lp_re.reshape(-1),
+                                        lp_im.reshape(-1)))
 
     @staticmethod
     def acceptance_rate(state: WalkerState) -> torch.Tensor:

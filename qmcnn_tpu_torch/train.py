@@ -16,7 +16,8 @@ files. A single process given ``run.n_devices > 1`` raises. The run streams
 metrics to stdout/CSV,
 checkpoints to ``run.ckpt_dir`` (``utils/checkpoint.py``; a run whose
 directory holds a checkpoint resumes from it), writes the
-``<csv>.params.npz`` snapshot and ``<csv>.meta.json`` manifest in the JAX
+``<csv>.params.npz`` snapshot (and ``<csv>.ema.npz`` with
+``optimizer.ema_decay``) and the ``<csv>.meta.json`` manifest in the JAX
 package's formats, and — for exactly diagonalizable systems
 (n_sites <= 20) — reports the relative error against the ED ground energy.
 """
@@ -166,8 +167,9 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     else:  # this rank's walkers and their global ids
         state = sharded.init_state(fold_in(key, 0), m, params)
         walker_ids = sharded.local_ids(state)
+    n_rep = getattr(vmc.sampler, "n_replicas", 1)
     if resuming:
-        state = ckpt_manager.restore(state, group=group)
+        state = ckpt_manager.restore(state, group=group, n_replicas=n_rep)
         if is_main:
             print(f"resumed from checkpoint at step {state.step}", flush=True)
     else:
@@ -189,7 +191,8 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
         state, metrics = vmc.run_steps(state, base_key, walker_ids, chunk)
         rows = [[float(x) for x in (mt.energy_re, mt.energy_im, mt.energy_var,
                                     mt.accept_rate, mt.grad_norm,
-                                    mt.sr_iters)] for mt in metrics]
+                                    mt.sr_iters, mt.overlap)]
+                for mt in metrics]
         dt = (time.perf_counter() - t0) / chunk
         e_re = np.asarray([r[0] for r in rows])
         # the energies are all-reduce outputs, the same on every rank, so
@@ -209,7 +212,8 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
                     + ") — a diverged state NaNs every later step; lower "
                     "optimizer.lr or raise sr.diag_shift0")
             nan_retries += 1
-            state = ckpt_manager.restore(state, group=group)
+            state = ckpt_manager.restore(state, group=group,
+                                         n_replicas=n_rep)
             it = state.step
             # a replay from the checkpoint would NaN at the same step:
             # re-fold the key so the retry draws another sample path
@@ -220,7 +224,7 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
                       f"{nan_retries}/{cfg.run.nan_max_retries})",
                       flush=True)
             continue
-        for j, (er, ei, ev, acc, gn, sri) in enumerate(rows):
+        for j, (er, ei, ev, acc, gn, sri, ovl) in enumerate(rows):
             step_no = it + j + 1
             if step_no % cfg.run.log_every == 0 or step_no == cfg.run.n_steps:
                 row = {
@@ -233,6 +237,11 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
                     "sr_iters": int(sri),
                     "sweeps_per_sec": sweeps_per_step * m / max(dt, 1e-9),
                 }
+                if cfg.optimizer.orthogonalize_to:
+                    row["overlap"] = ovl
+                if cfg.optimizer.sector_momentum is not None:
+                    # the overlap slot carries the sector weight |<P_q>|
+                    row["sector_weight"] = ovl
                 if e_exact is not None:
                     row["rel_err"] = abs(er - e_exact) / abs(e_exact)
                 logger.log(step_no, row)
@@ -259,17 +268,21 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
 
 
 def _write_snapshot(cfg, state) -> None:
-    """Final params as '<csv_path>.params.npz' in the JAX package's flat-key
+    """Final params as '<csv_path>.params.npz', and the EMA (when on) as
+    '<csv_path>.ema.npz' with the same keys, in the JAX package's flat-key
     format (readable by ``qmcnn_tpu.utils.transfer.load_checkpoint_params``
     and usable as ``run.init_from`` by either package)."""
     from qmcnn_tpu_torch.utils.transfer import params_to_jax
 
-    flat = params_to_jax(state.params)
-    path = cfg.run.csv_path + ".params.npz"
-    np.savez(path, **flat)
-    n_mb = sum(v.nbytes for v in flat.values()) / 1e6
-    print(f"# snapshot: {len(flat)} params leaves ({n_mb:.2f} MB) -> {path}",
-          flush=True)
+    for field, tree in (("params", state.params), ("ema", state.ema)):
+        if tree is None:
+            continue
+        flat = params_to_jax(tree)
+        path = f"{cfg.run.csv_path}.{field}.npz"
+        np.savez(path, **flat)
+        n_mb = sum(v.nbytes for v in flat.values()) / 1e6
+        print(f"# snapshot: {len(flat)} {field} leaves ({n_mb:.2f} MB) -> "
+              f"{path}", flush=True)
 
 
 def _write_manifest(cfg, e_tail, e_err, e_exact, n_sites, dev,

@@ -3,8 +3,8 @@
 
 A checkpoint holds everything the next step reads: the params and the
 optimizer state, the walkers' configurations, their stored log psi and the
-sampler's counters, SPRING's carried delta (``sr_aux``), and the step
-counter (the per-step random key is
+sampler's counters, SPRING's carried delta (``sr_aux``), the parameter EMA
+(``ema``), and the step counter (the per-step random key is
 ``fold_in(base_key, step)``, and SR's shift and the learning-rate schedule
 are functions of the step and the optimizer count). So a run resumed from a
 checkpoint continues exactly as the uninterrupted run would have.
@@ -63,6 +63,8 @@ def state_to_dict(state: TrainState, group=None) -> dict:
         "step": int(state.step),
         "sr_aux": (None if state.sr_aux is None
                    else state.sr_aux.detach().cpu()),
+        "ema": (None if state.ema is None
+                else _to(state.ema, lambda t: t.detach().cpu())),
     }
 
 
@@ -93,9 +95,20 @@ def state_from_dict(d: dict, template: TrainState) -> TrainState:
                          f"{tuple(template.sr_aux.shape)}")
     else:
         sr_aux = like(sr_aux, template.sr_aux)
+    ema = d.get("ema")
+    if template.ema is None:
+        ema = None
+    elif ema is None:  # saved without EMA: the average starts at params
+        ema = {k: v.clone() for k, v in params.items()}
+    else:
+        if sorted(ema) != sorted(template.ema):
+            raise ValueError("the checkpoint's EMA does not match the "
+                             "model's params")
+        ema = {k: like(v, template.ema[k]) for k, v in ema.items()}
     return TrainState(params=params,
                       opt_state=_to(d["opt_state"], lambda t: t.to(dev)),
-                      walkers=walkers, step=int(d["step"]), sr_aux=sr_aux)
+                      walkers=walkers, step=int(d["step"]), sr_aux=sr_aux,
+                      ema=ema)
 
 
 def saved_steps(directory: str) -> list:
@@ -159,16 +172,17 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: TrainState, step: Optional[int] = None,
-                group=None) -> TrainState:
+                group=None, n_replicas: int = 1) -> TrainState:
         """Restore ``step`` (None: the latest) onto the devices and dtypes
-        of ``template``; with a walker ``group``, this rank's walkers."""
+        of ``template``; with a walker ``group``, this rank's walkers
+        (``n_replicas`` rows each under tempering)."""
         state = state_from_dict(load_state_dict(self.directory, step),
                                 template)
         if group is None:
             return state
         from qmcnn_tpu_torch.parallel.mesh import shard_train_state
 
-        return shard_train_state(state, group)
+        return shard_train_state(state, group, n_replicas)
 
     def close(self) -> None:
         """Nothing to release: every save is complete when it returns."""

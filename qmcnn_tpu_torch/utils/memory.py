@@ -1,6 +1,7 @@
 """Memory-estimate-driven auto-chunking (port of
 ``qmcnn_tpu/utils/memory.py``: ``model_footprint``, ``auto_chunk_size``,
-``auto_jacobian_chunk``).
+``auto_jacobian_chunk``, and the JAX builder's chunk rules for the
+(1 + alpha H) ansatz and sector optimization in :func:`run_chunk_size`).
 
 ``chunk_size: null`` / ``jacobian_chunk: null`` mean "fit it for me": the
 estimators return None (no chunking) whenever the unchunked batch fits the
@@ -16,7 +17,10 @@ D6, kagome's fine torus folded in), a PhaseNet trunk adds its layers, complex
 stacks count two parts and a wider window, the spin-flip projection doubles
 the batch and the CNN's translation and point-group averaging multiply it
 by N and 8, and the per-sample gradients of the expanded group kernels
-add to the backward pass. The RBM, the ARNN and the ViT have footprints of
+add to the backward pass. A frozen state's batch (``orthogonalize_to``:
+M x N spins and M log psi, replicated on every rank) is counted as JAX
+counts it: inside the persistent pad (256 KiB at the 8x8 M = 1024 run,
+against a 256 MiB pad). The RBM, the ARNN and the ViT have footprints of
 their own (:func:`model_footprint`). The constants are the JAX package's;
 they have not been recalibrated against PyTorch's allocator.
 """
@@ -197,3 +201,35 @@ def auto_jacobian_chunk(cfg, lattice, ham, n_params: Optional[int] = None,
     if m_local * fp.bwd_bytes() <= budget:
         return None
     return _largest_pow2_divisor_leq(m_local, budget / fp.bwd_bytes())
+
+
+def divided_chunk(chunk: int, factor: int, m: int) -> int:
+    """``chunk // factor`` (at least 1) rounded down to a divisor of ``m``:
+    the walker chunk of a pass whose every walker expands into ``factor``
+    times the configurations of an E_loc pass."""
+    target = max(1, chunk // factor)
+    while m % target:
+        target -= 1
+    return target
+
+
+def run_chunk_size(cfg, lattice, ham, n_params: Optional[int] = None,
+                   device="cuda", world_size: int = 1) -> Optional[int]:
+    """``run.chunk_size`` as the train step uses it: the configured value,
+    or (null) :func:`auto_chunk_size` with the JAX builder's two rules.
+    The (1 + alpha H) ansatz expands each forward by K more (its own
+    E_loc), so its chunk is divided by K = ham.n_conn and rounded down to a
+    divisor of the walker count. Sector optimization divides the chunk it
+    gets by the T translations, so "E_loc fits unchunked" becomes the
+    walker count, which chunks the sector pass at ~M / T walkers."""
+    if cfg.run.chunk_size is not None:
+        return cfg.run.chunk_size
+    chunk = auto_chunk_size(cfg, lattice, ham, n_params, device=device,
+                            world_size=world_size)
+    m_local = _local_walkers(cfg, world_size)
+    if cfg.model.lanczos_alpha is not None:
+        target = divided_chunk(chunk or m_local, ham.n_conn, m_local)
+        chunk = None if target >= m_local else target
+    if cfg.optimizer.sector_momentum is not None and chunk is None:
+        chunk = m_local
+    return chunk

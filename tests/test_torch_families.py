@@ -259,6 +259,13 @@ GUARDS = {
     "xyz_exchange_moves": ("tfim16_sgd.yaml", (
         "hamiltonian.kind=xyz", "hamiltonian.jy=0.5",
         "sampler.move=exchange")),
+    "pallas_tempering": ("tfim16_sgd.yaml", (
+        "sampler.backend=pallas", "sampler.tempering_betas=[1.0,0.5]")),
+    "lanczos_direct": ("tfim16_arnn.yaml", ("model.lanczos_alpha=0.1",)),
+    "lanczos_pallas": ("tfim16_sgd.yaml", ("model.lanczos_alpha=0.1",
+                                           "sampler.backend=pallas")),
+    "sector_deflation": ("tfim16_sgd.yaml", (
+        "optimizer.sector_momentum=[1]", "optimizer.deflate_c=2.0")),
 }
 
 
@@ -273,11 +280,12 @@ def test_guards_raise_as_in_jax(name):
 
 
 def test_later_slices_raise_not_implemented():
-    for base, over in (
-            ("j1j2_4x4_vit.yaml", ("model.compute_dtype=bfloat16",)),
-            ("tfim16_sgd.yaml", ("model.lanczos_alpha=0.1",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.build(_load(over, base)[1], device="cpu")
+    """The ViT's bf16 trunk (ROADMAP A20) is the one refusal left (the
+    (1 + alpha H) ansatz builds since slice 10:
+    tests/test_torch_sector_lanczos.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tb.build(_load(("model.compute_dtype=bfloat16",),
+                       "j1j2_4x4_vit.yaml")[1], device="cpu")
 
 
 @pytest.mark.parametrize("move,hx,jy", [("auto", 0.0, 1.0), ("auto", 0.2, 1.0),

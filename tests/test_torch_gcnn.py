@@ -525,8 +525,9 @@ def test_gcnn_eligibility():
                                  ).compute_dtype == "bfloat16"
     tb.build_model(bf16, tb.build_lattice(bf16))
     # the Jastrow factor and the triangular GCNN build since slice 8 (on
-    # the plain model, as checked above); the Lanczos-dressed ansatz is
-    # still refused
+    # the plain model, as checked above); the Lanczos-dressed ansatz builds
+    # since slice 10 (build() wraps the composed model) and takes no kernel:
+    # neither computes (1 + alpha H) psi
     from qmcnn_tpu_torch.models.jastrow import Jastrow
     from qmcnn_tpu_torch.models.tgcnn import LogPsiTriGCNN
 
@@ -537,8 +538,10 @@ def test_gcnn_eligibility():
         assert isinstance(model, tg.SpinFlipSymmetrized)
         assert isinstance(model.inner, kind), over
     cfg = _gcnn_cfg("model.lanczos_alpha=0.1")
-    with pytest.raises(NotImplementedError):
-        tb.build_model(cfg, tb.build_lattice(cfg))
+    assert isinstance(tb.build_model(cfg, tb.build_lattice(cfg)),
+                      tg.SpinFlipSymmetrized)
+    assert not tb.gcnn_kernel_eligible(cfg)
+    assert not tb.uses_fused_gcnn_forward(cfg, "cuda")
     deep = tcfg.load(os.path.join(ROOT, "configs", "j1j2_8x8_gcnn_deep.yaml"))
     assert tb.gcnn_kernel_eligible(deep)
 

@@ -211,7 +211,7 @@ def test_wrapped_covariance_gradient_matches_jax():
     walkers_t = WalkerState(s=s_t, log_psi=log_psi_fn(p, s_t),
                             n_accept=torch.zeros(32, dtype=torch.int32),
                             n_prop=torch.zeros(32, dtype=torch.int32))
-    _, _, g_t, eloc_t = t_energy_and_grad(log_psi_fn, t_ham, p, walkers_t)
+    _, _, g_t, eloc_t, _ = t_energy_and_grad(log_psi_fn, t_ham, p, walkers_t)
     np.testing.assert_allclose(eloc_t.re.numpy(), np.asarray(eloc_j.re),
                                rtol=1e-4, atol=1e-4)
     want = {k: np.asarray(x) for k, x in jtransfer._flatten(g_j).items()}

@@ -202,7 +202,7 @@ def test_three_spring_steps_match_jax():
             s=s_t, log_psi=vmc_t.log_psi_fn(p_t, s_t),
             n_accept=torch.zeros(32, dtype=torch.int32),
             n_prop=torch.zeros(32, dtype=torch.int32))
-        _, _, g_t, e_t = tvmc.energy_and_grad(
+        _, _, g_t, e_t, _ = tvmc.energy_and_grad(
             vmc_t.log_psi_fn, vmc_t.ham, p_t, walkers_t, chunk_size=16)
         d_t, _, res_t, carry_t = vmc_t.sr.solve_spring(
             vmc_t.log_psi_fn, p_t, s_t, g_t, step, carry_t, e_loc=e_t)

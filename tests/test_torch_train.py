@@ -140,16 +140,14 @@ def test_helpers_match_jax():
 
 
 def test_unported_options_raise(tmp_path):
-    """Options of later slices raise (complex parameters, bf16 and
-    checkpoints are ported since slice 5; sr.solver=cg and run.distributed
-    since slice 7; the Jastrow factor and SPRING since slice 8; the RBM and
-    translation averaging since slice 9, which now train)."""
+    """Options once refused now train a step on the CPU (complex
+    parameters, bf16 and checkpoints since slice 5; sr.solver=cg and
+    run.distributed since slice 7; the Jastrow factor and SPRING since
+    slice 8; the RBM and translation averaging since slice 9; the EMA, the
+    (1 + alpha H) ansatz and parallel tempering since slice 10)."""
     for ov in (("optimizer.ema_decay=0.9",), ("model.lanczos_alpha=0.1",),
-               ("sampler.tempering_betas=[1.0,0.5]",)):
-        cfg = tcfg.load(HEIS, SMALL + ov)
-        with pytest.raises(NotImplementedError):
-            ttrain.train(cfg, device="cpu")
-    for ov in (("model.jastrow=true",),
+               ("sampler.tempering_betas=[1.0,0.5]",),
+               ("model.jastrow=true",),
                ("sr.solver=minsr", "sr.momentum=0.9"),
                ("model.kind=rbm",), ("model.translation_average=true",)):
         cfg = tcfg.load(HEIS, SMALL + ov + ("run.n_steps=1",
@@ -158,6 +156,12 @@ def test_unported_options_raise(tmp_path):
         assert state.step == 1
         assert np.isfinite(logger.history["energy_re"]).all()
         assert (state.sr_aux is not None) == (cfg.sr.momentum > 0)
+        assert (state.ema is not None) == (cfg.optimizer.ema_decay > 0)
+        rows = cfg.sampler.n_walkers * len(cfg.sampler.tempering_betas or
+                                           (1,))
+        assert state.walkers.s.shape[0] == rows
+        if cfg.model.lanczos_alpha is not None:
+            assert state.params["lanczos/alpha"].shape == (2,)
     with pytest.raises(ValueError, match="requires solver='minsr'"):
         ttrain.train(tcfg.load(HEIS, SMALL + ("sr.momentum=0.9",)),
                      device="cpu")

@@ -71,7 +71,7 @@ def test_energy_and_grad_matches(pair):
     e_j, v_j, g_j, eloc_j, _ = j_energy_and_grad(
         pair["vmc_j"].log_psi_fn, pair["vmc_j"].ham, pair["params_j"],
         pair["state_j"].walkers)
-    e_t, v_t, g_t, eloc_t = t_energy_and_grad(
+    e_t, v_t, g_t, eloc_t, _ = t_energy_and_grad(
         pair["vmc_t"].log_psi_fn, pair["vmc_t"].ham, pair["params_t"],
         pair["walkers_t"])
     assert float(e_t.re) == pytest.approx(float(e_j.re), rel=1e-5)
@@ -319,10 +319,10 @@ def test_gcnn_eval_forward_feeds_sampler_and_e_loc(gcnn_pair):
                                atol=1e-5)
     w = p["walkers_t"]._replace(log_psi=a)
     kw = dict(chunk_size=16)
-    e1, _, g1, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
+    e1, _, g1, _, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
                                      p["params_t"], w, eval_log_psi_fn=fused,
                                      **kw)
-    e2, _, g2, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
+    e2, _, g2, _, _ = t_energy_and_grad(p["vmc_t"].log_psi_fn, p["vmc_t"].ham,
                                      p["params_t"], w, **kw)
     assert float(e1.re) == pytest.approx(float(e2.re), rel=1e-5)
     for k in g2:

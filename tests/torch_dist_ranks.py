@@ -4,10 +4,13 @@ over a ``FileStore`` on the CPU, so parallel test workers never race for a
 port. Imports torch and the port only, never JAX.
 
 Run as:  python tests/torch_dist_ranks.py <rank> <world size> <work dir>
+         [excited]
 
 The work dir holds ``spec.pt`` (the parent's shared inputs); each rank
 writes ``rank<r>.pt`` with what the parent compares against the 1-rank
 run, which the parent computes with the same functions and no group.
+With ``excited`` the ranks run only the tempering, deflation and penalty
+legs (``run_excited``; tests/test_torch_tempering.py).
 """
 import os
 import sys
@@ -229,8 +232,72 @@ def run_all(spec, group, work=None) -> dict:
     return out
 
 
+HEIS = os.path.join(ROOT, "configs", "heis10x10_sr.yaml")
+#: the excited legs' 4x4 Heisenberg CNN with M = 16 and a parameter EMA
+EXCITED_SMALL = ("lattice.shape=[4,4]", "model.channels=[3,3]",
+                 "sampler.n_walkers=16", "run.csv_path=null",
+                 "optimizer.ema_decay=0.9")
+
+
+def excited_spec(work: str) -> dict:
+    """The excited legs' frozen state: the seeded 4x4 model perturbed and
+    saved as a snapshot in ``work``."""
+    import numpy as np
+
+    cfg = tcfg.load(HEIS, EXCITED_SMALL)
+    _, params, _ = tb.build(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    snap = os.path.join(work, "psi0.params.npz")
+    np.savez(snap, **{k: (v + 0.2 * torch.randn(v.shape, generator=gen)
+                          ).numpy() for k, v in params.items()})
+    return {"psi0": snap}
+
+
+def _excited_leg(cfg, group, n_steps: int) -> list:
+    """``cfg`` on this rank's walkers (all with no group): the init walkers
+    and, after each step, the walkers, params, EMA, SPRING's carry, the
+    energy and the overlap."""
+    vmc, params, _ = tb.build(cfg, device="cpu", group=group)
+    m = cfg.sampler.n_walkers
+    if group is None:
+        state = vmc.init_state(prng_key(1), m, params)
+        ids = torch.arange(m)
+    else:
+        sharded = make_sharded_vmc(vmc, group)
+        state = sharded.init_state(prng_key(1), m, params)
+        ids = sharded.local_ids(state)
+    out = [{"s": state.walkers.s.clone()}]
+    for it in range(n_steps):
+        state, mt = vmc.step(state, fold_in(prng_key(2), it), ids)
+        rec = dict(record(state, mt), overlap=float(mt.overlap),
+                   ema={k: v.clone() for k, v in state.ema.items()})
+        if state.sr_aux is not None:
+            rec["sr_aux"] = state.sr_aux.clone()
+        out.append(rec)
+    return out
+
+
+def run_excited(spec, group) -> dict:
+    """Tempering (b = 1, 0.6, 0.3; exchange moves, pcg), the deflation
+    (c = 2, SPRING) and the additive penalty (beta = 2, no SR) against
+    the spec's frozen state, 2 steps each, all with the EMA on."""
+    temper = tcfg.load(HEIS, EXCITED_SMALL + (
+        "sampler.tempering_betas=[1.0,0.6,0.3]",))
+    frozen = (f"optimizer.orthogonalize_to=[{spec['psi0']}]",
+              "sampler.n_therm_sweeps=4")
+    deflate = tcfg.load(HEIS, EXCITED_SMALL + frozen + (
+        "optimizer.deflate_c=2.0", "sr.solver=minsr", "sr.momentum=0.9",
+        "sr.diag_shift0=0.1"))
+    penalty = tcfg.load(HEIS, EXCITED_SMALL + frozen + (
+        "optimizer.orth_beta=2.0", "sr.enabled=false"))
+    return {"tempering": _excited_leg(temper, group, 2),
+            "deflation": _excited_leg(deflate, group, 2),
+            "penalty": _excited_leg(penalty, group, 2)}
+
+
 def main():
     rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    suite = sys.argv[4] if len(sys.argv) > 4 else "all"
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -238,7 +305,8 @@ def main():
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     group = walker_group(device="cpu")
     spec = torch.load(os.path.join(work, "spec.pt"), weights_only=True)
-    out = run_all(spec, group, work)
+    out = (run_excited(spec, group) if suite == "excited"
+           else run_all(spec, group, work))
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "qmcnn_tpu"))
     assert not jax_mods, f"a rank imported {jax_mods[:3]}"
