@@ -111,6 +111,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 -0.6705, each pair's swap acceptance in (0, 1), K1's
                 recompute forward at the expected count and its fused sweep
                 unused); each leg's step split;
+                the measurement entry point (``measure_phase``;
+                ``qmcnn_tpu_torch.measure``): (a) the heis10x10_sr fixture
+                in its run's config (M = 2048, 8 samples, --total-spin
+                --dimer --sector-momentum 0,0) with K1 serving every sweep
+                and forward at the expected count (within 0.01/site of the
+                JAX run, magnetization 0, the S(q) peak at (pi, pi), the NN
+                S.S within 0.01 of E/site / 2, the q = 0 sector weight
+                within 1e-4 of 1 and its energy within 1e-4 |E| of E); (b)
+                the bf16-trained gcnn_r2 snapshot p15b measured in f32 on
+                K2's f32 route at the expected count (10 samples; against
+                the JAX f32 report runs/j1j2_8x8_p15_measure_f32.json:
+                E/site within max(0.002, 5 sigma), the S(q) peak, NN S.S
+                within 0.005, staggered m2 within 10%); (c) ``python -m
+                qmcnn_tpu_torch.measure --ema --chirality`` on the kagome
+                PhaseNet snapshot (the EMA's report within 0.01/site of
+                JAX's and its S(q) peak, a finite chirality, no kernel);
+                each leg's split per sample;
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -127,7 +144,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 rank's walkers, each rank's heis10x10_sr step split; the
                 tempered heis10x10_sr and the 4x4 E1 deflation legs too
                 (20 sweeps, 2 steps; the EMA, SPRING's carry and the
-                overlap bitwise equal across ranks); then
+                overlap bitwise equal across ranks), and the tempered leg
+                after 4 sweeps, whose pcg solve moves by reduction order
+                (``pcg_split_gate``: each step's update within a quarter
+                of the 1-rank run's largest entry, cosine >= 0.99, norm
+                ratio within 10%); then
                 the CLI under ``torch.distributed.run`` with NCCL, one rank
                 per card shown (at most 4), 3 steps;
   5. timings  — CUDA-event times of each kernel, its plain version and its
@@ -149,9 +170,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 deflation's forwards, gradient, SR, update);
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
                 K2's bf16 route with the SPRING leg's launches beside the
-                plain leg's; the sharded phase printed its own
-                ``{"sharded": ...}`` line), the card line, and the final
-                ``{"ok": true, ...}`` line.
+                plain leg's; each with its launches in the measurement
+                phase; the sharded and measurement phases printed their
+                own ``{"sharded": ...}`` and ``{"measure": ...}`` lines),
+                the card line, and the final ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --measure`` (``--excited``) runs only the kernels'
+build and the measurement (excited) phase.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 CUDA device or without the ``qmcnn_tpu_torch`` package beside it.
@@ -268,6 +293,20 @@ SECTOR_FIXTURE = ROOT / "runs" / "j1j2_8x8_sector_pipi.csv.params.npz"
 E_SITE_SECTOR = -0.131644
 #: the tempering ladder of the kagome A/B (BASELINE.md)
 TEMPER_BETAS = (1.0, 0.7, 0.45)
+#: the measurement legs: the JAX runs behind the heis10x10_sr fixture
+#: (its meta.json), the bf16 gcnn_r2 snapshot p15b (its run's config in its
+#: meta.json) with the JAX measure report of it in f32, and the kagome
+#: PhaseNet run with its EMA and the JAX measure --ema report of it; the
+#: samples each leg takes (the phase keeps to ~150 s on the card)
+FIXTURE_META = ROOT / "runs" / "ab_cnn_float32.csv.meta.json"
+P15B_META = ROOT / "runs" / "j1j2_8x8_p15b.csv.meta.json"
+P15B_FIXTURE = ROOT / "runs" / "j1j2_8x8_p15b_params.npz"
+P15B_REPORT = ROOT / "runs" / "j1j2_8x8_p15_measure_f32.json"
+KAGOME_EXT_META = ROOT / "runs" / "kagome3x3_r3_phasenet_ext.csv.meta.json"
+KAGOME_EXT_FIXTURE = (ROOT / "runs"
+                      / "kagome3x3_r3_phasenet_ext.csv.params.npz")
+KAGOME_EXT_REPORT = ROOT / "runs" / "kagome3x3_r3_phasenet_ext_ema.json"
+MEASURE_SAMPLES = {"cnn": 8, "gcnn": 10, "kagome": 10}
 
 
 def check(cond, msg: str) -> None:
@@ -466,6 +505,27 @@ def time_sweep(case, card: str) -> dict:
             "fp32_bound_ms": fp32_ms}
 
 
+def recompute_rel_err(params, lattice, batch: int, seed: int = 31):
+    """The sweep kernel's recompute forward (``FusedCNNLogPsi``) against the
+    cuDNN model (TF32 off; the plain version of the recompute mode) on
+    ``batch`` S^z = 0 configurations: (max relative error of log psi, the
+    configurations, the fused forward, the model)."""
+    import torch
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
+
+    x = init_walkers(prng_key(seed), batch, lattice.n_sites, sector="sz0",
+                     device="cuda")
+    model = cnn_model(params, lattice)
+    fused = FusedCNNLogPsi(lattice_shape=lattice.shape)
+    with torch.no_grad():
+        got = fused(params, x).re.double()
+        want = log_psi_apply(model, params, x).re.double()
+    rel = float(((got - want).abs() / want.abs()).max())
+    return rel, x, fused, model
+
+
 def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
     """The sweep kernel's recompute forward (``FusedCNNLogPsi``, the
     evaluation forward of E_loc) at the E_loc batch of heis10x10_sr against
@@ -473,19 +533,10 @@ def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
     the same configurations: log psi within rtol 1e-5, both times, and the
     bounds (configurations read once, log psi written once)."""
     import torch
-    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
     from qmcnn_tpu_torch.models.cnn import log_psi_apply
-    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
 
     n = lattice.n_sites
-    x = init_walkers(prng_key(31), batch, n, sector="sz0", device="cuda")
-    model = cnn_model(params, lattice)
-    fused = FusedCNNLogPsi(lattice_shape=lattice.shape)
-    with torch.no_grad():
-        got = fused(params, x).re.double()
-        want = log_psi_apply(model, params, x).re.double()
-    rel = float(((got - want).abs() / want.abs()).max())
-    del got, want
+    rel, x, fused, model = recompute_rel_err(params, lattice, batch)
     ms = cuda_ms(lambda: fused(params, x), reps=5)
     with torch.no_grad():
         cudnn_ms = cuda_ms(lambda: log_psi_apply(model, params, x), reps=5)
@@ -580,21 +631,26 @@ def gcnn_case(model_kw: dict, batch: int, seed: int, device, params=None,
     return params, ws, x, kw
 
 
-def compare_gcnn(name: str, ws, x, kw, tol: float) -> float:
+def compare_gcnn(name: str, ws, x, kw, tol: float, rows=None) -> float:
     """K2 against its plain version on the card; returns max abs error of
-    S_g. Passes where |kernel - plain| <= tol + tol |plain|."""
+    S_g. Passes where |kernel - plain| <= tol + tol |plain|. With ``rows``
+    the kernel runs on all of ``x`` (the launch shape under test) and its
+    first ``rows`` rows are held against the plain version on them."""
     import torch
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 
     got = k2.gcnn_group_sums(x, ws, **kw)
-    want = k2.gcnn_group_sums_reference(x, ws, **kw)
+    n = x.shape[0] if rows is None else rows
+    want = k2.gcnn_group_sums_reference(x[:n], ws, **kw)
     torch.cuda.synchronize()
     worst, max_abs = 0.0, 0.0
-    for a, b in ((got.re, want.re), (got.im, want.im)):
+    for a, b in ((got.re[:n], want.re), (got.im[:n], want.im)):
         diff = (a - b).abs()
         max_abs = max(max_abs, float(diff.max()))
         worst = max(worst, float((diff - tol * b.abs()).max()))
-    print(f"  {name}: B={x.shape[0]}, S_g max abs err {max_abs:.3e} "
+    print(f"  {name}: B={x.shape[0]}"
+          + (f" (first {n} rows held)" if rows is not None else "")
+          + f", S_g max abs err {max_abs:.3e} "
           f"(|S_g| ~ {float(want.re.abs().mean()):.3f}; tol {tol:g})")
     check(worst <= tol, f"{name}: S_g outside rtol/atol {tol}")
     return max_abs
@@ -1917,6 +1973,330 @@ def excited_phase(out_dir: Path, card: str) -> dict:
     return {"defl8": legs["defl8"], "splits": splits}
 
 
+def jax_report(path: Path) -> dict:
+    """The JSON report in a JAX ``measure`` log (the lines from ``{`` to
+    ``}``)."""
+    text = path.read_text()
+    start = text.index("{\n")
+    return json.loads(text[start:text.index("\n}", start) + 2])
+
+
+def measure_expected(cfg, vmc, lattice, n_samples: int, therm: int,
+                     total_spin: bool = False, sector: bool = False) -> int:
+    """Launches of the kernel behind ``vmc``'s evaluation forward in one
+    ``measure()`` run: the initial refresh; a refresh and the sweeps (one
+    launch of the fused sweep, or one per proposal) per thermalization
+    chunk of ``therm`` sweeps; per sample a refresh and 2 sweeps, one per
+    E_loc chunk, one per NN S.S chunk (site grids), two per sector chunk
+    (the projected log psi of the connected and of the walkers'
+    configurations); and one per <S^2> pair chunk."""
+    from qmcnn_tpu_torch.measure import chunk_sizes
+    from qmcnn_tpu_torch.train import therm_chunks
+
+    m = cfg.sampler.n_walkers
+    le, pair, sec = chunk_sizes(vmc, m, lattice)
+    sweep = cfg.sampler.sweep_size or lattice.n_sites
+
+    def sweeps(n):
+        return 1 if vmc.sampler.backend == "cuda" else n * sweep
+
+    chunks = -(-m // (le or m))
+    per_sample = (1 + sweeps(2) + chunks
+                  + (chunks if lattice.basis == 1 else 0)
+                  + (2 * (m // sec) if sector else 0))
+    n_pairs = lattice.n_sites * (lattice.n_sites - 1) // 2
+    return (1 + sum(1 + sweeps(n) for _, n in therm_chunks(
+        therm, cfg.run.therm_sweeps_per_dispatch))
+            + n_samples * per_sample
+            + (-(-n_pairs // pair) if total_spin else 0))
+
+
+def measure_split(seconds: dict, n_samples: int, card: str,
+                  label: str) -> dict:
+    """Print a measurement's split: the thermalization, ms per sample of
+    each estimator, <S^2> once."""
+    once = ("therm", "total_spin")
+    per = {k: 1000 * v / n_samples for k, v in seconds.items()
+           if k not in once}
+    print(f"    {label} measurement ({card}): thermalization "
+          f"{seconds.get('therm', 0.0):.2f} s; per sample "
+          f"{sum(per.values()):.2f} ms = "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + " ms"
+          + (f"; <S^2> once {1000 * seconds['total_spin']:.2f} ms"
+             if "total_spin" in seconds else ""))
+    return {"therm_s": seconds.get("therm", 0.0), "per_sample_ms": per,
+            "total_spin_ms": 1000 * seconds.get("total_spin", 0.0)}
+
+
+def measure_quiet(cfg, path: Path, **kw):
+    """``qmcnn_tpu_torch.measure.measure`` on the card with its stdout
+    captured and echoed: (report, text, timer)."""
+    from qmcnn_tpu_torch.measure import PhaseTimer, measure
+
+    timer = PhaseTimer("cuda")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = measure(cfg, str(path), device="cuda", timer=timer, **kw)
+    sys.stdout.write(buf.getvalue())
+    return report, buf.getvalue(), timer
+
+
+def measure_cnn_leg(card: str) -> dict:
+    """(a) The heis10x10_sr fixture in its run's config at full width (10x10,
+    real CNN 16^3, M = 2048, exchange), ``--total-spin --dimer
+    --sector-momentum 0,0``: K1 serves every sweep and forward at the
+    expected count, K2 0; the energy within 0.01/site of the JAX run,
+    magnetization exactly 0, the S(q) peak at (pi, pi) (index 55), the NN
+    S.S within 0.01 of E/site / 2, the q = 0 sector (the CNN and the
+    Marshall-rotated state are translation invariant) with weight within
+    1e-4 of 1 and energy within 1e-4 |E| of the energy, <S^2> finite.
+    First, K1's recompute forward against the cuDNN model at the sector
+    chunk's call (sector chunk x n_conn x N configurations; the E_loc
+    batch is held in phase 5), log psi within rtol 1e-5."""
+    import numpy as np
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+    from qmcnn_tpu_torch.measure import chunk_sizes
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                params_from_jax)
+
+    cfg = meta_config(FIXTURE_META)
+    e_jax = json.loads(FIXTURE_META.read_text())["e_per_site"]
+    n = MEASURE_SAMPLES["cnn"]
+    vmc, _, lattice = build(cfg, device="cuda")
+    check(isinstance(vmc.eval_log_psi_fn, k1.FusedCNNLogPsi)
+          and vmc.sampler.backend == "cuda",
+          "measure (a): K1 does not serve the sweeps and forwards")
+    sec = chunk_sizes(vmc, cfg.sampler.n_walkers, lattice)[2]
+    rows = sec * vmc.ham.n_conn * lattice.n_sites
+    rel = recompute_rel_err(params_from_jax(load_checkpoint_params(
+        str(FIXTURE)), "cuda"), lattice, rows, seed=32)[0]
+    print(f"    (a) K1's recompute forward at the sector chunk's call "
+          f"B={rows}: log psi max rel err vs the cuDNN model {rel:.3e}")
+    check(rel <= 1e-5, f"measure (a): recompute forward at B={rows}: rel "
+          f"err {rel}")
+    want = measure_expected(cfg, vmc, lattice, n, 50, total_spin=True,
+                            sector=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, _, timer = measure_quiet(cfg, FIXTURE, n_samples=n,
+                                  total_spin=True, dimer=True,
+                                  sector_momentum=[0, 0])
+    got = counts()
+    wall = time.perf_counter() - t0
+    e_site = rep["energy_per_site"]
+    print(f"    (a) heis10x10_sr fixture, K1: {wall:.1f} s, {n} samples, "
+          f"launches {got} (expected {want} on k1), E/site {e_site:.6f} +- "
+          f"{rep['energy_err'] / 100:.6f} (JAX run {e_jax:.7f}), m "
+          f"{rep['magnetization']}, S(q) peak {rep['structure_factor_peak']:.5f}"
+          f" at {rep['structure_factor_peak_q_index']}, NN S.S "
+          f"{rep['spin_spin_nn']:.6f} (E/site / 2 {e_site / 2:.6f}), "
+          f"staggered m2 {rep['staggered_m2']:.6f}, xi "
+          f"{rep['correlation_length']:.5f}, Binder "
+          f"{rep['binder_cumulant']:.5f}, dimer S(pi, 0) "
+          f"{rep['dimer_sf_pi0']:.5f}, q = 0 sector: weight "
+          f"{rep['sector_weight']!r}, E_q {rep['sector_energy']!r} (E "
+          f"{rep['energy']!r}), <S^2> {rep['total_spin_sq']:.5f}")
+    check(got == {"k1": want, "k2_f32": 0, "k2_bf16": 0},
+          f"measure (a): launches {got}, expected {want} on k1")
+    check(abs(e_site - e_jax) <= 0.01,
+          f"measure (a): E/site {e_site} not within 0.01 of {e_jax}")
+    check(rep["magnetization"] == 0.0,
+          f"measure (a): magnetization {rep['magnetization']}")
+    check(rep["structure_factor_peak_q_index"] == 55,
+          f"measure (a): S(q) peak at {rep['structure_factor_peak_q_index']}")
+    check(abs(rep["spin_spin_nn"] - e_site / 2) < 0.01,
+          f"measure (a): NN S.S {rep['spin_spin_nn']} vs E/site / 2")
+    check(abs(rep["sector_weight"] - 1.0) < 1e-4,
+          f"measure (a): q = 0 sector weight {rep['sector_weight']}")
+    check(abs(rep["sector_energy"] - rep["energy"])
+          < 1e-4 * abs(rep["energy"]),
+          f"measure (a): E_q {rep['sector_energy']} vs E {rep['energy']}")
+    check(np.isfinite(rep["total_spin_sq"]), "measure (a): <S^2> not finite")
+    split = measure_split(timer.seconds, n, card, "(a) heis10x10_sr")
+    return {"launches": got, "report": rep, "split": split, "seconds": wall}
+
+
+def measure_gcnn_kernel_checks(cfg, vmc, params, lattice) -> None:
+    """K2's f32 route on the p15b snapshot's weights at the batches leg (b)
+    launches it with: S_g at the sweep's call (M walkers and their spin
+    flips, B = 2M) and at an E_loc chunk's (le_chunk x n_conn connected
+    configurations and their flips), the chunk held on its first 16,384
+    rows, within the d12 fixture's rtol / atol 1e-3; and log psi through
+    the evaluation forward (the character and the spin-flip projection
+    included) against the plain model at M and at the chunk (held on its
+    first 8,192), as :func:`compare_gcnn_log_psi` holds it."""
+    import torch
+    from qmcnn_tpu_torch.measure import chunk_sizes
+    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
+
+    m = cfg.sampler.n_walkers
+    le, _, _ = chunk_sizes(vmc, m, lattice)
+    chunk = (le or m) * vmc.ham.n_conn
+    mc = cfg.model
+    kw = dict(lattice_shape=tuple(lattice.shape), channels=tuple(mc.channels),
+              complex_params=mc.complex_params, activation=mc.activation,
+              residual=mc.residual)
+    label = (f"p15b snapshot (W={8 * mc.channels[0]}, L={len(mc.channels)}, "
+             f"{mc.activation}, residual)")
+    for batch, rows, seed, call in ((2 * m, None, 51, "sweep call"),
+                                    (2 * chunk, 16384, 52, "E_loc chunk")):
+        _, ws, x, kw2 = gcnn_case(kw, batch, seed, "cuda", params=params)
+        compare_gcnn(f"{label}, {call}", ws, x, kw2, 1e-3, rows=rows)
+        del x
+    for batch, rows, seed in ((m, m, 53), (chunk, 8192, 54)):
+        x = init_walkers(prng_key(seed), batch, lattice.n_sites,
+                         sector="sz0", device="cuda")
+        with torch.no_grad():
+            got = vmc.eval_log_psi_fn(params, x)[:rows]
+            want = vmc.log_psi_fn(params, x[:rows])
+        torch.cuda.synchronize()
+        check_log_psi(f"{label} log psi, {mc.gcnn_character}, spin-flip "
+                      f"{mc.spin_flip_sector:+d}, {batch} configurations "
+                      f"(first {rows} held)", got, want,
+                      mc.gcnn_character != "A1", 1e-4, 1e-3)
+        del x
+
+
+def measure_gcnn_leg(card: str) -> dict:
+    """(b) The bf16-trained gcnn_r2 snapshot p15b in its run's config at full
+    width (W = 80, L = 8, M = 2048), measured in f32: the override line,
+    K2's f32 route on every forward at the expected count, K2 bf16 and K1
+    0; against the JAX f32 report: E/site within max(0.002, 5 sigma),
+    magnetization 0, the S(q) peak at index 36, the NN S.S within 0.005,
+    staggered m2 within 10%; xi and the Binder cumulant printed beside
+    JAX's. First, K2 against its plain version on the snapshot's weights
+    at the leg's batches (:func:`measure_gcnn_kernel_checks`)."""
+    import dataclasses
+
+    import numpy as np
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.utils.transfer import warm_start
+
+    cfg = meta_config(P15B_META)
+    ref = jax_report(P15B_REPORT)
+    n = MEASURE_SAMPLES["gcnn"]
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    vmc, params, lattice = build(f32, device="cuda")
+    check(isinstance(vmc.eval_log_psi_fn, k2.FusedLogPsi)
+          and vmc.eval_log_psi_fn.compute_dtype == "float32",
+          "measure (b): K2's f32 route does not serve the forwards")
+    measure_gcnn_kernel_checks(f32, vmc, warm_start(params, str(P15B_FIXTURE)),
+                               lattice)
+    want = measure_expected(f32, vmc, lattice, n, 50)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, text, timer = measure_quiet(cfg, P15B_FIXTURE, n_samples=n)
+    got = counts()
+    wall = time.perf_counter() - t0
+    sigma = np.hypot(rep["energy_err"], ref["energy_err"]) / 64
+    d_e = rep["energy_per_site"] - ref["energy_per_site"]
+    print(f"    (b) j1j2_8x8_p15b (bf16-trained) in f32, K2 f32: {wall:.1f} "
+          f"s, {n} samples, launches {got} (expected {want} on k2_f32), "
+          f"E/site {rep['energy_per_site']:.7f} +- "
+          f"{rep['energy_err'] / 64:.7f} (JAX {ref['energy_per_site']:.7f}"
+          f" +- {ref['energy_err'] / 64:.7f}; diff {d_e:+.7f}, sigma "
+          f"{sigma:.7f}), m {rep['magnetization']}, S(q) peak "
+          f"{rep['structure_factor_peak']:.5f} at "
+          f"{rep['structure_factor_peak_q_index']} (JAX "
+          f"{ref['structure_factor_peak']:.5f} at "
+          f"{ref['structure_factor_peak_q_index']}), NN S.S "
+          f"{rep['spin_spin_nn']:.7f} (JAX {ref['spin_spin_nn']:.7f}), "
+          f"staggered m2 {rep['staggered_m2']:.7f} (JAX "
+          f"{ref['staggered_m2']:.7f}), xi {rep['correlation_length']:.5f} "
+          f"(JAX {ref['correlation_length']:.5f}), Binder "
+          f"{rep['binder_cumulant']:.5f} (JAX {ref['binder_cumulant']:.5f})")
+    check("measure: forcing compute_dtype float32 (training used bfloat16)"
+          in text, "measure (b): no f32 override line")
+    check(got == {"k1": 0, "k2_f32": want, "k2_bf16": 0},
+          f"measure (b): launches {got}, expected {want} on k2_f32")
+    check(abs(d_e) <= max(0.002, 5 * sigma),
+          f"measure (b): E/site off the JAX report by {d_e}")
+    check(rep["magnetization"] == 0.0,
+          f"measure (b): magnetization {rep['magnetization']}")
+    check(rep["structure_factor_peak_q_index"]
+          == ref["structure_factor_peak_q_index"] == 36,
+          f"measure (b): S(q) peak at {rep['structure_factor_peak_q_index']}")
+    check(abs(rep["spin_spin_nn"] - ref["spin_spin_nn"]) <= 0.005,
+          f"measure (b): NN S.S {rep['spin_spin_nn']}")
+    check(abs(rep["staggered_m2"] / ref["staggered_m2"] - 1) <= 0.1,
+          f"measure (b): staggered m2 {rep['staggered_m2']}")
+    split = measure_split(timer.seconds, n, card, "(b) j1j2_8x8_p15b")
+    return {"launches": got, "report": rep, "split": split, "seconds": wall}
+
+
+def measure_cli_leg(out_dir: Path, card: str) -> dict:
+    """(c) ``python -m qmcnn_tpu_torch.measure`` on the card in a subprocess:
+    the kagome PhaseNet run's config (its meta.json; the port refuses
+    run.heartbeat_path), its snapshot with ``--ema --chirality``: "ema"
+    true, a finite chirality with its error, E/site within 0.01 of the JAX
+    EMA report and its S(q) peak index; no kernel launched (PhaseNet takes
+    the plain model, as in JAX)."""
+    import numpy as np
+
+    ref = jax_report(KAGOME_EXT_REPORT)
+    yaml_path = out_dir / "kagome3x3_r3_phasenet_ext.yaml"
+    yaml_path.write_text(json.loads(KAGOME_EXT_META.read_text())["config"])
+    n = MEASURE_SAMPLES["kagome"]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "qmcnn_tpu_torch.measure", "--config",
+         str(yaml_path), "--override", "run.heartbeat_path=null",
+         "--ckpt-dir", str(KAGOME_EXT_FIXTURE), "--ema", "--chirality",
+         "--n-samples", str(n), "--timings"], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"measure (c): the CLI failed (rc "
+          f"{run.returncode}):\n{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    out = run.stdout
+    rep = json.loads(out[out.index("{\n"):out.index("\nszsz_corr:")])
+    extra = json.loads(out.strip().splitlines()[-1])
+    got = extra["launches"]
+    d_e = rep["energy_per_site"] - ref["energy_per_site"]
+    print(f"    (c) python -m qmcnn_tpu_torch.measure --ema --chirality, "
+          f"kagome3x3_r3_phasenet_ext: {wall:.1f} s in all, {n} samples, "
+          f"ema {rep['ema']}, launches {got}, E/site "
+          f"{rep['energy_per_site']:.7f} +- {rep['energy_err'] / 27:.7f} "
+          f"(JAX EMA {ref['energy_per_site']:.7f}; diff {d_e:+.7f}), S(q) "
+          f"peak {rep['structure_factor_peak']:.5f} at "
+          f"{rep['structure_factor_peak_q_index']} (JAX "
+          f"{ref['structure_factor_peak']:.5f} at "
+          f"{ref['structure_factor_peak_q_index']}), chirality "
+          f"{rep['scalar_chirality']:.6f} +- {rep['scalar_chirality_err']:.6f}"
+          " (the JAX report has none)")
+    check(rep["ema"] is True, "measure (c): the report is not the EMA's")
+    check(np.isfinite(rep["scalar_chirality"])
+          and np.isfinite(rep["scalar_chirality_err"]),
+          "measure (c): chirality not finite")
+    check(abs(d_e) <= 0.01, f"measure (c): E/site off JAX's by {d_e}")
+    check(rep["structure_factor_peak_q_index"]
+          == ref["structure_factor_peak_q_index"],
+          f"measure (c): S(q) peak at {rep['structure_factor_peak_q_index']}")
+    check(sum(got.values()) == 0, f"measure (c): launched {got}")
+    split = measure_split(extra["timings_s"], n, card,
+                          "(c) kagome3x3_r3_phasenet_ext")
+    return {"launches": got, "report": rep, "split": split, "seconds": wall}
+
+
+def measure_phase(out_dir: Path, card: str) -> dict:
+    """The measurement entry point (``qmcnn_tpu_torch/measure.py``): (a) the
+    heis10x10_sr fixture on K1, (b) the bf16 gcnn_r2 snapshot on K2's f32
+    route, (c) the CLI with the EMA and the chirality on the kagome
+    PhaseNet snapshot; each leg's counters zeroed just before it and read
+    just after it, held exactly to ``measure_expected``."""
+    legs = {"cnn": measure_cnn_leg(card), "gcnn": measure_gcnn_leg(card),
+            "kagome": measure_cli_leg(out_dir, card)}
+    out = {k: sum(leg["launches"][k] for leg in legs.values())
+           for k in ("k1", "k2_f32", "k2_bf16")}
+    print(json.dumps({"measure": {
+        "launches": out, **{name: {"seconds": leg["seconds"],
+                                   "split": leg["split"]}
+                            for name, leg in legs.items()}}}))
+    return dict(out, legs=legs)
+
+
 def connected_gain(cfg, state):
     """Per walker, max over its H-connected configurations s' of
     Re log psi(s') - Re log psi(s) at the state's params: under |psi|^2 a
@@ -2013,8 +2393,9 @@ def sharded_configs(n_ranks: int) -> dict:
     fixture (the config's 100 thermalization sweeps, 2 steps), (b)
     j1j2_8x8_gcnn at full width with each minSR assembly (4 sweeps, 2
     steps), (c) the dryrun shape with pcg and with cg, (d) heis10x10_sr
-    tempered (20 sweeps, 2 steps) and the 4x4 E1 deflation (20 sweeps, 2
-    steps; the frozen batch drawn whole on every rank)."""
+    tempered (20 sweeps, 2 steps; and 4 sweeps, 2 steps, held by
+    :func:`pcg_split_gate`) and the 4x4 E1 deflation (20 sweeps, 2 steps;
+    the frozen batch drawn whole on every rank)."""
     from qmcnn_tpu_torch import configs
 
     heis = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"), (
@@ -2027,6 +2408,8 @@ def sharded_configs(n_ranks: int) -> dict:
             "dryrun_pcg": dryrun_config(n_ranks, "pcg"),
             "dryrun_cg": dryrun_config(n_ranks, "cg"),
             "tempering": tempering_config(ROOT / ".runs", n_steps=2),
+            "tempering4": tempering_config(ROOT / ".runs", n_steps=2,
+                                           n_therm=4),
             "defl4x4": defl4_config(ROOT / ".runs", 2, (
                 "sampler.n_therm_sweeps=20", "run.csv_path=null"))}
 
@@ -2067,7 +2450,8 @@ def shard_leg(cfg, group) -> dict:
     state = chunked_thermalize(vmc, state, fold_in(key, 1), ids,
                                cfg.sampler.n_therm_sweeps,
                                cfg.run.therm_sweeps_per_dispatch)
-    rec = {"s_therm": state.walkers.s.cpu(), "steps": []}
+    rec = {"s_therm": state.walkers.s.cpu(), "steps": [],
+           "params0": {k: v.cpu() for k, v in state.params.items()}}
     base_key = fold_in(key, 2)
     for _ in range(cfg.run.n_steps):
         state, mt = vmc.step(state, fold_in(base_key, state.step), ids)
@@ -2085,6 +2469,71 @@ def shard_leg(cfg, group) -> dict:
                fused=type(vmc.eval_log_psi_fn).__name__,
                backend=vmc.sampler.backend)
     return rec, vmc, state
+
+
+def pcg_split_gate(name: str, want: dict, got: list) -> dict:
+    """What walker sharding allows the tempered heis10x10_sr leg after 4
+    sweeps (``want``: the 1-rank record; ``got``: the ranks'), where pcg's
+    solve moves by reduction order and its iteration count may split.
+
+    2 ranks take every walker mean as a mean of two half-means, so the
+    energy E rounds otherwise (by ~1e-5 of 67), which moves the gradient
+    b = Re mean(O* (E_loc - E)) by -dE <O> since the scores O are not
+    centered (|<O>| ~ 300 here; the JAX package forms b the same way,
+    E_loc centered by the all-reduced mean, ``qmcnn_tpu/vmc.py:182``, and
+    the loss mean(Re[dE* log psi]) differentiated at :196-201); the S
+    matvec's mean rounds otherwise too, and pcg (cg_tol 1e-4, 70-100
+    iterations here) carries both until the loops stop apart, far from
+    the threshold atol2 = (tol |b|)^2. ``python tests/torch_pcg_margins.py
+    --device cuda:0 --walkers 2048 --split-mean`` printed on an H100 80GB
+    HBM3 at 700 W: E -67.00532532 / -67.00534058, |<O>| 282.4, b_2 - b_1
+    at 4.7e-3 of |b| with cosine 0.99986 and norm ratio 0.987 against
+    -dE <O>; sr_iters 73 / 74 at step 1 (1 rank stops at k = 73 with
+    (rr - atol2) / atol2 = -0.21, where 2 ranks read +0.86, then stop at
+    74 with -0.25) and 94 / 95 at step 2 (-0.22 against +4.05, then
+    -0.06); the 1-rank run whose matvec alone takes two half-means reads
+    73 / 76, its rr parting at 1e-6 at k = 3 and 35% at k = 5, while a
+    repeat of the 1-rank run is bitwise. The params land 2.6e-5 / 3.2e-5
+    from the 1-rank run's, outside the rtol 2e-4 / atol 2e-6 the other
+    legs hold (the 20-sweep leg's solve moves as well, less).
+
+    Held: the walkers bitwise after thermalization and after step 1's
+    sampling (before any pcg; checked by the caller), step 1's energy
+    within rtol 2e-5 (computed before its pcg), later energies within
+    rtol 1e-3 (a few rows of the next sampling may flip their Metropolis
+    decision on params that differ at rounding), the params bitwise across
+    ranks (checked by the caller) and each step's update against the
+    1-rank run's: dp_2 - dp_1 within a quarter of max |dp_1|, the cosine
+    of dp_2 and dp_1 at least 0.99 and |dp_2| / |dp_1| within 10% of 1
+    (two solves of systems that differ at rounding give nearly the same
+    step; a rank that skipped or scaled its update fails all three)."""
+    import torch
+
+    steps, mine = want["steps"], got[0]["steps"]
+    prev_w, prev_g, out = want["params0"], got[0]["params0"], []
+    for i, (w, g) in enumerate(zip(steps, mine)):
+        dw, dg = (torch.cat([(q["params"][k] - p[k]).double().ravel()
+                             for k in sorted(p)])
+                  for q, p in ((w, prev_w), (g, prev_g)))
+        prev_w, prev_g = w["params"], g["params"]
+        size = float(dw.abs().max())
+        frac = float((dg - dw).abs().max()) / size
+        cos = float(dg @ dw / (dg.norm() * dw.norm()))
+        ratio = float(dg.norm() / dw.norm())
+        d = max(float((g["params"][k] - v).abs().max())
+                for k, v in w["params"].items())
+        e_rel = abs(g["energy_re"] - w["energy_re"]) / abs(w["energy_re"])
+        check(e_rel <= (2e-5 if i == 0 else 1e-3),
+              f"sharded {name} step {i + 1}: energies differ by {e_rel} "
+              "relative")
+        check(frac <= 0.25 and cos >= 0.99 and abs(ratio - 1) <= 0.1,
+              f"sharded {name} step {i + 1}: the update differs from the "
+              f"1-rank run's by {frac:.3f} of its largest entry {size:.3e}, "
+              f"cosine {cos:.6f}, norm ratio {ratio:.4f}")
+        out.append({"params_max_abs_diff": d, "update_max_abs": size,
+                    "update_diff_frac": frac, "update_cosine": cos,
+                    "update_norm_ratio": ratio, "energy_rel_diff": e_rel})
+    return {"steps": out}
 
 
 def sharded_legs(group, n_ranks: int) -> dict:
@@ -2159,14 +2608,13 @@ def sharded_cards_main(n_cards: int) -> int:
     return 0
 
 
-def excited_main() -> int:
-    """``python3 chip_smoke.py --excited``: only the build and the excited
-    phase (its legs, checks and step splits), for iterating on that
-    phase."""
+def phase_main(flag: str, label: str, phase) -> int:
+    """``python3 chip_smoke.py --excited`` / ``--measure``: only the build
+    and that phase (its legs, checks and splits), for iterating on it."""
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: --excited needs a CUDA device", file=sys.stderr)
+        print(f"chip_smoke: {flag} needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
@@ -2179,8 +2627,8 @@ def excited_main() -> int:
     out_dir = ROOT / ".runs" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    excited_phase(out_dir, card)
-    print(f"    excited phase {time.perf_counter() - t0:.1f} s")
+    phase(out_dir, card)
+    print(f"    {label} phase {time.perf_counter() - t0:.1f} s")
     print(card)
     return 0
 
@@ -2275,6 +2723,7 @@ def sharded_phase(out_dir: Path, card: str, n_ranks: int = SHARD_RANKS,
         check(rec["walkers_bitwise"], f"sharded {name}: walkers differ from "
               f"the 1-rank run ({walkers_eq})")
         e_rel, p_viol, p_abs = 0.0, 0.0, 0.0
+        split = name == "tempering4"
         rtol, atol = ((2e-4, 2e-6) if kernel == "k1" else (5e-4, 5e-6))
         for i, w in enumerate(want["steps"]):
             gs = [g["steps"][i] for g in got]
@@ -2301,7 +2750,9 @@ def sharded_phase(out_dir: Path, card: str, n_ranks: int = SHARD_RANKS,
                    energies_1rank=[w["energy_re"] for w in want["steps"]],
                    sr_iters=[g["sr_iters"] for g in got[0]["steps"]],
                    sr_iters_1rank=[w["sr_iters"] for w in want["steps"]])
-        if not dry:  # the dryrun's 1 step is held to finiteness and S^z
+        if split:  # pcg's solve may move by reduction order
+            rec["pcg_split"] = pcg_split_gate(name, want, got)
+        elif not dry:  # the dryrun's 1 step is held to finiteness and S^z
             check(e_rel <= 2e-5, f"sharded {name}: energies differ by "
                   f"{e_rel} relative")
             check(p_viol <= 1.0, f"sharded {name}: params outside rtol "
@@ -2311,7 +2762,8 @@ def sharded_phase(out_dir: Path, card: str, n_ranks: int = SHARD_RANKS,
               f"{rec['launches_1rank']}), walkers bitwise {rec['walkers_bitwise']},"
               f" E {rec['energies']} (1 rank {rec['energies_1rank']}), max rel "
               f"{e_rel:.2e}, params max abs diff {p_abs:.2e}, sr_iters "
-              f"{rec['sr_iters']} (1 rank {rec['sr_iters_1rank']})")
+              f"{rec['sr_iters']} (1 rank {rec['sr_iters_1rank']})"
+              + (f", pcg split {rec['pcg_split']}" if split else ""))
         report["legs"][name] = rec
     splits = [ref["heis_split"]] + [rk["heis_split"] for rk in ranks]
     for label, sp in zip(["1 rank"] + [f"rank {r} of {n_ranks}"
@@ -2373,7 +2825,9 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--sharded-cards":
         return sharded_cards_main(int(sys.argv[2]))
     if len(sys.argv) > 1 and sys.argv[1] == "--excited":
-        return excited_main()
+        return phase_main("--excited", "excited", excited_phase)
+    if len(sys.argv) > 1 and sys.argv[1] == "--measure":
+        return phase_main("--measure", "measurement", measure_phase)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -2621,6 +3075,13 @@ def main() -> int:
     t0 = time.perf_counter()
     excited = excited_phase(out_dir, card)
     print(f"    excited phase {time.perf_counter() - t0:.1f} s")
+    print("[4] measurement: python -m qmcnn_tpu_torch.measure's estimators "
+          "on the heis10x10_sr fixture (K1), the bf16 gcnn_r2 snapshot in "
+          "f32 (K2's f32 route) and, through the CLI, the kagome PhaseNet "
+          f"snapshot's EMA with the chirality ({card})", flush=True)
+    t0 = time.perf_counter()
+    measured = measure_phase(out_dir, card)
+    print(f"    measurement phase {time.perf_counter() - t0:.1f} s")
     print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
           "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
           "with pcg and cg, heis10x10_sr tempered, the 4x4 E1 deflation), "
@@ -2676,6 +3137,7 @@ def main() -> int:
         "source": "qmcnn_tpu_torch/csrc/metropolis_sweep.cu",
         "replaces": "qmcnn_tpu/kernels/metropolis_pallas.py:97",
         "launches": launches,
+        "measure_launches": measured["k1"],
         "max_abs_err": errs["flagship_exchange"],
         "ms": t_flag["ms"],
         "plain_ms": t_flag["plain_ms"],
@@ -2695,6 +3157,7 @@ def main() -> int:
         "source": "qmcnn_tpu_torch/csrc/gcnn_forward.cu",
         "replaces": "qmcnn_tpu/kernels/gcnn_pallas.py:259",
         "launches": gcnn["launches"],
+        "measure_launches": measured["k2_f32"],
         "max_abs_err": errs["gcnn"],
         "ms": t_eloc["ms"],
         "plain_ms": t_eloc["plain_ms"],
@@ -2719,6 +3182,7 @@ def main() -> int:
         "deflation_launches": excited["defl8"]["launches"],
         "deflation_per_step": excited["defl8"]["per_step"],
         "deflation_draw": excited["defl8"]["draw"],
+        "measure_launches": measured["k2_bf16"],
         "max_abs_err": bf16_err["max_abs_err"],
         "ms": t_r2["ms"],
         "plain_ms": t_r2["plain_ms"],

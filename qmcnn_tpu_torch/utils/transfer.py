@@ -20,6 +20,7 @@ port does not depend on orbax); export their params to an npz snapshot.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,10 +40,18 @@ def params_to_jax(params: Params) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in sorted(params.items())}
 
 
-def load_checkpoint_params(path: str, step: Optional[int] = None
-                           ) -> Dict[str, np.ndarray]:
+def load_checkpoint_params(path: str, step: Optional[int] = None,
+                           field: str = "params") -> Dict[str, np.ndarray]:
     """Read the params of a flat ``.npz`` snapshot, or of a port checkpoint
-    directory (at ``step``, None: the latest), as host arrays."""
+    directory (at ``step``, None: the latest), as host arrays.
+
+    ``field="ema"`` reads the parameter EMA instead: a checkpoint's
+    ``TrainState.ema``, or beside a ``<csv>.params.npz`` snapshot the
+    ``<csv>.ema.npz`` that the train loops write (where the JAX package's
+    loader returns the raw params of an npz whatever the field). Raises
+    ``ValueError`` when there is no EMA to read."""
+    if field not in ("params", "ema"):
+        raise ValueError(f"unknown params field {field!r}")
     if not path.endswith(".npz"):
         from qmcnn_tpu_torch.utils.checkpoint import (load_state_dict,
                                                       saved_steps)
@@ -53,8 +62,21 @@ def load_checkpoint_params(path: str, step: Optional[int] = None
                 "directory of the PyTorch port (an Orbax directory of the "
                 "JAX package is not readable here: export its params to a "
                 ".params.npz snapshot)")
-        params = load_state_dict(path, step)["params"]
+        params = load_state_dict(path, step)[field]
+        if params is None:
+            raise ValueError(
+                f"{path}: the checkpoint has no EMA state (train with "
+                "optimizer.ema_decay > 0)")
         return {k: v.numpy() for k, v in sorted(params.items())}
+    if field == "ema":
+        stem = path[:-len(".params.npz")]
+        if not path.endswith(".params.npz") or not os.path.isfile(
+                stem + ".ema.npz"):
+            raise ValueError(
+                f"{path}: no parameter EMA beside this snapshot (a "
+                "<csv>.params.npz whose run wrote <csv>.ema.npz, with "
+                "optimizer.ema_decay > 0)")
+        path = stem + ".ema.npz"
     with np.load(path) as z:
         flat = {k: np.asarray(z[k]) for k in z.files}
     if not flat:
@@ -107,13 +129,16 @@ def transfer_params(fresh: Params, source: Dict[str, np.ndarray],
 
 
 def warm_start(fresh_params: Params, path: str, step: Optional[int] = None,
-               expand: bool = False) -> Params:
-    """Load + transfer, with a one-line report."""
-    source = load_checkpoint_params(path, step)
+               expand: bool = False, field: str = "params") -> Params:
+    """Load + transfer, with a one-line report; ``field`` as in
+    :func:`load_checkpoint_params`."""
+    source = load_checkpoint_params(path, step, field=field)
     merged, n_copied, n_fresh = transfer_params(fresh_params, source,
                                                 expand=expand)
-    print(f"warm-start from {path}: {n_copied} param leaves "
-          f"transferred, {n_fresh} kept at fresh init")
+    print(f"warm-start from {path}"
+          + (f" ({field})" if field != "params" else "")
+          + f": {n_copied} param leaves transferred, {n_fresh} kept at "
+          "fresh init")
     if n_copied == 0:
         raise ValueError(
             f"warm-start from {path} matched no parameters — wrong "

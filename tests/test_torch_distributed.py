@@ -499,3 +499,28 @@ def test_cli_torchrun_two_ranks(tmp_path):
     assert state.step == 3
     assert torch.equal(state.walkers.s, final["walkers"]["s"])
     _close(state.params, final["params"], 5e-3, 5e-6, "restored in 1 rank")
+
+
+def test_pcg_margins_diagnostic():
+    """``tests/torch_pcg_margins.py``, the source of the sharded pcg split's
+    printed margins, at a tiny size (16 walkers, 1 sweep, 1 step, 2 ranks
+    and the split-mean run): it reaches its JSON line, the walkers agree
+    bitwise through step 1's sampling, a repeat of the 1-rank run is
+    bitwise, and each run's trace holds one row per pcg iteration plus the
+    start, with the loop stopping at its first rr <= atol2."""
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_pcg_margins.py"),
+         "--walkers", "16", "--sweeps", "1", "--steps", "1", "--ranks", "2",
+         "--split-mean"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["walkers_bitwise_after_therm"] and out["repeat_bitwise"]
+    for st in out["steps"] + out["split_mean"]["steps"]:
+        assert st["walkers_bitwise"]
+        for name, iters in (("1rank", st["sr_iters_1rank"]),
+                            ("nrank", st["sr_iters_nrank"])):
+            margins = [row[name]["margin"] for row in st["loop"]
+                       if name in row]
+            assert len(margins) == iters + 1
+            assert margins[-1] <= 0 < min(margins[:-1])

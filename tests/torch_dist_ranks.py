@@ -10,7 +10,9 @@ The work dir holds ``spec.pt`` (the parent's shared inputs); each rank
 writes ``rank<r>.pt`` with what the parent compares against the 1-rank
 run, which the parent computes with the same functions and no group.
 With ``excited`` the ranks run only the tempering, deflation and penalty
-legs (``run_excited``; tests/test_torch_tempering.py).
+legs (``run_excited``; tests/test_torch_tempering.py); with ``pcg`` only
+the tempered heis10x10_sr leg with pcg's loop values traced
+(``run_pcg_trace``; tests/torch_pcg_margins.py), on the spec's device.
 """
 import os
 import sys
@@ -295,18 +297,104 @@ def run_excited(spec, group) -> dict:
             "penalty": _excited_leg(penalty, group, 2)}
 
 
+def run_pcg_trace(spec, group) -> dict:
+    """heis10x10_sr from the fixture, tempered at (1.0, 0.7, 0.45), with the
+    spec's overrides (the sweeps, steps and walkers), as chip_smoke.py's
+    sharded legs train it, on this rank's walkers (all with no group) on
+    the spec's device. Every value pcg's loop tests read is recorded as
+    ``sr._agreed`` returned it: per solve, [atol2, rr] before the loop and
+    [bad, rr] after each iteration. Returns the params and the walkers
+    after thermalization and, per step, the walkers, params, sr_iters, the
+    energy, pcg's right-hand side b (the gradient) and the solve's trace.
+
+    With ``spec["split_mean"]`` (one process, no group) the S matvec's
+    walker mean is taken as the mean of two half-means, the summation
+    order of 2 ranks without a collective."""
+    from qmcnn_tpu_torch import sr as srmod
+    from qmcnn_tpu_torch.train import chunked_thermalize
+    from qmcnn_tpu_torch.utils.transfer import warm_start
+
+    cfg = tcfg.load(HEIS, tuple(spec["overrides"]))
+    device = spec["device"]
+    vmc, params, _ = tb.build(cfg, device=device, group=group)
+    params = warm_start(params, cfg.run.init_from)
+    m = cfg.sampler.n_walkers
+    key = prng_key(cfg.run.seed + 100)
+    if group is None:
+        state = vmc.init_state(fold_in(key, 0), m, params, device=device)
+        ids = torch.arange(m, device=device)
+    else:
+        sharded = make_sharded_vmc(vmc, group)
+        state = sharded.init_state(fold_in(key, 0), m, params)
+        ids = sharded.local_ids(state)
+    state = chunked_thermalize(vmc, state, fold_in(key, 1), ids,
+                               cfg.sampler.n_therm_sweeps,
+                               cfg.run.therm_sweeps_per_dispatch)
+    out = {"s_therm": state.walkers.s.cpu(), "steps": [],
+           "params0": {k: v.cpu() for k, v in state.params.items()}}
+    traces = []
+    agreed, pcg = srmod._agreed, srmod.pcg_flat
+
+    rhs = []
+
+    def traced_pcg(matvec, b, *args, **kw):
+        traces.append([])
+        rhs.append(b.detach().cpu())
+        return pcg(matvec, b, *args, **kw)
+
+    def traced_agreed(values, grp):
+        got = agreed(values, grp)
+        traces[-1].append(got)
+        return got
+
+    op_matvec = srmod.JacobianSOperator.matvec
+
+    def halves_matvec(op, v, diag_shift):
+        h = op.m_local // 2
+        parts = [op_matvec(srmod.JacobianSOperator(
+            oc_re=op.oc_re[rows], diag_s=op.diag_s, m_local=h,
+            oc_im=None if op.oc_im is None else op.oc_im[rows]), v, 0.0)
+            for rows in (slice(0, h), slice(h, None))]
+        return (parts[0] + parts[1]) / 2 + diag_shift * v
+
+    srmod.pcg_flat, srmod._agreed = traced_pcg, traced_agreed
+    if spec.get("split_mean"):
+        srmod.JacobianSOperator.matvec = halves_matvec
+    try:
+        base_key = fold_in(key, 2)
+        for _ in range(cfg.run.n_steps):
+            state, mt = vmc.step(state, fold_in(base_key, state.step), ids)
+            out["steps"].append({
+                "s": state.walkers.s.cpu(),
+                "params": {k: v.cpu() for k, v in state.params.items()},
+                "sr_iters": int(mt.sr_iters),
+                "energy_re": float(mt.energy_re), "b": rhs[-1],
+                "trace": torch.tensor(traces[-1], dtype=torch.float64)})
+    finally:
+        srmod.pcg_flat, srmod._agreed = pcg, agreed
+        srmod.JacobianSOperator.matvec = op_matvec
+    return out
+
+
 def main():
     rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     suite = sys.argv[4] if len(sys.argv) > 4 else "all"
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=True)
+    device = spec.get("device", "cpu")
+    if device != "cpu":
+        torch.cuda.set_device(device)
     store = dist.FileStore(os.path.join(work, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
-    group = walker_group(device="cpu")
-    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=True)
-    out = (run_excited(spec, group) if suite == "excited"
-           else run_all(spec, group, work))
+    group = walker_group(device=device)
+    if suite == "excited":
+        out = run_excited(spec, group)
+    elif suite == "pcg":
+        out = run_pcg_trace(spec, group)
+    else:
+        out = run_all(spec, group, work)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "qmcnn_tpu"))
     assert not jax_mods, f"a rank imported {jax_mods[:3]}"
