@@ -113,21 +113,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 unused); each leg's step split;
                 the measurement entry point (``measure_phase``;
                 ``qmcnn_tpu_torch.measure``): (a) the heis10x10_sr fixture
-                in its run's config (M = 2048, 8 samples, --total-spin
-                --dimer --sector-momentum 0,0) with K1 serving every sweep
-                and forward at the expected count (within 0.01/site of the
-                JAX run, magnetization 0, the S(q) peak at (pi, pi), the NN
+                in its run's config (M = 2048, 6 samples, --total-spin
+                --dimer --sector-momentum 0,0 --renyi2 half --renyi2 50:100
+                --renyi2 0:10 --sma --lanczos-step --fidelity-ckpt the bf16
+                sibling run's snapshot) with K1 serving every sweep and
+                forward at the expected count (within 0.01/site of the JAX
+                run, magnetization 0, the S(q) peak at (pi, pi), the NN
                 S.S within 0.01 of E/site / 2, the q = 0 sector weight
-                within 1e-4 of 1 and its energy within 1e-4 |E| of E); (b)
-                the bf16-trained gcnn_r2 snapshot p15b measured in f32 on
-                K2's f32 route at the expected count (10 samples; against
-                the JAX f32 report runs/j1j2_8x8_p15_measure_f32.json:
+                within 1e-4 of 1 and its energy within 1e-4 |E| of E; half
+                and 50:100 per sample within 1e-6, S_2 > 0; C_t(1) and
+                C_t(10) within 0.01, the SMA gap at (pi, pi); the Lanczos
+                step valid, its gain at most sqrt(k2); the fidelity in
+                (0, 1.05] and exactly 1 with itself); (b) the bf16-trained
+                gcnn_r2 snapshot p15b measured in f32 with --sma on K2's
+                f32 route at the expected count (6 samples; against the
+                JAX f32 reports runs/j1j2_8x8_p15_measure_f32.json:
                 E/site within max(0.002, 5 sigma), the S(q) peak, NN S.S
-                within 0.005, staggered m2 within 10%); (c) ``python -m
+                within 0.005, staggered m2 within 10%; and
+                runs/j1j2_8x8_sma.json: each C_t within 0.005, the gap at
+                index 36 and within 10%); (c) ``python -m
                 qmcnn_tpu_torch.measure --ema --chirality`` on the kagome
                 PhaseNet snapshot (the EMA's report within 0.01/site of
                 JAX's and its S(q) peak, a finite chirality, no kernel);
-                each leg's split per sample;
+                (c') the CLI's --lanczos-step on that run's final params at
+                M = 1024 against runs/kagome3x3_r3_lanczos_diag.json (the
+                step valid, E/site within max(5 sigma, 0.002), the Lanczos
+                E/site within max(5 jackknife errors, 0.002)); (d) leg
+                (a)'s measurement in 2 gloo ranks on cuda:0 against 1 rank,
+                4 samples (walkers bitwise, pooled Lanczos and sector
+                arrays bitwise or within rtol 1e-6, the report within 1e-5
+                of its scale, K1 per rank exact), then under torchrun with
+                NCCL; each leg's split per sample;
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -297,7 +313,8 @@ TEMPER_BETAS = (1.0, 0.7, 0.45)
 #: (its meta.json), the bf16 gcnn_r2 snapshot p15b (its run's config in its
 #: meta.json) with the JAX measure report of it in f32, and the kagome
 #: PhaseNet run with its EMA and the JAX measure --ema report of it; the
-#: samples each leg takes (the phase keeps to ~150 s on the card)
+#: samples each leg takes (cut from 8 / 10 / 10 when slice 12's flags
+#: doubled the phase, to keep the script near 900 s on the card)
 FIXTURE_META = ROOT / "runs" / "ab_cnn_float32.csv.meta.json"
 P15B_META = ROOT / "runs" / "j1j2_8x8_p15b.csv.meta.json"
 P15B_FIXTURE = ROOT / "runs" / "j1j2_8x8_p15b_params.npz"
@@ -306,7 +323,17 @@ KAGOME_EXT_META = ROOT / "runs" / "kagome3x3_r3_phasenet_ext.csv.meta.json"
 KAGOME_EXT_FIXTURE = (ROOT / "runs"
                       / "kagome3x3_r3_phasenet_ext.csv.params.npz")
 KAGOME_EXT_REPORT = ROOT / "runs" / "kagome3x3_r3_phasenet_ext_ema.json"
-MEASURE_SAMPLES = {"cnn": 8, "gcnn": 10, "kagome": 10}
+MEASURE_SAMPLES = {"cnn": 6, "gcnn": 6, "kagome": 6}
+#: leg (a)'s Renyi-2 regions: half the sites, its complement, a row
+MEASURE_REGIONS = ("half", "50:100", "0:10")
+#: the JAX SMA reports: another heis10x10_sr state (printed beside leg
+#: (a)), and p15b, leg (b)'s snapshot
+HEIS_SMA_REPORT = ROOT / "runs" / "heis10x10_sma.json"
+P15B_SMA_REPORT = ROOT / "runs" / "j1j2_8x8_sma.json"
+#: leg (c')'s JAX Lanczos-step diagnostic of the kagome PhaseNet run
+#: (scripts/r4_pipeline3.sh, arm I) and the run's CSV
+KAGOME_LANCZOS_REPORT = ROOT / "runs" / "kagome3x3_r3_lanczos_diag.json"
+KAGOME_EXT_CSV = ROOT / "runs" / "kagome3x3_r3_phasenet_ext.csv"
 
 
 def check(cond, msg: str) -> None:
@@ -1982,50 +2009,65 @@ def jax_report(path: Path) -> dict:
 
 
 def measure_expected(cfg, vmc, lattice, n_samples: int, therm: int,
-                     total_spin: bool = False, sector: bool = False) -> int:
+                     total_spin: bool = False, sector: bool = False,
+                     lanczos: bool = False, regions: int = 0,
+                     sma_disps: int = 0, fidelity: bool = False,
+                     m: Optional[int] = None, sweeps_between: int = 2
+                     ) -> int:
     """Launches of the kernel behind ``vmc``'s evaluation forward in one
-    ``measure()`` run: the initial refresh; a refresh and the sweeps (one
-    launch of the fused sweep, or one per proposal) per thermalization
-    chunk of ``therm`` sweeps; per sample a refresh and 2 sweeps, one per
-    E_loc chunk, one per NN S.S chunk (site grids), two per sector chunk
-    (the projected log psi of the connected and of the walkers'
-    configurations); and one per <S^2> pair chunk."""
+    ``measure()`` run on ``m`` walkers (a rank's; default all): the initial
+    refresh; a refresh and the sweeps (one launch of the fused sweep, or
+    one per proposal) per thermalization chunk of ``therm`` sweeps; per
+    sample a refresh and ``sweeps_between`` sweeps, one per E_loc chunk, one per NN S.S
+    chunk (site grids), K + 2 per Lanczos chunk (the connected states,
+    their E_loc in K inner chunks, the walkers' E_loc), two per sector
+    chunk (the projected log psi of the connected and of the walkers'
+    configurations), two per Renyi-2 region (the swapped halves) and one
+    per SMA displacement and E_loc chunk; one per <S^2> pair chunk; and
+    for the fidelity the second chain's initial refresh and
+    thermalization (max(therm, 50) sweeps) and four forwards."""
     from qmcnn_tpu_torch.measure import chunk_sizes
     from qmcnn_tpu_torch.train import therm_chunks
 
-    m = cfg.sampler.n_walkers
-    le, pair, sec = chunk_sizes(vmc, m, lattice)
+    m = m or cfg.sampler.n_walkers
+    le, pair, sec, lz = chunk_sizes(vmc, m, lattice)
     sweep = cfg.sampler.sweep_size or lattice.n_sites
 
     def sweeps(n):
         return 1 if vmc.sampler.backend == "cuda" else n * sweep
 
+    def thermalization(n):
+        return 1 + sum(1 + sweeps(k) for _, k in therm_chunks(
+            n, cfg.run.therm_sweeps_per_dispatch))
+
     chunks = -(-m // (le or m))
-    per_sample = (1 + sweeps(2) + chunks
+    per_sample = (1 + sweeps(sweeps_between) + chunks
                   + (chunks if lattice.basis == 1 else 0)
-                  + (2 * (m // sec) if sector else 0))
+                  + ((vmc.ham.n_conn + 2) * (m // lz) if lanczos else 0)
+                  + (2 * (m // sec) if sector else 0)
+                  + 2 * regions + sma_disps * chunks)
     n_pairs = lattice.n_sites * (lattice.n_sites - 1) // 2
-    return (1 + sum(1 + sweeps(n) for _, n in therm_chunks(
-        therm, cfg.run.therm_sweeps_per_dispatch))
-            + n_samples * per_sample
-            + (-(-n_pairs // pair) if total_spin else 0))
+    return (thermalization(therm) + n_samples * per_sample
+            + (-(-n_pairs // pair) if total_spin else 0)
+            + (thermalization(max(therm, 50)) + 4 if fidelity else 0))
 
 
 def measure_split(seconds: dict, n_samples: int, card: str,
                   label: str) -> dict:
     """Print a measurement's split: the thermalization, ms per sample of
     each estimator, <S^2> once."""
-    once = ("therm", "total_spin")
+    once = ("therm", "total_spin", "fidelity_therm", "fidelity")
     per = {k: 1000 * v / n_samples for k, v in seconds.items()
            if k not in once}
     print(f"    {label} measurement ({card}): thermalization "
           f"{seconds.get('therm', 0.0):.2f} s; per sample "
           f"{sum(per.values()):.2f} ms = "
           + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + " ms"
-          + (f"; <S^2> once {1000 * seconds['total_spin']:.2f} ms"
-             if "total_spin" in seconds else ""))
+          + "".join(f"; {k} once {1000 * seconds[k]:.2f} ms"
+                    for k in once[1:] if k in seconds))
     return {"therm_s": seconds.get("therm", 0.0), "per_sample_ms": per,
-            "total_spin_ms": 1000 * seconds.get("total_spin", 0.0)}
+            **{f"{k}_ms": 1000 * seconds[k] for k in once[1:]
+               if k in seconds}}
 
 
 def measure_quiet(cfg, path: Path, **kw):
@@ -2041,50 +2083,98 @@ def measure_quiet(cfg, path: Path, **kw):
     return report, buf.getvalue(), timer
 
 
+def lanczos_gain_check(label: str, rep: dict, traces: dict) -> dict:
+    """The Lanczos step valid, its gain h1 - E_lz (h1 the moment pass's own
+    E_loc mean) at most sqrt(k2), and its jackknife error finite."""
+    import numpy as np
+
+    e1 = np.concatenate(traces["lanczos_e1"])
+    h1 = float(e1.real.mean())
+    k2 = float((np.abs(e1) ** 2).mean()) - h1 * h1
+    gain = h1 - rep["lanczos_energy"]
+    check(rep["lanczos_valid"], f"{label}: the Lanczos step is invalid "
+          f"(gain {gain}, sqrt(k2) {np.sqrt(max(k2, 0.0))})")
+    check(gain <= np.sqrt(max(k2, 0.0)), f"{label}: Lanczos gain {gain} > "
+          f"sqrt(k2) {np.sqrt(max(k2, 0.0))}")
+    check(np.isfinite(rep.get("lanczos_energy_err", np.nan)),
+          f"{label}: no finite Lanczos jackknife error")
+    return {"gain": gain, "sqrt_k2": float(np.sqrt(max(k2, 0.0)))}
+
+
 def measure_cnn_leg(card: str) -> dict:
     """(a) The heis10x10_sr fixture in its run's config at full width (10x10,
     real CNN 16^3, M = 2048, exchange), ``--total-spin --dimer
-    --sector-momentum 0,0``: K1 serves every sweep and forward at the
-    expected count, K2 0; the energy within 0.01/site of the JAX run,
-    magnetization exactly 0, the S(q) peak at (pi, pi) (index 55), the NN
-    S.S within 0.01 of E/site / 2, the q = 0 sector (the CNN and the
-    Marshall-rotated state are translation invariant) with weight within
-    1e-4 of 1 and energy within 1e-4 |E| of the energy, <S^2> finite.
-    First, K1's recompute forward against the cuDNN model at the sector
-    chunk's call (sector chunk x n_conn x N configurations; the E_loc
-    batch is held in phase 5), log psi within rtol 1e-5."""
+    --sector-momentum 0,0 --renyi2 half --renyi2 50:100 --renyi2 0:10
+    --sma --lanczos-step --fidelity-ckpt`` the bf16 sibling run's snapshot
+    (read in f32): K1 serves every sweep and forward at the expected count,
+    K2 0; the energy within 0.01/site of the JAX run, magnetization
+    exactly 0, the S(q) peak at (pi, pi) (index 55), the NN S.S within 0.01
+    of E/site / 2, the q = 0 sector (the CNN and the Marshall-rotated state
+    are translation invariant) with weight within 1e-4 of 1 and energy
+    within 1e-4 |E| of the energy, <S^2> finite; ``half`` and its
+    complement ``50:100`` (the same estimator: swapping B gives A's pair
+    (t2, t1)) per sample within 1e-6 relative and S_2 > 0; the SMA's C_t(1)
+    and C_t(10) within 0.01 of each other, its softest mode at (pi, pi)
+    (index 55), its bound printed beside the JAX report of another
+    heis10x10_sr state; the Lanczos step valid, its gain at most sqrt(k2),
+    its jackknife error finite; the fidelity in (0, 1.05], and exactly 1
+    for the fixture with itself on the leg's walkers. First, K1's
+    recompute forward against the cuDNN model at the leg's new calls (the
+    swap batch, M / 2; the Lanczos chunk's inner call, chunk x n_conn) and
+    at the sector chunk's, log psi within rtol 1e-5."""
     import numpy as np
     from qmcnn_tpu_torch.builder import build
     from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
     from qmcnn_tpu_torch.measure import chunk_sizes
+    from qmcnn_tpu_torch.ops.fidelity import fidelity
+    from qmcnn_tpu_torch.ops.sma import exchange_shells
     from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                                 params_from_jax)
 
     cfg = meta_config(FIXTURE_META)
     e_jax = json.loads(FIXTURE_META.read_text())["e_per_site"]
     n = MEASURE_SAMPLES["cnn"]
+    m = cfg.sampler.n_walkers
     vmc, _, lattice = build(cfg, device="cuda")
     check(isinstance(vmc.eval_log_psi_fn, k1.FusedCNNLogPsi)
           and vmc.sampler.backend == "cuda",
           "measure (a): K1 does not serve the sweeps and forwards")
-    sec = chunk_sizes(vmc, cfg.sampler.n_walkers, lattice)[2]
-    rows = sec * vmc.ham.n_conn * lattice.n_sites
-    rel = recompute_rel_err(params_from_jax(load_checkpoint_params(
-        str(FIXTURE)), "cuda"), lattice, rows, seed=32)[0]
-    print(f"    (a) K1's recompute forward at the sector chunk's call "
-          f"B={rows}: log psi max rel err vs the cuDNN model {rel:.3e}")
-    check(rel <= 1e-5, f"measure (a): recompute forward at B={rows}: rel "
-          f"err {rel}")
+    _, _, sec, lz = chunk_sizes(vmc, m, lattice)
+    k = vmc.ham.n_conn
+    fixture = params_from_jax(load_checkpoint_params(str(FIXTURE)), "cuda")
+    for rows, seed, call in ((m // 2, 33, "swap batch"),
+                             (lz * k, 34, "Lanczos chunk's inner call"),
+                             (sec * k * lattice.n_sites, 32,
+                              "sector chunk's call")):
+        rel = recompute_rel_err(fixture, lattice, rows, seed=seed)[0]
+        print(f"    (a) K1's recompute forward at the {call} B={rows}: log "
+              f"psi max rel err vs the cuDNN model {rel:.3e}")
+        check(rel <= 1e-5, f"measure (a): recompute forward at B={rows}: "
+              f"rel err {rel}")
+    disps = len({d for _, d in exchange_shells(vmc.ham, lattice)})
     want = measure_expected(cfg, vmc, lattice, n, 50, total_spin=True,
-                            sector=True)
+                            sector=True, lanczos=True,
+                            regions=len(MEASURE_REGIONS), sma_disps=disps,
+                            fidelity=True)
+    record = {}
     reset_counts()
     t0 = time.perf_counter()
-    rep, _, timer = measure_quiet(cfg, FIXTURE, n_samples=n,
-                                  total_spin=True, dimer=True,
-                                  sector_momentum=[0, 0])
+    rep, _, timer = measure_quiet(
+        cfg, FIXTURE, n_samples=n, total_spin=True, dimer=True,
+        sector_momentum=[0, 0], renyi2_region=list(MEASURE_REGIONS),
+        sma=True, lanczos=True, fidelity_ckpt=str(CNN_BF16_FIXTURE),
+        record=record)
     got = counts()
     wall = time.perf_counter() - t0
     e_site = rep["energy_per_site"]
+    swaps = np.stack(record["traces"]["renyi2_swap"]).astype(np.float64)
+    comp = float(np.abs(swaps[:, 0] - swaps[:, 1]).max()
+                 / np.abs(swaps[:, 0]).min())
+    ct = rep["sma_transverse_corr"]
+    ref_sma = jax_report(HEIS_SMA_REPORT)
+    walkers = record["walkers"]
+    self_f = float(fidelity(vmc.eval_log_psi_fn, fixture, vmc.eval_log_psi_fn,
+                            fixture, walkers, walkers))
     print(f"    (a) heis10x10_sr fixture, K1: {wall:.1f} s, {n} samples, "
           f"launches {got} (expected {want} on k1), E/site {e_site:.6f} +- "
           f"{rep['energy_err'] / 100:.6f} (JAX run {e_jax:.7f}), m "
@@ -2097,6 +2187,19 @@ def measure_cnn_leg(card: str) -> dict:
           f"{rep['dimer_sf_pi0']:.5f}, q = 0 sector: weight "
           f"{rep['sector_weight']!r}, E_q {rep['sector_energy']!r} (E "
           f"{rep['energy']!r}), <S^2> {rep['total_spin_sq']:.5f}")
+    print(f"    (a) Renyi-2 {list(MEASURE_REGIONS)}: Tr rho_A^2 "
+          f"{rep['renyi2_swap_mean']} +- {rep['renyi2_swap_err']}, S_2 "
+          f"{rep['renyi2_entropy']}; half vs 50:100 per sample max rel diff "
+          f"{comp:.3e}; SMA C_t {ct}, gap bound {rep['sma_gap_bound']:.6f} at"
+          f" {rep['sma_gap_q_index']} (JAX, another heis10x10_sr state: "
+          f"C_t {ref_sma['sma_transverse_corr']}, bound "
+          f"{ref_sma['sma_gap_bound']:.6f} at {ref_sma['sma_gap_q_index']});"
+          f" Lanczos valid {rep['lanczos_valid']}, alpha "
+          f"{rep['lanczos_alpha']:.6f}, E/site "
+          f"{rep['lanczos_energy_per_site']:.7f} +- "
+          f"{rep['lanczos_energy_per_site_err']:.7f}, gain/site "
+          f"{rep['lanczos_gain_per_site']:.7f}; fidelity with the bf16 "
+          f"sibling run {rep['fidelity_vs_ckpt']:.6f}, with itself {self_f!r}")
     check(got == {"k1": want, "k2_f32": 0, "k2_bf16": 0},
           f"measure (a): launches {got}, expected {want} on k1")
     check(abs(e_site - e_jax) <= 0.01,
@@ -2113,26 +2216,41 @@ def measure_cnn_leg(card: str) -> dict:
           < 1e-4 * abs(rep["energy"]),
           f"measure (a): E_q {rep['sector_energy']} vs E {rep['energy']}")
     check(np.isfinite(rep["total_spin_sq"]), "measure (a): <S^2> not finite")
+    check(comp <= 1e-6, f"measure (a): half and 50:100 differ by {comp}")
+    check(rep["renyi2_entropy"][0] > 0,
+          f"measure (a): S_2(half) {rep['renyi2_entropy'][0]}")
+    check(abs(ct["1"] - ct["10"]) <= 0.01, f"measure (a): C_t {ct}")
+    check(rep["sma_gap_q_index"] == 55,
+          f"measure (a): SMA gap at q index {rep['sma_gap_q_index']}")
+    gain = lanczos_gain_check("measure (a)", rep, record["traces"])
+    check(0.0 < rep["fidelity_vs_ckpt"] <= 1.05,
+          f"measure (a): fidelity {rep['fidelity_vs_ckpt']}")
+    check(self_f == 1.0, f"measure (a): self-fidelity {self_f!r}")
     split = measure_split(timer.seconds, n, card, "(a) heis10x10_sr")
-    return {"launches": got, "report": rep, "split": split, "seconds": wall}
+    return {"launches": got, "report": rep, "split": split, "seconds": wall,
+            "lanczos_gain": gain, "half_vs_complement": comp,
+            "self_fidelity": self_f}
 
 
 def measure_gcnn_kernel_checks(cfg, vmc, params, lattice) -> None:
     """K2's f32 route on the p15b snapshot's weights at the batches leg (b)
     launches it with: S_g at the sweep's call (M walkers and their spin
-    flips, B = 2M) and at an E_loc chunk's (le_chunk x n_conn connected
+    flips, B = 2M), at an E_loc chunk's (le_chunk x n_conn connected
     configurations and their flips), the chunk held on its first 16,384
-    rows, within the d12 fixture's rtol / atol 1e-3; and log psi through
+    rows, and at an SMA displacement chunk's (le_chunk x N and their
+    flips), within the d12 fixture's rtol / atol 1e-3; and log psi through
     the evaluation forward (the character and the spin-flip projection
-    included) against the plain model at M and at the chunk (held on its
-    first 8,192), as :func:`compare_gcnn_log_psi` holds it."""
+    included) against the plain model at M, at the E_loc chunk (held on
+    its first 8,192) and at the SMA chunk, as :func:`compare_gcnn_log_psi`
+    holds it."""
     import torch
     from qmcnn_tpu_torch.measure import chunk_sizes
     from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
 
     m = cfg.sampler.n_walkers
-    le, _, _ = chunk_sizes(vmc, m, lattice)
-    chunk = (le or m) * vmc.ham.n_conn
+    le = chunk_sizes(vmc, m, lattice)[0] or m
+    chunk = le * vmc.ham.n_conn
+    sma = le * lattice.n_sites
     mc = cfg.model
     kw = dict(lattice_shape=tuple(lattice.shape), channels=tuple(mc.channels),
               complex_params=mc.complex_params, activation=mc.activation,
@@ -2140,11 +2258,12 @@ def measure_gcnn_kernel_checks(cfg, vmc, params, lattice) -> None:
     label = (f"p15b snapshot (W={8 * mc.channels[0]}, L={len(mc.channels)}, "
              f"{mc.activation}, residual)")
     for batch, rows, seed, call in ((2 * m, None, 51, "sweep call"),
-                                    (2 * chunk, 16384, 52, "E_loc chunk")):
+                                    (2 * chunk, 16384, 52, "E_loc chunk"),
+                                    (2 * sma, None, 55, "SMA chunk")):
         _, ws, x, kw2 = gcnn_case(kw, batch, seed, "cuda", params=params)
         compare_gcnn(f"{label}, {call}", ws, x, kw2, 1e-3, rows=rows)
         del x
-    for batch, rows, seed in ((m, m, 53), (chunk, 8192, 54)):
+    for batch, rows, seed in ((m, m, 53), (chunk, 8192, 54), (sma, sma, 56)):
         x = init_walkers(prng_key(seed), batch, lattice.n_sites,
                          sector="sz0", device="cuda")
         with torch.no_grad():
@@ -2165,17 +2284,22 @@ def measure_gcnn_leg(card: str) -> dict:
     0; against the JAX f32 report: E/site within max(0.002, 5 sigma),
     magnetization 0, the S(q) peak at index 36, the NN S.S within 0.005,
     staggered m2 within 10%; xi and the Binder cumulant printed beside
-    JAX's. First, K2 against its plain version on the snapshot's weights
-    at the leg's batches (:func:`measure_gcnn_kernel_checks`)."""
+    JAX's; with ``--sma``, against the JAX SMA report of the same snapshot
+    (runs/j1j2_8x8_sma.json): each of the four C_t within 0.005, the
+    softest mode at (pi, pi) (index 36), the gap bound within 10%. First,
+    K2 against its plain version on the snapshot's weights at the leg's
+    batches (:func:`measure_gcnn_kernel_checks`)."""
     import dataclasses
 
     import numpy as np
     from qmcnn_tpu_torch.builder import build
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.ops.sma import exchange_shells
     from qmcnn_tpu_torch.utils.transfer import warm_start
 
     cfg = meta_config(P15B_META)
     ref = jax_report(P15B_REPORT)
+    ref_sma = jax_report(P15B_SMA_REPORT)
     n = MEASURE_SAMPLES["gcnn"]
     f32 = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype="float32"))
@@ -2185,10 +2309,12 @@ def measure_gcnn_leg(card: str) -> dict:
           "measure (b): K2's f32 route does not serve the forwards")
     measure_gcnn_kernel_checks(f32, vmc, warm_start(params, str(P15B_FIXTURE)),
                                lattice)
-    want = measure_expected(f32, vmc, lattice, n, 50)
+    disps = len({d for _, d in exchange_shells(vmc.ham, lattice)})
+    want = measure_expected(f32, vmc, lattice, n, 50, sma_disps=disps)
     reset_counts()
     t0 = time.perf_counter()
-    rep, text, timer = measure_quiet(cfg, P15B_FIXTURE, n_samples=n)
+    rep, text, timer = measure_quiet(cfg, P15B_FIXTURE, n_samples=n,
+                                     sma=True)
     got = counts()
     wall = time.perf_counter() - t0
     sigma = np.hypot(rep["energy_err"], ref["energy_err"]) / 64
@@ -2223,6 +2349,19 @@ def measure_gcnn_leg(card: str) -> dict:
           f"measure (b): NN S.S {rep['spin_spin_nn']}")
     check(abs(rep["staggered_m2"] / ref["staggered_m2"] - 1) <= 0.1,
           f"measure (b): staggered m2 {rep['staggered_m2']}")
+    ct, ct_ref = rep["sma_transverse_corr"], ref_sma["sma_transverse_corr"]
+    ct_diff = max(abs(ct[d] - v) for d, v in ct_ref.items())
+    gap_rel = rep["sma_gap_bound"] / ref_sma["sma_gap_bound"] - 1
+    print(f"    (b) SMA: C_t {ct} (JAX {ct_ref}; max diff {ct_diff:.6f}), "
+          f"gap bound {rep['sma_gap_bound']:.6f} at {rep['sma_gap_q_index']}"
+          f" (JAX {ref_sma['sma_gap_bound']:.6f} at "
+          f"{ref_sma['sma_gap_q_index']}; {100 * gap_rel:+.2f}%)")
+    check(sorted(ct) == sorted(ct_ref) and ct_diff <= 0.005,
+          f"measure (b): SMA C_t {ct} vs JAX {ct_ref}")
+    check(rep["sma_gap_q_index"] == ref_sma["sma_gap_q_index"] == 36,
+          f"measure (b): SMA gap at q index {rep['sma_gap_q_index']}")
+    check(abs(gap_rel) <= 0.1, f"measure (b): SMA gap bound "
+          f"{rep['sma_gap_bound']} vs JAX {ref_sma['sma_gap_bound']}")
     split = measure_split(timer.seconds, n, card, "(b) j1j2_8x8_p15b")
     return {"launches": got, "report": rep, "split": split, "seconds": wall}
 
@@ -2280,20 +2419,315 @@ def measure_cli_leg(out_dir: Path, card: str) -> dict:
     return {"launches": got, "report": rep, "split": split, "seconds": wall}
 
 
+def measure_lanczos_cli_leg(out_dir: Path, card: str) -> dict:
+    """(c') ``python -m qmcnn_tpu_torch.measure --lanczos-step --n-samples 4
+    --override sampler.n_walkers=1024`` on the kagome PhaseNet run's final
+    params (its CSV ends at the JAX report's step, 3000), in the run's
+    config, as JAX's Lanczos-step diagnostic of that run measured it
+    (runs/kagome3x3_r3_lanczos_diag.json, scripts/r4_pipeline3.sh arm I;
+    its checkpoint's full-state restore at another walker count fell back
+    to the params and 50 fresh sweeps, as a .npz does): the step valid,
+    E/site within max(5 sigma, 0.002) of JAX's, the Lanczos E/site within
+    max(5 x its jackknife error, 0.002) of JAX's, alpha printed beside
+    JAX's; no kernel (PhaseNet takes the plain model)."""
+    import numpy as np
+
+    ref = jax_report(KAGOME_LANCZOS_REPORT)
+    last_step = int(KAGOME_EXT_CSV.read_text().strip().splitlines()[-1]
+                    .split(",")[0])
+    check(last_step == ref["step"] == 3000, f"measure (c'): the snapshot's "
+          f"run ends at step {last_step}, the JAX report read {ref['step']}")
+    yaml_path = out_dir / "kagome3x3_r3_phasenet_ext.yaml"
+    yaml_path.write_text(json.loads(KAGOME_EXT_META.read_text())["config"])
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "qmcnn_tpu_torch.measure", "--config",
+         str(yaml_path), "--override", "run.heartbeat_path=null",
+         "--ckpt-dir", str(KAGOME_EXT_FIXTURE), "--lanczos-step",
+         "--n-samples", "4", "--override", "sampler.n_walkers=1024",
+         "--timings"], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"measure (c'): the CLI failed (rc "
+          f"{run.returncode}):\n{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    out = run.stdout
+    rep = json.loads(out[out.index("{\n"):out.index("\nszsz_corr:")])
+    extra = json.loads(out.strip().splitlines()[-1])
+    got = extra["launches"]
+    sigma = np.hypot(rep["energy_err"], ref["energy_err"]) / 27
+    d_e = rep["energy_per_site"] - ref["energy_per_site"]
+    d_lz = rep["lanczos_energy_per_site"] - ref["lanczos_energy_per_site"]
+    lz_err = rep["lanczos_energy_per_site_err"]
+    print(f"    (c') python -m qmcnn_tpu_torch.measure --lanczos-step, "
+          f"kagome3x3_r3_phasenet_ext (step {last_step}), M = 1024: {wall:.1f}"
+          f" s in all, 4 samples, launches {got}, E/site "
+          f"{rep['energy_per_site']:.7f} +- {rep['energy_err'] / 27:.7f} (JAX"
+          f" {ref['energy_per_site']:.7f} +- {ref['energy_err'] / 27:.7f}; "
+          f"diff {d_e:+.7f}), Lanczos valid {rep['lanczos_valid']}, E/site "
+          f"{rep['lanczos_energy_per_site']:.7f} +- {lz_err:.7f} (JAX "
+          f"{ref['lanczos_energy_per_site']:.7f}; diff {d_lz:+.7f}), gain/"
+          f"site {rep['lanczos_gain_per_site']:.7f} (JAX "
+          f"{ref['lanczos_gain_per_site']:.7f}), alpha "
+          f"{rep['lanczos_alpha']:.6f} (JAX {ref['lanczos_alpha']:.6f})")
+    check(rep["lanczos_valid"], "measure (c'): the Lanczos step is invalid")
+    check(abs(d_e) <= max(5 * sigma, 0.002),
+          f"measure (c'): E/site off JAX's by {d_e}")
+    check(abs(d_lz) <= max(5 * lz_err, 0.002),
+          f"measure (c'): Lanczos E/site off JAX's by {d_lz}")
+    check(sum(got.values()) == 0, f"measure (c'): launched {got}")
+    split = measure_split(extra["timings_s"], 4, card,
+                          "(c') kagome3x3_r3_phasenet_ext Lanczos")
+    return {"launches": got, "report": rep, "split": split, "seconds": wall}
+
+
+#: leg (d)'s flags: every flag of the heis10x10_sr fixture, 4 samples
+SHARDED_MEASURE_FLAGS = dict(
+    n_samples=4, total_spin=True, dimer=True, sector_momentum=[0, 0],
+    renyi2_region=list(MEASURE_REGIONS), sma=True, lanczos=True,
+    fidelity_ckpt=str(CNN_BF16_FIXTURE))
+
+
+def sharded_measure_run(group) -> dict:
+    """Leg (d)'s measurement on this rank of ``group`` (all walkers with no
+    group): the report, the walkers after thermalization, the pooled
+    per-walker arrays (Lanczos, sector), the launches and the expected
+    launches for this rank's walkers."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.measure import measure
+    from qmcnn_tpu_torch.ops.sma import exchange_shells
+
+    cfg = meta_config(FIXTURE_META, ("run.distributed=true",)
+                      if group is not None else ())
+    m = cfg.sampler.n_walkers // (1 if group is None else group.world_size)
+    vmc, _, lattice = build(cfg, device="cuda", group=group)
+    want = measure_expected(
+        cfg, vmc, lattice, 4, 50, total_spin=True, sector=True, lanczos=True,
+        regions=len(MEASURE_REGIONS), fidelity=True, m=m,
+        sma_disps=len({d for _, d in exchange_shells(vmc.ham, lattice)}))
+    del vmc
+    record = {}
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        report = measure(cfg, str(FIXTURE), device="cuda", group=group,
+                         record=record, **SHARDED_MEASURE_FLAGS)
+    seconds = time.perf_counter() - t0
+    tr = record["traces"]
+    return {"report": report, "walkers": record["walkers"].cpu(),
+            "launches": counts(), "expected": want, "seconds": seconds,
+            **{k: torch.from_numpy(np.stack(tr[k])) for k in (
+                "lanczos_e1", "lanczos_g", "sector_num", "sector_den")}}
+
+
+def measure_rank_main(argv) -> int:
+    """One spawned rank of leg (d): ``chip_smoke.py --measure-rank R --world
+    W --port P --out DIR`` joins a gloo group at tcp://localhost:P on
+    cuda:0, runs :func:`sharded_measure_run` and saves it to
+    DIR/rank<R>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from qmcnn_tpu_torch.parallel.mesh import walker_group
+
+    rank, world, port, out = (int(argv[1]), int(argv[3]), int(argv[5]),
+                              Path(argv[7]))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    group = walker_group(device=device)
+    torch.save(sharded_measure_run(group), out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def report_scales(report: dict, n_sites: int) -> dict:
+    """The scale each difference-like report number is relative to: the
+    energy for its binned error, the sector's error and gap and the
+    Lanczos energy's error (per site for the per-site keys), N/2 for <S^2>
+    (a cancellation of M_z^2 + N/2 against the pair sum), the swap means
+    for their errors."""
+    e = abs(report["energy"])
+    scales = {k: e for k in ("energy_err", "sector_energy_err", "sector_gap",
+                             "lanczos_energy_err")}
+    scales.update({k: e / n_sites for k in (
+        "lanczos_gain_per_site", "lanczos_energy_per_site_err")})
+    scales["total_spin_sq"] = n_sites / 2
+    if "renyi2_swap_err" in report:
+        scales["renyi2_swap_err"] = report["renyi2_swap_mean"]
+    return scales
+
+
+def report_max_rel_diff(got: dict, want: dict, scales: dict) -> float:
+    """The largest difference between two reports' numbers relative to
+    max(|want|, the key's scale in ``scales``, 1e-6); infinite where their
+    keys, flags or Nones differ."""
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        return float("inf")
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, dict):
+            worst = max(worst, report_max_rel_diff(g, w, {}))
+            continue
+        if isinstance(w, bool):
+            worst = max(worst, 0.0 if g is w else float("inf"))
+            continue
+        gv, wv = (np.atleast_1d(np.asarray(x, dtype=object)) for x in (g, w))
+        if [v is None for v in gv] != [v is None for v in wv]:
+            return float("inf")
+        gv = np.asarray([v for v in gv if v is not None], np.float64)
+        wv = np.asarray([v for v in wv if v is not None], np.float64)
+        if gv.size:
+            scale = np.abs(np.asarray(scales.get(key, 0.0), np.float64))
+            worst = max(worst, float((np.abs(gv - wv) / np.maximum(
+                np.maximum(np.abs(wv), scale), 1e-6)).max()))
+    return worst
+
+
+def measure_sharded_leg(out_dir: Path, card: str, n_ranks: int) -> dict:
+    """(d) measure() sharded: ``n_ranks`` gloo ranks on cuda:0 (this script
+    with ``--measure-rank``) against 1 rank in this process, the
+    heis10x10_sr fixture with every flag (:data:`SHARDED_MEASURE_FLAGS`),
+    4 samples: each rank's walkers after thermalization bitwise the 1-rank
+    run's rows; the pooled per-walker Lanczos (E_loc, G) and sector num /
+    den bitwise the 1-rank run's, or within rtol 1e-6 (reported); every
+    report number within rtol 1e-5 (reduction order) of itself or of the
+    scale it is a difference of (:func:`report_scales`), and the ranks'
+    reports identical; K1 per rank at ``measure_expected`` for its
+    walkers, K2 0. Then the CLI under torchrun with NCCL, one rank per
+    card shown (NCCL refuses two ranks on one card), 1 sample of the same
+    flags: rc 0, one report printed (rank 0's)."""
+    import numpy as np
+    import torch
+
+    work = out_dir / "sharded_measure"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ref = sharded_measure_run(None)
+    check(ref["launches"] == {"k1": ref["expected"], "k2_f32": 0,
+                              "k2_bf16": 0},
+          f"measure (d), 1 rank: launches {ref['launches']}, expected "
+          f"{ref['expected']} on k1")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--measure-rank",
+         str(r), "--world", str(n_ranks), "--port", str(port), "--out",
+         str(work)], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n_ranks)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:  # stop every rank if one failed or hung
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"measure (d): rank {r} failed "
+              f"(rc {p.returncode}):\n{log[-3000:]}")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True)
+             for r in range(n_ranks)]
+    walkers_eq = torch.equal(torch.cat([rk["walkers"] for rk in ranks]),
+                             ref["walkers"])
+    arrays = {}
+    for key in ("lanczos_e1", "lanczos_g", "sector_num", "sector_den"):
+        bitwise = all(torch.equal(rk[key], ref[key]) for rk in ranks)
+        rel = max(float(((rk[key] - ref[key]).abs()
+                         / ref[key].abs().clamp_min(1e-30)).max())
+                  for rk in ranks)
+        arrays[key] = {"bitwise": bitwise, "max_rel_diff": rel}
+    rep_diff = report_max_rel_diff(ranks[0]["report"], ref["report"],
+                                   report_scales(ref["report"], 100))
+    same = all(rk["report"] == ranks[0]["report"] for rk in ranks[1:])
+    print(f"    (d) {n_ranks} gloo ranks on cuda:0 vs 1 rank, heis10x10_sr "
+          f"with every flag, 4 samples: 1 rank {ref['seconds']:.1f} s, "
+          f"{n_ranks} ranks {t_ranks:.1f} s with the process starts; K1 "
+          f"per rank {[rk['launches']['k1'] for rk in ranks]} (expected "
+          f"{[rk['expected'] for rk in ranks]}; 1 rank "
+          f"{ref['launches']['k1']}), walkers bitwise {walkers_eq}, pooled "
+          f"arrays {arrays}, report max rel diff {rep_diff:.3e}, ranks' "
+          f"reports identical {same}")
+    check(walkers_eq, "measure (d): the walkers after thermalization differ "
+          "from the 1-rank run's")
+    for r, rk in enumerate(ranks):
+        check(rk["launches"] == {"k1": rk["expected"], "k2_f32": 0,
+                                 "k2_bf16": 0},
+              f"measure (d) rank {r}: launches {rk['launches']}, expected "
+              f"{rk['expected']} on k1")
+    for key, a in arrays.items():
+        check(a["bitwise"] or a["max_rel_diff"] <= 1e-6,
+              f"measure (d): pooled {key} off the 1-rank run's by "
+              f"{a['max_rel_diff']}")
+    check(same, "measure (d): the ranks' reports differ")
+    check(rep_diff <= 1e-5, f"measure (d): the report is {rep_diff} off "
+          "the 1-rank run's")
+
+    n_cards = min(torch.cuda.device_count(), 4)
+    flags = ["--total-spin", "--dimer", "--sector-momentum", "0,0", "--sma",
+             "--lanczos-step", "--fidelity-ckpt", str(CNN_BF16_FIXTURE)]
+    for region in MEASURE_REGIONS:
+        flags += ["--renyi2", region]
+    yaml_path = out_dir / "heis10x10_sr_fixture.yaml"
+    yaml_path.write_text(json.loads(FIXTURE_META.read_text())["config"])
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n_cards}", "-m", "qmcnn_tpu_torch.measure",
+         "--config", str(yaml_path), "--ckpt-dir", str(FIXTURE),
+         "--n-samples", "1", "--override", "run.distributed=true",
+         "--override", "run.heartbeat_path=null", *flags], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t1
+    check(run.returncode == 0, f"measure (d): torchrun ({n_cards} ranks, "
+          f"NCCL) failed (rc {run.returncode}):\n{run.stdout[-2000:]}"
+          f"{run.stderr[-3000:]}")
+    out = run.stdout
+    check(out.count("szsz_corr:") == 1 and out.count('"lanczos_valid"') == 1,
+          "measure (d): torchrun printed other than one report")
+    cli = json.loads(out[out.index("{\n"):out.index("\nszsz_corr:")])
+    print(f"    (d) torchrun --nproc_per_node={n_cards} (NCCL) -m "
+          f"qmcnn_tpu_torch.measure, every flag, 1 sample: rc 0, one report, "
+          f"E/site {cli['energy_per_site']:.6f}, {t_cli:.1f} s in all")
+    return {"launches": ref["launches"], "seconds": ref["seconds"],
+            "ranks_seconds": t_ranks, "torchrun_seconds": t_cli,
+            "walkers_bitwise": walkers_eq, "arrays": arrays,
+            "report_max_rel_diff": rep_diff,
+            "launches_per_rank": [rk["launches"]["k1"] for rk in ranks]}
+
+
 def measure_phase(out_dir: Path, card: str) -> dict:
     """The measurement entry point (``qmcnn_tpu_torch/measure.py``): (a) the
-    heis10x10_sr fixture on K1, (b) the bf16 gcnn_r2 snapshot on K2's f32
-    route, (c) the CLI with the EMA and the chirality on the kagome
-    PhaseNet snapshot; each leg's counters zeroed just before it and read
-    just after it, held exactly to ``measure_expected``."""
+    heis10x10_sr fixture on K1 with every flag, (b) the bf16 gcnn_r2
+    snapshot on K2's f32 route with the SMA, (c) the CLI with the EMA and
+    the chirality on the kagome PhaseNet snapshot, (c') the CLI's Lanczos
+    step on the kagome PhaseNet run's final params, (d) leg (a)'s
+    measurement sharded over 2 gloo ranks against 1, and through torchrun;
+    each leg's counters zeroed just before it and read just after it,
+    held exactly to ``measure_expected``."""
     legs = {"cnn": measure_cnn_leg(card), "gcnn": measure_gcnn_leg(card),
-            "kagome": measure_cli_leg(out_dir, card)}
+            "kagome": measure_cli_leg(out_dir, card),
+            "kagome_lanczos": measure_lanczos_cli_leg(out_dir, card),
+            "sharded": measure_sharded_leg(out_dir, card, SHARD_RANKS)}
     out = {k: sum(leg["launches"][k] for leg in legs.values())
            for k in ("k1", "k2_f32", "k2_bf16")}
     print(json.dumps({"measure": {
         "launches": out, **{name: {"seconds": leg["seconds"],
                                    "split": leg["split"]}
-                            for name, leg in legs.items()}}}))
+                            for name, leg in legs.items() if "split" in leg},
+        "sharded": legs["sharded"]}}))
     return dict(out, legs=legs)
 
 
@@ -2822,6 +3256,8 @@ def main() -> int:
         return 2
     if len(sys.argv) > 1 and sys.argv[1] == "--sharded-rank":
         return sharded_rank_main(sys.argv[1:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--measure-rank":
+        return measure_rank_main(sys.argv[1:])
     if len(sys.argv) > 1 and sys.argv[1] == "--sharded-cards":
         return sharded_cards_main(int(sys.argv[2]))
     if len(sys.argv) > 1 and sys.argv[1] == "--excited":
@@ -3075,10 +3511,12 @@ def main() -> int:
     t0 = time.perf_counter()
     excited = excited_phase(out_dir, card)
     print(f"    excited phase {time.perf_counter() - t0:.1f} s")
-    print("[4] measurement: python -m qmcnn_tpu_torch.measure's estimators "
-          "on the heis10x10_sr fixture (K1), the bf16 gcnn_r2 snapshot in "
-          "f32 (K2's f32 route) and, through the CLI, the kagome PhaseNet "
-          f"snapshot's EMA with the chirality ({card})", flush=True)
+    print("[4] measurement: python -m qmcnn_tpu_torch.measure with every "
+          "flag on the heis10x10_sr fixture (K1), --sma on the bf16 gcnn_r2 "
+          "snapshot in f32 (K2's f32 route), through the CLI the kagome "
+          "PhaseNet snapshot's EMA with the chirality and its Lanczos step, "
+          "and the fixture's measurement in 2 gloo ranks against 1 and "
+          f"under torchrun ({card})", flush=True)
     t0 = time.perf_counter()
     measured = measure_phase(out_dir, card)
     print(f"    measurement phase {time.perf_counter() - t0:.1f} s")

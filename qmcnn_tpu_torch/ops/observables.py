@@ -3,9 +3,9 @@
 
 Diagonal observables (magnetizations, S^z correlations, dimer fields)
 come from the walker configurations alone; off-diagonal ones (the
-transverse spin-spin correlation, the scalar chirality, the total spin
-and the momentum-sector ratio) from amplitude ratios, the machinery of
-the local energy: their forwards run through whatever ``log_psi_fn`` the
+transverse spin-spin correlation, the scalar chirality, the total spin,
+the Renyi-2 swap and the momentum-sector ratio) from amplitude ratios,
+the machinery of the local energy: their forwards run through whatever ``log_psi_fn`` the
 caller passes (``measure.py`` passes ``VMC.eval_log_psi_fn``, so the
 fused kernels serve them on CUDA). Every device mean goes through
 ``vmc.pmean(x, group)`` (JAX: ``pmean(x, axis_name)``), so the estimators
@@ -302,6 +302,57 @@ def scalar_chirality(log_psi_fn, params, s: torch.Tensor, log_psi: C,
                            chirality_connected(lattice), group=group,
                            chunk_size=chunk_size)
     return C(-z.im, z.re)  # chi = i * z
+
+
+def renyi2_swap(log_psi_fn, params, s1: torch.Tensor, s2: torch.Tensor,
+                log_psi1: C, log_psi2: C, region, sector_mask: bool = False,
+                group=None) -> C:
+    """<SWAP_A> = Tr(rho_A^2), the replica swap estimator (Hastings et al.,
+    PRL 104:157201 (2010)) over two independent batches s1, s2 ~ |psi|^2:
+
+      swap_loc(s, s') = psi(t) psi(t') / (psi(s) psi(s')),
+      t = s with region A's spins from s', t' = s' with A's from s.
+
+    A diagonal rotation of product form (the Marshall sign) cancels from
+    the ratio: each site keeps its pair of replica values. ``sector_mask``
+    zeroes the pairs whose region-A magnetizations differ: an exact S^z
+    eigenstate gives them 0 (rho_A is block-diagonal in m_A), while an
+    ansatz trained only inside the sector returns unphysical amplitudes
+    for the out-of-sector swapped configurations. Returns the complex
+    mean, reduced over ``group`` (take S_2 = -ln Re on the host)."""
+    ratio = renyi2_swap_local(log_psi_fn, params, s1, s2, log_psi1,
+                              log_psi2, region, sector_mask=sector_mask)
+    return C(pmean(ratio.re.mean(), group), pmean(ratio.im.mean(), group))
+
+
+def renyi2_swap_local(log_psi_fn, params, s1: torch.Tensor, s2: torch.Tensor,
+                      log_psi1: C, log_psi2: C, region,
+                      sector_mask: bool = False) -> C:
+    """The per-pair swap_loc values [M] of :func:`renyi2_swap`, unreduced
+    (exact-enumeration tests weight them by |psi|^2). ``region`` is an [N]
+    0/1 mask of A."""
+    with torch.no_grad():
+        region = torch.as_tensor(region, dtype=torch.float32,
+                                 device=s1.device)
+        t1 = s1 * (1.0 - region) + s2 * region
+        t2 = s2 * (1.0 - region) + s1 * region
+        lp_t1 = log_psi_fn(params, t1)
+        lp_t2 = log_psi_fn(params, t2)
+        ratio = cplx.cexp(C(
+            lp_t1.re + lp_t2.re - log_psi1.re - log_psi2.re,
+            lp_t1.im + lp_t2.im - log_psi1.im - log_psi2.im))
+        if sector_mask:
+            keep = ((s1 * region).sum(-1) == (s2 * region).sum(-1))
+            w = keep.to(torch.float32)
+            ratio = C(ratio.re * w, ratio.im * w)
+        return ratio
+
+
+def renyi2_entropy(swap_mean: float) -> float:
+    """S_2 = -ln Re<SWAP_A> (host side); NaN where the estimate is <= 0,
+    which signals too few samples for an exponentially small overlap."""
+    v = float(np.real(swap_mean))
+    return float(-np.log(v)) if v > 0 else float("nan")
 
 
 def dimer_correlation(s: torch.Tensor, lattice: Lattice, direction: int = 0,

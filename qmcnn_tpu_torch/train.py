@@ -95,6 +95,22 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def check_rank_layout(cfg, group, module: str) -> None:
+    """Raise ``ValueError`` where the config's rank layout cannot run: several
+    devices in one process (the port runs one process per card, started by
+    torchrun; ``module`` is named in the command it suggests), or a walker
+    group without ``run.distributed``."""
+    if not cfg.run.distributed and (cfg.run.n_devices or 1) > 1:
+        raise ValueError(
+            f"run.n_devices={cfg.run.n_devices} in one process: the port runs "
+            "one process per card, so start them with torchrun (python -m "
+            "torch.distributed.run --nproc_per_node="
+            f"{cfg.run.n_devices} -m {module} ... --override "
+            "run.distributed=true)")
+    if group is not None and not cfg.run.distributed:
+        raise ValueError("a walker group needs run.distributed: true")
+
+
 def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     """Run the configured experiment; returns (final state, logger).
 
@@ -115,15 +131,7 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
             "A19)")
     if cfg.run.nan_policy not in ("rollback", "halt", "ignore"):
         raise ValueError(f"unknown run.nan_policy {cfg.run.nan_policy!r}")
-    if not cfg.run.distributed and (cfg.run.n_devices or 1) > 1:
-        raise ValueError(
-            f"run.n_devices={cfg.run.n_devices} in one process: the port runs "
-            "one process per card, so start them with torchrun (python -m "
-            "torch.distributed.run --nproc_per_node="
-            f"{cfg.run.n_devices} -m qmcnn_tpu_torch.train ... --override "
-            "run.distributed=true)")
-    if group is not None and not cfg.run.distributed:
-        raise ValueError("a walker group needs run.distributed: true")
+    check_rank_layout(cfg, group, "qmcnn_tpu_torch.train")
     m = cfg.sampler.n_walkers
     if cfg.run.distributed:
         from qmcnn_tpu_torch.builder import build_sharded

@@ -39,6 +39,7 @@ from qmcnn_tpu_torch.models import cnn as tc
 from qmcnn_tpu_torch.models import gcnn as tg
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R2 = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn_r2.yaml")

@@ -22,6 +22,7 @@ from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
 from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
 from qmcnn_tpu_torch.utils import transfer
 from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager, saved_steps
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R2 = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn_r2.yaml")

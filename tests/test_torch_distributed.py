@@ -46,6 +46,7 @@ from qmcnn_tpu_torch.sr import make_s_matvec as t_make_s_matvec
 from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from tests import torch_dist_ranks as R
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEIS = os.path.join(ROOT, "configs", "heis10x10_sr.yaml")
@@ -296,6 +297,29 @@ def test_one_process_refuses_several_devices(monkeypatch):
                      device="cpu")
 
 
+def test_measure_refuses_several_devices_in_one_process(monkeypatch):
+    """measure() as train(): run.n_devices > 1 without run.distributed raises
+    before it builds, naming torchrun and the measure module; a walker
+    group without run.distributed raises; run.distributed without a
+    process group raises, naming torchrun."""
+    from qmcnn_tpu_torch import measure as tmeasure
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("measure() built the model")
+
+    monkeypatch.setattr(tmeasure, "build", no_build)
+    snap = os.path.join(ROOT, "runs", "j1j2_4x4_ground.csv.params.npz")
+    with pytest.raises(ValueError, match="-m qmcnn_tpu_torch.measure"):
+        tmeasure.measure(tcfg.load(HEIS, ("run.n_devices=2",)), snap,
+                         device="cpu")
+    group = WalkerGroup(rank=0, world_size=1, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="run.distributed"):
+        tmeasure.measure(tcfg.load(HEIS), snap, device="cpu", group=group)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        tmeasure.measure(tcfg.load(HEIS, ("run.distributed=true",)), snap,
+                         device="cpu")
+
+
 @pytest.mark.parametrize("assembly", ["gather", "ring"])
 def test_distributed_minsr_matches_jax(sharded_runs, assembly):
     """The port's gather and ring minSR on 4 gloo ranks against the JAX
@@ -524,3 +548,68 @@ def test_pcg_margins_diagnostic():
                        if name in row]
             assert len(margins) == iters + 1
             assert margins[-1] <= 0 < min(margins[:-1])
+
+
+def _report_close(got: dict, want: dict, rtol: float, what: str) -> None:
+    """The same keys; every number of a measurement report within rtol
+    (atol 1e-6 near 0), a None (a NaN omega) where the other has one."""
+    assert sorted(got) == sorted(want), what
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, dict):
+            _report_close(g, w, rtol, f"{what} {key}")
+        elif isinstance(w, bool):
+            assert g is w, f"{what} {key}"
+        else:
+            def arr(x):
+                return np.asarray([np.nan if v is None else v
+                                   for v in np.atleast_1d(
+                                       np.asarray(x, dtype=object))],
+                                  np.float64)
+
+            np.testing.assert_allclose(arr(g), arr(w), rtol=rtol, atol=1e-6,
+                                       equal_nan=True,
+                                       err_msg=f"{what} {key}")
+
+
+def test_sharded_measure_matches_one_rank(tmp_path):
+    """measure() with every flag the 4x4 square lattice takes (the Lanczos
+    step, the q = 0 sector, three Renyi-2 regions, the SMA, <S^2>, the
+    dimers and the fidelity with a second state) in 2 gloo ranks against
+    1 (``tests/torch_dist_ranks.py``'s measure suite): the walkers after
+    thermalization bitwise the 1-rank run's rows; the per-walker Lanczos
+    (E_loc, G) and sector num / den pooled over the ranks in global walker
+    order within rtol 1e-6 of 1 rank (the CPU convolutions need not be
+    bitwise across batch sizes); every report number within rtol 1e-5
+    (reduction order), and both ranks' reports identical."""
+    spec = R.measure_spec(str(tmp_path))
+    torch.save(spec, tmp_path / "spec.pt")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_dist_ranks.py"),
+         str(r), "2", str(tmp_path), "measure"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        ref = R.run_measure(spec, None)
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+             for r in range(2)]
+    assert torch.equal(torch.cat([rk["walkers"] for rk in ranks]),
+                       ref["walkers"])
+    for key in ("lanczos_e1", "lanczos_g", "sector_num", "sector_den"):
+        for rk in ranks:
+            assert rk[key].shape == ref[key].shape == (4, 32), key
+            np.testing.assert_allclose(rk[key].numpy(), ref[key].numpy(),
+                                       rtol=1e-6, atol=1e-7, err_msg=key)
+    assert ranks[0]["report"] == ranks[1]["report"]
+    _report_close(ranks[0]["report"], ref["report"], 1e-5, "2 ranks")
+    for key in ("renyi2_entropy", "sma_gap_bound", "lanczos_energy",
+                "fidelity_vs_ckpt", "sector_energy", "total_spin_sq"):
+        assert key in ref["report"], key

@@ -36,6 +36,7 @@ from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from qmcnn_tpu_torch.vmc import TrainState
 from qmcnn_tpu_torch.vmc import energy_and_grad as t_energy_and_grad
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8

@@ -38,6 +38,7 @@ from qmcnn_tpu_torch.ops.local_energy import local_energy as t_eloc
 from qmcnn_tpu_torch.sampler.direct import DirectSampler
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from tests.test_torch_priors import _spins, _unflatten
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = os.path.join(ROOT, "runs")

@@ -11,6 +11,7 @@ import pytest
 from qmcnn_tpu_torch import configs as tcfg
 from qmcnn_tpu_torch import train as ttrain
 from qmcnn_tpu_torch.utils.transfer import load_checkpoint_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPENED = {

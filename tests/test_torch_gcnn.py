@@ -35,6 +35,7 @@ from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                             params_from_jax, transfer_params)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GCNN_CFG = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")

@@ -14,6 +14,8 @@ on the 4x4 snapshot and must agree within the run's statistics.
 """
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from qmcnn_tpu_torch.ops import observables as tobs
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                             params_from_jax)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = os.path.join(ROOT, "runs")
@@ -70,20 +73,6 @@ sampler: {move: exchange}
 
 def t(x):
     return torch.from_numpy(np.array(x))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's small CPU batches on one intra-op thread: with the test
-    workers sharing the cores, more threads stall at every op's barrier
-    (the 50 thermalization sweeps of a 4x4 snapshot took 97 s instead of
-    6 under six busy cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 class Case:
@@ -555,19 +544,73 @@ def test_ema_without_average_raises(trained, where, capsys):
         load_checkpoint_params(d, field="ema")
 
 
-@pytest.mark.parametrize("flag", ["fidelity_ckpt", "lanczos", "renyi2_region",
-                                  "sma", "world"])
-def test_unported_options_raise(flag, monkeypatch):
-    """The A17b flags and a sharded launch raise before anything is built,
-    naming the ROADMAP item."""
-    kw = {"fidelity_ckpt": dict(fidelity_ckpt=GROUND),
-          "lanczos": dict(lanczos=True), "renyi2_region": dict(
-              renyi2_region=["half"]), "sma": dict(sma=True), "world": {}}
+#: the report's keys for a square lattice without flags
+BASE_KEYS = {"energy", "energy_err", "energy_per_site", "magnetization",
+             "staggered_m2", "staggered_m4", "binder_cumulant", "szsz_corr",
+             "spin_spin_nn", "structure_factor_peak",
+             "structure_factor_peak_q_index", "correlation_length", "step",
+             "ema"}
+#: the keys each once-refused option adds (JAX measure's)
+FLAG_KEYS = {
+    "fidelity_ckpt": {"fidelity_vs_ckpt"},
+    "lanczos": {"lanczos_valid", "lanczos_alpha", "lanczos_energy",
+                "lanczos_energy_per_site", "lanczos_gain_per_site",
+                "lanczos_energy_err", "lanczos_energy_per_site_err"},
+    "renyi2_region": {"renyi2_swap_mean", "renyi2_swap_err",
+                      "renyi2_entropy", "renyi2_region_size"},
+    "sma": {"sma_transverse_corr", "sma_first_moment", "sma_omega",
+            "sma_gap_bound", "sma_gap_q_index"},
+    "world": set(),
+}
+
+
+@pytest.mark.parametrize("flag", list(FLAG_KEYS))
+def test_once_refused_options_report_their_keys(flag, trained, tmp_path,
+                                                capsys):
+    """Each option that once raised NotImplementedError measures the 2-step
+    checkpoint and reports JAX's keys for it, finite: the fidelity with
+    the EMA run's checkpoint, the Lanczos step over 4 samples (its
+    jackknife keys), two Renyi-2 regions (lists of 2), the SMA (C_t at
+    the two NN displacements, 16 omegas); and ``world``: the CLI in 2
+    gloo ranks under torchrun (run.distributed=true), whose rank 0 alone
+    prints the one report."""
+    cfg, d = trained["plain"]
     if flag == "world":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    item = "A17c" if flag == "world" else "A17b"
-    with pytest.raises(NotImplementedError, match=item):
-        tmeasure.measure(_small_cfg(), GROUND, device="cpu", **kw[flag])
+        yaml_path = tmp_path / "small.yaml"
+        yaml_path.write_text(tmeasure.cfglib.to_yaml(cfg))
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "-m", "qmcnn_tpu_torch.measure",
+             "--device", "cpu", "--config", str(yaml_path), "--ckpt-dir", d,
+             "--n-samples", "2", "--override", "run.distributed=true"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        assert run.returncode == 0, run.stdout + run.stderr
+        out = run.stdout
+        assert out.count("szsz_corr:") == 1
+        assert out.count("restored checkpoint at step 2") == 1
+        report = json.loads(out[out.index("{"):out.index("szsz_corr:")])
+        report["szsz_corr"] = None
+    else:
+        kw = {"fidelity_ckpt": dict(fidelity_ckpt=trained["ema"][1]),
+              "lanczos": dict(lanczos=True),
+              "renyi2_region": dict(renyi2_region=["half", "0:3"]),
+              "sma": dict(sma=True)}[flag]
+        report = tmeasure.measure(cfg, d, n_samples=4, sweeps_between=1,
+                                  therm_sweeps=2, device="cpu", **kw)
+        capsys.readouterr()
+    assert set(report) == BASE_KEYS | FLAG_KEYS[flag]
+    for key in FLAG_KEYS[flag]:
+        values = report[key]
+        if isinstance(values, dict):
+            values = list(values.values())
+        values = [v for v in np.atleast_1d(values) if v is not None]
+        assert values and np.isfinite(np.asarray(values, np.float64)).all()
+    if flag == "renyi2_region":
+        assert report["renyi2_region_size"] == [8, 3]
+    if flag == "sma":
+        assert sorted(report["sma_transverse_corr"]) == ["1", "4"]
+        assert len(report["sma_omega"]) == 16
 
 
 def test_cli_prints_the_report(tmp_path, capsys):

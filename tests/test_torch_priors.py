@@ -35,6 +35,7 @@ from qmcnn_tpu_torch.sampler.direct import DirectSampler
 from qmcnn_tpu_torch.sampler.metropolis import WalkerState
 from qmcnn_tpu_torch.utils import transfer as ttransfer
 from qmcnn_tpu_torch.vmc import energy_and_grad as t_energy_and_grad
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = os.path.join(ROOT, "runs")

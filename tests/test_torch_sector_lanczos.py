@@ -45,6 +45,7 @@ from qmcnn_tpu_torch.sampler.metropolis import WalkerState
 from qmcnn_tpu_torch.utils import transfer as ttransfer
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from qmcnn_tpu_torch.vmc import sector_energy_and_grad as t_sector
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

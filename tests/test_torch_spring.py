@@ -42,6 +42,7 @@ from qmcnn_tpu_torch.sr import SR as TSR
 from qmcnn_tpu_torch.sr import ravel
 from qmcnn_tpu_torch.utils.checkpoint import CheckpointManager
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GCNN = os.path.join(ROOT, "configs", "j1j2_8x8_gcnn.yaml")

@@ -33,6 +33,7 @@ from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.sampler import metropolis as tsm
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from tests import torch_dist_ranks as R
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8

@@ -25,6 +25,7 @@ from qmcnn_tpu_torch import train as ttrain
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN as TCNN
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
 from qmcnn_tpu_torch.utils import transfer as ttransfer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEIS = os.path.join(ROOT, "configs", "heis10x10_sr.yaml")
@@ -139,7 +140,7 @@ def test_helpers_match_jax():
     assert ttrain.exact_reference_energy(tcfg.load(HEIS)) is None
 
 
-def test_unported_options_raise(tmp_path):
+def test_once_refused_options_train_a_step(tmp_path):
     """Options once refused now train a step on the CPU (complex
     parameters, bf16 and checkpoints since slice 5; sr.solver=cg and
     run.distributed since slice 7; the Jastrow factor and SPRING since

@@ -21,6 +21,7 @@ from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
 from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from tests.test_torch_priors import _spins, _unflatten
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -31,6 +31,7 @@ from qmcnn_tpu_torch.sr import ravel
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from qmcnn_tpu_torch.vmc import TrainState
 from qmcnn_tpu_torch.vmc import energy_and_grad as t_energy_and_grad
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = os.path.join(ROOT, "configs", "heis10x10_sr.yaml")

@@ -10,7 +10,9 @@ The work dir holds ``spec.pt`` (the parent's shared inputs); each rank
 writes ``rank<r>.pt`` with what the parent compares against the 1-rank
 run, which the parent computes with the same functions and no group.
 With ``excited`` the ranks run only the tempering, deflation and penalty
-legs (``run_excited``; tests/test_torch_tempering.py); with ``pcg`` only
+legs (``run_excited``; tests/test_torch_tempering.py); with ``measure``
+only the measurement with every flag (``run_measure``;
+tests/test_torch_distributed.py); with ``pcg`` only
 the tempered heis10x10_sr leg with pcg's loop values traced
 (``run_pcg_trace``; tests/torch_pcg_margins.py), on the spec's device.
 """
@@ -297,6 +299,51 @@ def run_excited(spec, group) -> dict:
             "penalty": _excited_leg(penalty, group, 2)}
 
 
+#: the measurement leg's 4x4 Heisenberg CNN (Marshall basis, exchange)
+MEASURE_SMALL = ("lattice.shape=[4,4]", "model.channels=[3,3]",
+                 "sampler.n_walkers=32", "run.csv_path=null")
+#: every flag of measure() that the 4x4 square lattice takes
+MEASURE_FLAGS = dict(n_samples=4, sweeps_between=1, total_spin=True,
+                     dimer=True, sector_momentum=[0, 0], lanczos=True,
+                     renyi2_region=["half", "8:16", "0,5"], sma=True)
+
+
+def measure_spec(work: str) -> dict:
+    """Two states of the measurement leg's model, the seeded params
+    perturbed twice, saved as snapshots in ``work``: the measured state
+    and the fidelity's second state."""
+    import numpy as np
+
+    cfg = tcfg.load(HEIS, MEASURE_SMALL)
+    _, params, _ = tb.build(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for name in ("psi", "psi2"):
+        out[name] = os.path.join(work, f"{name}.params.npz")
+        np.savez(out[name], **{k: (v + 0.3 * torch.randn(
+            v.shape, generator=gen)).numpy() for k, v in params.items()})
+    return out
+
+
+def run_measure(spec, group) -> dict:
+    """``measure()`` with MEASURE_FLAGS and the fidelity against the spec's
+    second state, on this rank's walkers (all with no group): the report,
+    this rank's walkers after thermalization and the per-sample pooled
+    per-walker arrays (the Lanczos (E_loc, G), the sector's num and den)."""
+    import numpy as np
+    from qmcnn_tpu_torch.measure import measure
+
+    over = MEASURE_SMALL + (("run.distributed=true",) if group else ())
+    rec = {}
+    report = measure(tcfg.load(HEIS, over), spec["psi"], device="cpu",
+                     group=group, record=rec, fidelity_ckpt=spec["psi2"],
+                     **MEASURE_FLAGS)
+    tr = rec["traces"]
+    return {"report": report, "walkers": rec["walkers"],
+            **{k: torch.from_numpy(np.stack(tr[k])) for k in (
+                "lanczos_e1", "lanczos_g", "sector_num", "sector_den")}}
+
+
 def run_pcg_trace(spec, group) -> dict:
     """heis10x10_sr from the fixture, tempered at (1.0, 0.7, 0.45), with the
     spec's overrides (the sweeps, steps and walkers), as chip_smoke.py's
@@ -391,6 +438,8 @@ def main():
     group = walker_group(device=device)
     if suite == "excited":
         out = run_excited(spec, group)
+    elif suite == "measure":
+        out = run_measure(spec, group)
     elif suite == "pcg":
         out = run_pcg_trace(spec, group)
     else:
