@@ -113,7 +113,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 unused); each leg's step split;
                 the measurement entry point (``measure_phase``;
                 ``qmcnn_tpu_torch.measure``): (a) the heis10x10_sr fixture
-                in its run's config (M = 2048, 6 samples, --total-spin
+                in its run's config (M = 2048, 4 samples, --total-spin
                 --dimer --sector-momentum 0,0 --renyi2 half --renyi2 50:100
                 --renyi2 0:10 --sma --lanczos-step --fidelity-ckpt the bf16
                 sibling run's snapshot) with K1 serving every sweep and
@@ -126,7 +126,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 step valid, its gain at most sqrt(k2); the fidelity in
                 (0, 1.05] and exactly 1 with itself); (b) the bf16-trained
                 gcnn_r2 snapshot p15b measured in f32 with --sma on K2's
-                f32 route at the expected count (6 samples; against the
+                f32 route at the expected count (4 samples; against the
                 JAX f32 reports runs/j1j2_8x8_p15_measure_f32.json:
                 E/site within max(0.002, 5 sigma), the S(q) peak, NN S.S
                 within 0.005, staggered m2 within 10%; and
@@ -144,6 +144,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 arrays bitwise or within rtol 1e-6, the report within 1e-5
                 of its scale, K1 per rank exact), then under torchrun with
                 NCCL; each leg's split per sample;
+                the dynamics entry points (``dynamics_phase``;
+                ``qmcnn_tpu_torch.evolve`` and ``analyze``): (a) the
+                chain-12 real-time quench h 2 -> 1.2 through the CLI (the
+                complex CNN [12, 12], k = 5, from runs/tfim12_h2's
+                snapshot, full sum, dense, 362 steps of 0.005; no kernel)
+                against runs/tvmc_chain12_quench.csv (row 1's energy
+                within 2e-4 relative and sx within 5e-4) and the exact
+                evolution of the same state, which that TPU-written run
+                leaves by 1e-2 (row 1 to its float64 value, sx and
+                szsz_nn within 1e-3 to t = 1.0), the drift to t = 1.5
+                under 0.5%, C(0) = 0.25; and ``analyze
+                --quench-spectrum`` on its rows against the JAX history
+                cut to as many (the six
+                modes whose JAX omega is within 4% of the exact one,
+                within 4%); (b) tfim16_sgd at full width in imaginary
+                time over all 65,536 states (40 Heun steps, dense at
+                diag_shift 1e-2) with
+                K1 serving every evaluation forward at the expected count
+                (8 per step), held first to the plain model at 65,536 and
+                1,048,576 rows and on step 1 to the CPU; the energy never
+                rising; (c) the 8x8 TFIM MC quench h 3 -> 1.5 from
+                runs/tfim8x8_h3w2g (20 steps, no kernel) against rows
+                1-20 of runs/tvmc_tfim8x8_quench_w2f.csv (means within
+                0.01); (d) heis10x10_sr in imaginary time from the fixture
+                (MC, minSR, 5 steps) on K1's fused sweep and recompute
+                forward at the expected count, within 0.01/site of
+                -0.6705; K2 0 on every leg; each leg's split per step;
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -191,8 +218,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 own ``{"sharded": ...}`` and ``{"measure": ...}`` lines),
                 the card line, and the final ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --measure`` (``--excited``) runs only the kernels'
-build and the measurement (excited) phase.
+``python3 chip_smoke.py --measure`` (``--excited``, ``--dynamics``) runs
+only the kernels' build and the measurement (excited, dynamics) phase.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 CUDA device or without the ``qmcnn_tpu_torch`` package beside it.
@@ -314,7 +341,8 @@ TEMPER_BETAS = (1.0, 0.7, 0.45)
 #: meta.json) with the JAX measure report of it in f32, and the kagome
 #: PhaseNet run with its EMA and the JAX measure --ema report of it; the
 #: samples each leg takes (cut from 8 / 10 / 10 when slice 12's flags
-#: doubled the phase, to keep the script near 900 s on the card)
+#: doubled the phase, and (a), (b) from 6 to 4 when slice 13's dynamics
+#: phase took the script to 948 s, to keep it well under 1,000 s)
 FIXTURE_META = ROOT / "runs" / "ab_cnn_float32.csv.meta.json"
 P15B_META = ROOT / "runs" / "j1j2_8x8_p15b.csv.meta.json"
 P15B_FIXTURE = ROOT / "runs" / "j1j2_8x8_p15b_params.npz"
@@ -323,7 +351,7 @@ KAGOME_EXT_META = ROOT / "runs" / "kagome3x3_r3_phasenet_ext.csv.meta.json"
 KAGOME_EXT_FIXTURE = (ROOT / "runs"
                       / "kagome3x3_r3_phasenet_ext.csv.params.npz")
 KAGOME_EXT_REPORT = ROOT / "runs" / "kagome3x3_r3_phasenet_ext_ema.json"
-MEASURE_SAMPLES = {"cnn": 6, "gcnn": 6, "kagome": 6}
+MEASURE_SAMPLES = {"cnn": 4, "gcnn": 4, "kagome": 6}
 #: leg (a)'s Renyi-2 regions: half the sites, its complement, a row
 MEASURE_REGIONS = ("half", "50:100", "0:10")
 #: the JAX SMA reports: another heis10x10_sr state (printed beside leg
@@ -334,6 +362,24 @@ P15B_SMA_REPORT = ROOT / "runs" / "j1j2_8x8_sma.json"
 #: (scripts/r4_pipeline3.sh, arm I) and the run's CSV
 KAGOME_LANCZOS_REPORT = ROOT / "runs" / "kagome3x3_r3_lanczos_diag.json"
 KAGOME_EXT_CSV = ROOT / "runs" / "kagome3x3_r3_phasenet_ext.csv"
+#: the dynamics legs: tfim16_sgd (the imaginary-time flow at full width
+#: from its fresh init, and with scripts/r2_pipeline37.sh's overrides the
+#: chain-12 real-time quench from the h = 2 ground state, against the JAX
+#: run's CSVs and spectrum); the 8x8 TFIM quench from the h = 3 state of
+#: scripts/r3_pipeline3g.sh against rows 1-20 of its run's CSV
+TFIM16_CONFIG = ROOT / "configs" / "tfim16_sgd.yaml"
+CHAIN12_OVERRIDES = ("lattice.shape=[12]", "hamiltonian.h=1.2",
+                     "model.complex_params=true")
+CHAIN12_QUENCH = ROOT / "runs" / "tvmc_chain12_quench.csv"
+CHAIN12_CORR = ROOT / "runs" / "tvmc_chain12_corr.csv"
+CHAIN12_SPECTRUM = ROOT / "runs" / "chain12_spectrum.json"
+#: the JAX chain-12 run's finite steps (it went non-finite at t = 1.815)
+CHAIN12_STEPS = 362
+TFIM8X8_META = ROOT / "runs" / "tfim8x8_h3w2g.csv.meta.json"
+TFIM8X8_FIXTURE = ROOT / "runs" / "tfim8x8_h3w2g.csv.params.npz"
+TFIM8X8_QUENCH = ROOT / "runs" / "tvmc_tfim8x8_quench_w2f.csv"
+#: the ED ground energy of the N = 16, h = J TFIM chain
+E_TFIM16_ED = -20.404594
 
 
 def check(cond, msg: str) -> None:
@@ -2731,6 +2777,564 @@ def measure_phase(out_dir: Path, card: str) -> dict:
     return dict(out, legs=legs)
 
 
+# ---------------------------------------------------------------------------
+# dynamics: python -m qmcnn_tpu_torch.evolve and analyze (slice 13)
+# ---------------------------------------------------------------------------
+
+def dynamics_expected(cfg, lattice, sampling: str, integrator: str,
+                      n_steps: int, fused_sweep: bool,
+                      sector_sz0: bool = False) -> int:
+    """Launches of the kernel behind ``evolve()``'s evaluation forward in
+    an ``n_steps`` run: per step in full-sum mode the Born weights, per
+    TDVP stage log psi and one per E_loc chunk of the basis
+    (``run.chunk_size``), Heun's predictor weights and, for the TFIM,
+    <sigma_x>'s log psi and E_loc (unchunked); in MC mode the initial
+    refresh and the thermalization (one fused sweep launch, or one per
+    proposal), then per step a refresh, the sweeps, the stages' log psi
+    and E_loc chunks of the walkers (Heun reuses the samples) and the
+    TFIM's two."""
+    import math
+
+    stages = 2 if integrator == "heun" else 1
+    sx = 2 if cfg.hamiltonian.kind == "tfim" else 0
+    chunk = cfg.run.chunk_size
+    if sampling == "fullsum":
+        n = lattice.n_sites
+        rows = math.comb(n, n // 2) if sector_sz0 else 2 ** n
+    else:
+        rows = cfg.sampler.n_walkers
+    chunks = rows // chunk if chunk and chunk < rows else 1
+    per_stage = 1 + chunks
+    if sampling == "fullsum":
+        return n_steps * (1 + stages * per_stage
+                          + (1 if integrator == "heun" else 0) + sx)
+    sweep = cfg.sampler.sweep_size or lattice.n_sites
+
+    def sweeps(n_sweeps):
+        return 1 if fused_sweep else n_sweeps * sweep
+
+    return (1 + sweeps(cfg.sampler.n_therm_sweeps)
+            + n_steps * (1 + sweeps(cfg.sampler.n_sweeps_per_step)
+                         + stages * per_stage + sx))
+
+
+def evolve_quiet(cfg, **kw):
+    """``qmcnn_tpu_torch.evolve.evolve`` with its stdout captured, a
+    ``PhaseTimer`` on the device: (params, logger, text, timer)."""
+    from qmcnn_tpu_torch.evolve import evolve
+    from qmcnn_tpu_torch.measure import PhaseTimer
+
+    timer = PhaseTimer(kw.get("device", "cuda"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params, logger = evolve(cfg, timer=timer, **kw)
+    return params, logger, buf.getvalue(), timer
+
+
+def dynamics_split(seconds: dict, n_steps: int, card: str,
+                   label: str) -> dict:
+    """Print a dynamics leg's split in ms per step: the weights or the
+    sampling, the TDVP stages' evaluation forwards (log psi, E_loc), the
+    Jacobian, the solve and the observables."""
+    per = {k: 1000 * v / n_steps for k, v in seconds.items()}
+    print(f"    {label} ({card}): {sum(per.values()):.2f} ms per step = "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + " ms")
+    return per
+
+
+def csv_columns(path: Path) -> dict:
+    """A CSV's columns as float64 arrays (JAX's evolve output)."""
+    import csv as csvlib
+
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csvlib.reader(f))
+    data = np.asarray(rows[1:], np.float64)
+    return {name: data[:, i] for i, name in enumerate(rows[0])}
+
+
+def chain12_exact(n_rows: int) -> dict:
+    """The exact Schrodinger evolution under H(h = 1.2) of the chain-12
+    snapshot's state (the plain model's log psi over the 4,096 states), in
+    float64 on the CPU, at the times of the quench CSV's rows 1..n_rows
+    (row k holds the observables of the state at (k - 1) dt, before its
+    step): ``energy_re`` (conserved), ``sx`` (<sigma_x>/N) and
+    ``szsz_nn`` (per bond), each [n_rows]."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build_lattice, build_model
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.ops import exact
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                params_from_jax)
+
+    cfg = configs.load(str(TFIM16_CONFIG), CHAIN12_OVERRIDES)
+    lattice = build_lattice(cfg)
+    n, bonds = lattice.n_sites, lattice.nn_bonds
+    model = build_model(cfg, lattice)
+    params = params_from_jax(load_checkpoint_params(str(TFIM12_FIXTURE)))
+    s = torch.as_tensor(exact.all_configs(n))
+    with torch.no_grad():
+        lp = log_psi_apply(model, params, s)
+    z = lp.re.double().numpy() + 1j * lp.im.double().numpy()
+    psi = np.exp(z - z.real.max())
+    psi /= np.linalg.norm(psi)
+    h = exact.sparse_tfim(n, bonds, j=cfg.hamiltonian.j,
+                          h=cfg.hamiltonian.h).tocsc()
+    sx_op = exact.sparse_tfim(n, bonds, j=0.0, h=1.0).tocsc()
+    spins = s.double().numpy()
+    zz = (spins[:, bonds[:, 0]] * spins[:, bonds[:, 1]]).mean(axis=1)
+    states = spla.expm_multiply(-1j * h, psi, start=0.0,
+                                stop=(n_rows - 1) * 0.005, num=n_rows,
+                                endpoint=True)
+    return {"energy_re": np.asarray([np.real(np.vdot(v, h @ v))
+                                     for v in states]),
+            "sx": np.asarray([-np.real(np.vdot(v, sx_op @ v)) / n
+                              for v in states]),
+            "szsz_nn": np.asarray([(np.abs(v) ** 2 * zz).sum()
+                                   for v in states])}
+
+
+def dynamics_chain12_leg(out_dir: Path, card: str) -> dict:
+    """(a) The chain-12 real-time quench, full sum, through the CLI
+    (``python -m qmcnn_tpu_torch.evolve``, scripts/r2_pipeline37.sh's flags,
+    362 steps from runs/tfim12_h2.csv.params.npz; the complex CNN takes the
+    plain model: no kernel), against runs/tvmc_chain12_quench.csv (the
+    JAX run on the TPU): row 1's energy within 2e-4 relative and sx within
+    5e-4; and against the exact evolution of the same state
+    (``chain12_exact``; the TPU run leaves it by 1e-2 before t = 1): row 1
+    within 1e-6 relative (energy) and 1e-5 (sx, szsz_nn), sx and szsz_nn
+    within 1e-3 at every t <= 1.0; the energy drift through t = 1.5 under
+    0.5%; C(0) = 0.25. Then ``python -m qmcnn_tpu_torch.analyze
+    --quench-spectrum --shape 12`` on the port's finite rows against the
+    same number of the JAX run's (which at 362 rows give
+    runs/chain12_spectrum.json's omega to 1e-9): each mode whose JAX omega
+    lies within 4% of the exact one within 4% of the JAX extraction."""
+    import numpy as np
+    from qmcnn_tpu_torch import analyze
+    from qmcnn_tpu_torch.ops.spectroscopy import (dominant_frequencies,
+                                                  read_corr_csv)
+
+    csv_path = out_dir / "tvmc_chain12_quench.csv"
+    corr_path = out_dir / "tvmc_chain12_corr.csv"
+    argv = [sys.executable, "-m", "qmcnn_tpu_torch.evolve", "--config",
+            str(TFIM16_CONFIG)]
+    for o in CHAIN12_OVERRIDES:
+        argv += ["--override", o]
+    argv += ["--mode", "real", "--init-from", str(TFIM12_FIXTURE), "--dt",
+             "0.005", "--steps", str(CHAIN12_STEPS), "--solver", "dense",
+             "--diag-shift", "0.0001", "--sampling", "fullsum", "--csv",
+             str(csv_path), "--corr-csv", str(corr_path), "--log-every",
+             "1", "--timings"]
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"dynamics (a): the CLI failed (rc "
+          f"{run.returncode}):\n{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    extra = json.loads(run.stdout.strip().splitlines()[-1])
+    got = extra["launches"]
+    port, jax_run = csv_columns(csv_path), csv_columns(CHAIN12_QUENCH)
+    steps = len(port["t"])
+    e, e_j = port["energy_re"], jax_run["energy_re"]
+    finite = np.isfinite(e)
+    blowup = (float(port["t"][np.argmin(finite)]) if not finite.all()
+              else None)
+    # the JAX run was written on the TPU, whose f32 products lose bits:
+    # its row 1 (the snapshot's own full sum) sits 1.5e-4 (energy), 2.5e-4
+    # (sx) and 5.0e-4 (szsz_nn) off the float64 value, which the JAX
+    # package gives on the CPU, and its sx and szsz_nn leave the exact
+    # evolution by 9e-3 and 1.1e-2 before t = 1, where the JAX package on
+    # the CPU stays within 1.3e-4 (tests/torch_quench_reference.py). So
+    # rows to t = 1.0 are held to the exact evolution, and the TPU run's
+    # differences are printed
+    ex = chain12_exact(CHAIN12_STEPS)
+    d_f64 = {k: abs(port[k][0] - ex[k][0])
+             / (abs(ex[k][0]) if k == "energy_re" else 1.0)
+             for k in ("energy_re", "sx", "szsz_nn")}
+    d_row1 = {"energy_re": abs(e[0] - e_j[0]) / abs(e_j[0]),
+              "sx": abs(port["sx"][0] - jax_run["sx"][0]),
+              "szsz_nn": abs(port["szsz_nn"][0] - jax_run["szsz_nn"][0])}
+    early = port["t"] <= 1.0 + 1e-9
+    n_early = int(early.sum())
+    d_sx = float(np.abs(port["sx"][early] - ex["sx"][:n_early]).max())
+    d_zz = float(np.abs(port["szsz_nn"][early]
+                        - ex["szsz_nn"][:n_early]).max())
+    d_sx_j = float(np.abs(port["sx"][early] - jax_run["sx"][:n_early]).max())
+    d_zz_j = float(np.abs(port["szsz_nn"][early]
+                          - jax_run["szsz_nn"][:n_early]).max())
+    tpu_off = [float(np.abs(jax_run[k][:n_early] - ex[k][:n_early]).max())
+               for k in ("sx", "szsz_nn")]
+    upto = port["t"] <= 1.5 + 1e-9
+    drift = float(np.abs(e[upto] - e[0]).max() / abs(e[0]))
+    drift_j = float(np.abs(e_j[:int(upto.sum())] - e_j[0]).max()
+                    / abs(e_j[0]))
+    print(f"    (a) python -m qmcnn_tpu_torch.evolve, chain-12 real-time "
+          f"quench h 2 -> 1.2, full sum: {wall:.1f} s in all ("
+          f"{steps} rows), launches {got}; row 1 energy {e[0]:.6f} (JAX "
+          f"{e_j[0]:.6f}, rel {d_row1['energy_re']:.2e}; float64 on the "
+          f"CPU {ex['energy_re'][0]:.6f}), sx {port['sx'][0]:.6f} (JAX "
+          f"{jax_run['sx'][0]:.6f}, float64 {ex['sx'][0]:.6f}), szsz_nn "
+          f"{port['szsz_nn'][0]:.6f} (JAX {jax_run['szsz_nn'][0]:.6f}, "
+          f"float64 {ex['szsz_nn'][0]:.6f}); over {n_early} rows to t = "
+          f"1.0 max |d sx|, |d szsz| {d_sx:.2e}, {d_zz:.2e} from the exact "
+          f"evolution ({d_sx_j:.2e}, {d_zz_j:.2e} from the TPU run's, "
+          f"which is {tpu_off[0]:.2e}, {tpu_off[1]:.2e} from the exact "
+          f"one); energy drift to "
+          f"t = 1.5 {100 * drift:.3f}% (JAX {100 * drift_j:.3f}%); "
+          f"tdvp_error max {np.nanmax(port['tdvp_error']):.2e}; non-finite "
+          f"from t = {blowup} (JAX: t = 1.815)")
+    check(sum(got.values()) == 0, f"dynamics (a): launched {got}")
+    check(d_row1["energy_re"] <= 2e-4, f"dynamics (a): row 1 energy "
+          f"{e[0]} vs JAX {e_j[0]}")
+    check(d_row1["sx"] <= 5e-4, f"dynamics (a): row 1 sx off JAX's: "
+          f"{d_row1}")
+    check(d_f64["energy_re"] <= 1e-6 and d_f64["sx"] <= 1e-5
+          and d_f64["szsz_nn"] <= 1e-5,
+          f"dynamics (a): row 1 off its float64 value: {d_f64}")
+    check(n_early == 200, f"dynamics (a): {n_early} rows to t = 1.0")
+    check(d_sx <= 1e-3 and d_zz <= 1e-3, f"dynamics (a): sx / szsz_nn "
+          f"off the exact evolution by {d_sx} / {d_zz} before t = 1.0")
+    check(int(upto.sum()) == 300 and drift < 5e-3,
+          f"dynamics (a): energy drift {drift} through t = 1.5 "
+          f"({int(upto.sum())} rows)")
+    with open(corr_path) as f:
+        head, row1 = f.readline(), f.readline()
+    check(head.strip().split(",")[1:] == [f"c{r}" for r in range(12)],
+          f"dynamics (a): corr header {head!r}")
+    check(abs(float(row1.split(",")[1]) - 0.25) <= 1e-6,
+          f"dynamics (a): C(0) {row1.split(',')[1]}")
+
+    # the spectrum: the CLI on the port's finite rows, the JAX run's
+    # history cut to as many rows
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        table = analyze.main([str(corr_path), "--quench-spectrum",
+                              "--shape", "12"])
+    sys.stdout.write("      " + buf.getvalue().replace("\n", "\n      ")
+                     .rstrip() + "\n")
+    rows = len(read_corr_csv(str(corr_path))[0])
+    t_j, c_j = read_corr_csv(str(CHAIN12_CORR))
+    ref = json.loads(CHAIN12_SPECTRUM.read_text())
+    full = {tuple(d["k"]): d["omega"]
+            for d in dominant_frequencies(t_j[:ref["rows"]],
+                                          c_j[:ref["rows"]], (12,))}
+    d_json = max(abs(full[tuple(m["k"])] - m["omega"])
+                 for m in ref["modes"])
+    jax_at = {tuple(d["k"]): d["omega"]
+              for d in dominant_frequencies(t_j[:rows], c_j[:rows], (12,))}
+    port_at = {tuple(d["k"]): d["omega"] for d in table}
+    modes = []
+    for m in ref["modes"]:
+        k = tuple(m["k"])
+        gated = abs(m["omega"] - m["omega_exact"]) <= 0.04 * m["omega_exact"]
+        dev = abs(port_at[k] - jax_at[k]) / jax_at[k]
+        modes.append({"k": k[0], "omega": port_at[k], "jax": jax_at[k],
+                      "exact": m["omega_exact"], "rel": dev,
+                      "gated": gated})
+        print(f"      k={k[0]}: omega {port_at[k]:.4f}, JAX at {rows} rows "
+              f"{jax_at[k]:.4f} (rel {dev:.2e}), exact "
+              f"{m['omega_exact']:.4f}" + ("" if gated else
+                                           " (printed, not gated)"))
+    check(d_json <= 1e-9, f"dynamics (a): the JAX extraction at "
+          f"{ref['rows']} rows is off chain12_spectrum.json by {d_json}")
+    check(sum(m["gated"] for m in modes) == 6,
+          f"dynamics (a): {sum(m['gated'] for m in modes)} gated modes")
+    bad = [m for m in modes if m["gated"] and m["rel"] > 0.04]
+    check(not bad, f"dynamics (a): omega off JAX's by > 4%: {bad}")
+    split = dynamics_split(extra["timings_s"], steps, card,
+                           "(a) chain-12 quench, ms per step")
+    return {"launches": got, "seconds": wall, "split": split,
+            "rows": rows, "blowup_t": blowup, "drift": drift,
+            "d_sx": d_sx, "d_szsz": d_zz, "d_sx_tpu": d_sx_j,
+            "d_szsz_tpu": d_zz_j, "row1": d_row1, "row1_f64": d_f64,
+            "modes": modes}
+
+
+def k1_tfim16_check(cfg, card: str) -> dict:
+    """K1's recompute forward against the plain model (cuDNN, TF32 off) on
+    the card at leg (b)'s two batch shapes, the 65,536 basis states and the
+    1,048,576 connected rows of E_loc: log psi within rtol 1e-5 at weights
+    of scale 0.2 (log psi of order 1), and both times. At the leg's own
+    fresh init (scale 0.05) log psi is 2e-4 to 2e-3, a sum of 192 lncosh
+    terms that both versions compute as |x| - log 2 + log1p(e^{-2|x|})
+    in f32, so its error is absolute (ulps of log 2): printed there, and
+    the leg's step 1 is held to the CPU's instead."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import (build_hamiltonian, build_lattice,
+                                         build_model)
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.ops.tdvp import all_states
+
+    lattice = build_lattice(cfg)
+    model = build_model(cfg, lattice)
+    fused = FusedCNNLogPsi(lattice_shape=tuple(lattice.shape))
+    basis = torch.as_tensor(all_states(lattice.n_sites), device="cuda")
+    conn = build_hamiltonian(cfg, lattice).connected_batch(basis)[0]
+    scaled = configs.apply_overrides(cfg, ("model.param_scale=0.2",))
+    weights = {"scale 0.2": build_model(scaled, lattice).init(
+                   cfg.run.seed, device="cuda"),
+               "the leg's init": model.init(cfg.run.seed, device="cuda")}
+    out = {}
+    for name, x in (("basis", basis),
+                    ("e_loc", conn.reshape(-1, lattice.n_sites))):
+        errs = {}
+        for label, params in weights.items():
+            with torch.no_grad():
+                got = fused(params, x).re.double()
+                want = log_psi_apply(model, params, x).re.double()
+            errs[label] = (float(((got - want).abs() / want.abs()).max()),
+                           float((got - want).abs().max()),
+                           float(want.abs().max()))
+        params = weights["scale 0.2"]
+        ms = cuda_ms(lambda: fused(params, x), reps=3)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: log_psi_apply(model, params, x),
+                               reps=3)
+        print(f"    K1 recompute vs the plain model at {x.shape[0]:,} rows "
+              f"({card}): " + "; ".join(
+                  f"{k}: max rel err {r:.3e}, max abs {a:.3e} (|log psi| "
+                  f"<= {m:.3g})" for k, (r, a, m) in errs.items())
+              + f"; kernel {ms:.4f} ms, cuDNN model (TF32 off) "
+              f"{plain_ms:.4f} ms")
+        rel = errs["scale 0.2"][0]
+        check(np.isfinite(rel) and rel <= 1e-5,
+              f"K1 at {x.shape[0]} tfim16 rows: rel err {rel}")
+        out[name] = {"rows": int(x.shape[0]), "max_rel_err": rel,
+                     "init_max_abs_err": errs["the leg's init"][1],
+                     "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def flat_params(params):
+    import torch
+
+    return torch.cat([params[k].reshape(-1).double().cpu()
+                      for k in sorted(params)])
+
+
+def dynamics_tfim16_leg(card: str) -> dict:
+    """(b) tfim16_sgd at full width (N = 16, C = [12, 12], k = 5) in
+    imaginary time, full sum over 65,536 states, dense solve at diag_shift
+    1e-2, 40 Heun steps of 0.05 from the fresh init: K1's recompute
+    forward serves every
+    evaluation forward, at ``dynamics_expected``'s count (8 per step), K2
+    0; the energy never rises (slack 1e-6 relative), epsilon^2 in [0, 1],
+    the final energy printed beside ED. First K1 is held to the plain model
+    at the leg's shapes, and step 1 on the card to the same step on the CPU
+    (plain model): the energy within 1e-6 relative, the update at cosine
+    >= 0.999 with a norm ratio within 1%."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build_lattice, build_model
+
+    cfg = configs.load(str(TFIM16_CONFIG))
+    lattice = build_lattice(cfg)
+    # diag_shift 1e-2: at the default 1e-4 (and at 1e-3 from the JAX
+    # package's init) the first Heun step from the near-product init
+    # meets a nearly singular S and overshoots, in both packages; at 1e-2
+    # both descend every step (tests/torch_ite_shift_scan.py)
+    kw = dict(mode="imag", dt=0.05, sampling="fullsum", solver="dense",
+              integrator="heun", diag_shift=1e-2)
+    k1 = k1_tfim16_check(cfg, card)
+    p0 = build_model(cfg, lattice).init(cfg.run.seed)
+    t0 = time.perf_counter()
+    p_cpu, log_cpu, _, _ = evolve_quiet(cfg, n_steps=1, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    p_gpu, log_gpu, _, _ = evolve_quiet(cfg, n_steps=1, device="cuda", **kw)
+    d_cpu = flat_params(p_cpu) - flat_params(p0)
+    d_gpu = flat_params(p_gpu) - flat_params(p0)
+    cos = float(d_gpu @ d_cpu / (d_gpu.norm() * d_cpu.norm()))
+    ratio = float(d_gpu.norm() / d_cpu.norm())
+    e1_gpu = log_gpu.history["energy_re"][0]
+    e1_cpu = log_cpu.history["energy_re"][0]
+    print(f"    (b) step 1, card vs CPU ({cpu_s:.1f} s on the CPU): energy "
+          f"{e1_gpu:.7f} vs {e1_cpu:.7f}, update cosine {cos:.7f}, norm "
+          f"ratio {ratio:.6f}")
+    check(abs(e1_gpu - e1_cpu) <= 1e-6 * abs(e1_cpu),
+          f"dynamics (b): step-1 energy {e1_gpu} vs the CPU's {e1_cpu}")
+    check(cos >= 0.999 and abs(ratio - 1.0) <= 0.01,
+          f"dynamics (b): step-1 update cosine {cos}, norm ratio {ratio}")
+    n_steps = 40
+    want = dynamics_expected(cfg, lattice, "fullsum", "heun", n_steps,
+                             fused_sweep=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logger, _, timer = evolve_quiet(cfg, n_steps=n_steps, device="cuda",
+                                       **kw)
+    wall = time.perf_counter() - t0
+    got = counts()
+    h = logger.history
+    e = np.asarray(h["energy_re"])
+    err = np.asarray(h["tdvp_error"])
+    rises = np.diff(e) - 1e-6 * np.abs(e[1:])
+    rel_ed = abs(e[-1] - E_TFIM16_ED) / abs(E_TFIM16_ED)
+    print(f"    (b) tfim16_sgd imaginary time, full sum (65,536 states), "
+          f"{n_steps} Heun steps of 0.05: {wall:.1f} s, launches {got} "
+          f"(K1 expected {want}), energy {e[0]:.6f} -> {e[-1]:.6f} (ED "
+          f"{E_TFIM16_ED}; rel {rel_ed:.2e}), tdvp_error "
+          f"{err.min():.2e}-{err.max():.2e}, largest step "
+          f"{float(np.diff(e).max()):.2e}; E by step "
+          f"{np.round(e, 4).tolist()}")
+    check(got["k1"] == want and got["k2_f32"] == got["k2_bf16"] == 0,
+          f"dynamics (b): launches {got}, K1 expected {want}")
+    check(np.isfinite(e).all() and bool((rises <= 0).all()),
+          f"dynamics (b): the energy rose: {np.diff(e).max()}")
+    check(bool(((err >= 0) & (err <= 1)).all()),
+          f"dynamics (b): tdvp_error outside [0, 1]: {err}")
+    split = dynamics_split(timer.seconds, n_steps, card,
+                           "(b) tfim16 imaginary time, ms per step")
+    return {"launches": got, "expected_k1": want, "seconds": wall,
+            "split": split, "k1_check": k1, "step1_cosine": cos,
+            "step1_norm_ratio": ratio, "e_final": float(e[-1]),
+            "cpu_step_s": cpu_s}
+
+
+def dynamics_tfim8x8_leg(out_dir: Path, card: str) -> dict:
+    """(c) The 8x8 TFIM real-time quench h 3 -> 1.5 in MC mode
+    (scripts/r3_pipeline3g.sh's flags on its run's config, M = 2,048, 50
+    thermalization sweeps, 20 Heun steps of 0.0025 from
+    runs/tfim8x8_h3w2g.csv.params.npz; the complex CNN takes the plain
+    model and the torch sweep: no kernel) against rows 1-20 of
+    runs/tvmc_tfim8x8_quench_w2f.csv: the 20-step means of e_per_site, sx
+    and szsz_nn within 0.01; epsilon^2 < 0.05 and the solver residual
+    < 0.1 every step; |mean E_im| under 3 binned stderr; the corr CSV's 64
+    columns with C(0) = 0.25."""
+    import numpy as np
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+
+    cfg = meta_config(TFIM8X8_META, ("hamiltonian.h=1.5",))
+    corr_path = out_dir / "tvmc_tfim8x8_corr.csv"
+    n_steps = 20
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logger, _, timer = evolve_quiet(
+        cfg, mode="real", dt=0.0025, n_steps=n_steps, diag_shift=0.01,
+        sampling="mc", init_from=str(TFIM8X8_FIXTURE),
+        corr_csv=str(corr_path), device="cuda")
+    wall = time.perf_counter() - t0
+    got = counts()
+    h = {k: np.asarray(v) for k, v in logger.history.items()}
+    ref = csv_columns(TFIM8X8_QUENCH)
+    means = {k: (float(h[k].mean()), float(ref[k][:n_steps].mean()))
+             for k in ("e_per_site", "sx", "szsz_nn")}
+    e_im = float(h["energy_im"].mean())
+    e_im_err = binned_stderr(h["energy_im"])
+    print(f"    (c) tfim8x8 real-time quench h 3 -> 1.5, MC (M = "
+          f"{cfg.sampler.n_walkers}): {wall:.1f} s, launches {got}; 20-step "
+          "means (port, JAX) " + ", ".join(
+              f"{k} {a:.6f} / {b:.6f}" for k, (a, b) in means.items())
+          + f"; tdvp_error max {h['tdvp_error'].max():.2e} (JAX "
+          f"{ref['tdvp_error'][:n_steps].max():.2e}), solver_residual max "
+          f"{h['solver_residual'].max():.2e} (JAX "
+          f"{ref['solver_residual'][:n_steps].max():.2e}); mean E_im "
+          f"{e_im:.5f} vs 3 x binned stderr {3 * e_im_err:.5f}")
+    check(sum(got.values()) == 0, f"dynamics (c): launched {got}")
+    check(len(h["t"]) == n_steps and np.isfinite(h["energy_re"]).all(),
+          "dynamics (c): missing or non-finite rows")
+    for k, (a, b) in means.items():
+        check(abs(a - b) <= 0.01, f"dynamics (c): mean {k} {a} vs JAX {b}")
+    check(bool((h["tdvp_error"] < 0.05).all()),
+          f"dynamics (c): tdvp_error {h['tdvp_error'].max()}")
+    check(bool((h["solver_residual"] < 0.1).all()),
+          f"dynamics (c): solver residual {h['solver_residual'].max()}")
+    check(abs(e_im) < 3 * e_im_err, f"dynamics (c): |mean E_im| {e_im} >= "
+          f"3 stderr {e_im_err}")
+    corr = csv_columns(corr_path)
+    check(len(corr) == 65 and bool((np.abs(corr["c0"] - 0.25) <= 1e-6)
+                                   .all()),
+          f"dynamics (c): corr CSV columns {len(corr)}, C(0) {corr['c0']}")
+    split = dynamics_split(timer.seconds, n_steps, card,
+                           "(c) tfim8x8 quench, ms per step")
+    return {"launches": got, "seconds": wall, "split": split,
+            "means": means, "e_im": e_im, "e_im_err": e_im_err}
+
+
+def dynamics_heis_leg(card: str) -> dict:
+    """(d) heis10x10_sr in imaginary time in MC mode from the fixture, in
+    its run's config (M = 2,048, exchange, 100 thermalization sweeps,
+    minSR, 5 Heun steps of 0.01, diag_shift 1e-3): K1's fused sweep and
+    recompute forward serve every sweep and evaluation forward at
+    ``dynamics_expected``'s count, the torch proposal loop never runs, K2
+    0; the 5-step mean E/site within 0.01 of the fixture's JAX run;
+    epsilon^2 finite and in [0, 1]."""
+    import numpy as np
+    from qmcnn_tpu_torch.builder import build_lattice
+    from qmcnn_tpu_torch.sampler.metropolis import MetropolisSampler
+
+    cfg = meta_config(FIXTURE_META)
+    lattice = build_lattice(cfg)
+    n_steps = 5
+    want = dynamics_expected(cfg, lattice, "mc", "heun", n_steps,
+                             fused_sweep=True)
+    proposals = []
+    plain_step = MetropolisSampler._proposal_step
+
+    def counted_step(self, *args, **kwargs):
+        proposals.append(1)
+        return plain_step(self, *args, **kwargs)
+
+    MetropolisSampler._proposal_step = counted_step
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        _, logger, _, timer = evolve_quiet(
+            cfg, mode="imag", dt=0.01, n_steps=n_steps, diag_shift=1e-3,
+            sampling="mc", init_from=str(FIXTURE), device="cuda")
+    finally:
+        MetropolisSampler._proposal_step = plain_step
+    wall = time.perf_counter() - t0
+    got = counts()
+    h = {k: np.asarray(v) for k, v in logger.history.items()}
+    e_site = float(h["e_per_site"].mean())
+    print(f"    (d) heis10x10_sr imaginary time, MC from the fixture: "
+          f"{wall:.1f} s, launches {got} (K1 expected {want}), torch "
+          f"proposals {len(proposals)}, E/site {h['e_per_site'].tolist()} "
+          f"mean {e_site:.6f} (JAX run {E_SITE_FIXTURE}), tdvp_error "
+          f"{h['tdvp_error'].tolist()}")
+    check(got["k1"] == want and got["k2_f32"] == got["k2_bf16"] == 0,
+          f"dynamics (d): launches {got}, K1 expected {want}")
+    check(not proposals, f"dynamics (d): the torch proposal loop ran "
+          f"{len(proposals)} times")
+    check(abs(e_site - E_SITE_FIXTURE) <= 0.01,
+          f"dynamics (d): mean E/site {e_site} vs {E_SITE_FIXTURE}")
+    err = h["tdvp_error"]
+    check(bool((np.isfinite(err) & (err >= 0) & (err <= 1)).all()),
+          f"dynamics (d): tdvp_error {err}")
+    split = dynamics_split(timer.seconds, n_steps, card,
+                           "(d) heis10x10_sr imaginary time, ms per step")
+    return {"launches": got, "expected_k1": want, "seconds": wall,
+            "split": split, "e_site": e_site}
+
+
+def dynamics_phase(out_dir: Path, card: str) -> dict:
+    """The dynamics entry points (``qmcnn_tpu_torch/evolve.py``,
+    ``analyze.py``): (a) the chain-12 quench and its spectrum through the
+    CLIs, (b) tfim16 imaginary time on K1, (c) the 8x8 MC quench, (d)
+    heis10x10_sr imaginary time on K1's fused sweep; each leg's counters
+    zeroed just before it and read just after it."""
+    legs = {"chain12": dynamics_chain12_leg(out_dir, card),
+            "tfim16": dynamics_tfim16_leg(card),
+            "tfim8x8": dynamics_tfim8x8_leg(out_dir, card),
+            "heis10x10": dynamics_heis_leg(card)}
+    out = {k: sum(leg["launches"][k] for leg in legs.values())
+           for k in ("k1", "k2_f32", "k2_bf16")}
+    print(json.dumps({"dynamics": {
+        "launches": out, **{name: {k: leg[k] for k in ("seconds", "split",
+                                                        "launches")}
+                            for name, leg in legs.items()},
+        "k1_check": legs["tfim16"]["k1_check"],
+        "chain12_blowup_t": legs["chain12"]["blowup_t"]}}))
+    return dict(out, legs=legs)
+
+
 def connected_gain(cfg, state):
     """Per walker, max over its H-connected configurations s' of
     Re log psi(s') - Re log psi(s) at the state's params: under |psi|^2 a
@@ -3264,6 +3868,8 @@ def main() -> int:
         return phase_main("--excited", "excited", excited_phase)
     if len(sys.argv) > 1 and sys.argv[1] == "--measure":
         return phase_main("--measure", "measurement", measure_phase)
+    if len(sys.argv) > 1 and sys.argv[1] == "--dynamics":
+        return phase_main("--dynamics", "dynamics", dynamics_phase)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -3470,7 +4076,7 @@ def main() -> int:
     # -16, rel_err 0.216): hold the tail to the variational bound and to
     # that starting point
     tail_t, err_t = logger_t.tail_energy()
-    e_exact = -20.404594  # ED ground energy of the N=16, h=J TFIM chain
+    e_exact = E_TFIM16_ED
     print(f"    tfim16_sgd tail {tail_t:.5f} +- {err_t:.5f}, ED {e_exact}")
     check(e_exact - 5 * err_t - 1e-3 <= tail_t <= -15.5,
           f"tfim16: tail energy {tail_t} outside [ED, -15.5]")
@@ -3520,6 +4126,14 @@ def main() -> int:
     t0 = time.perf_counter()
     measured = measure_phase(out_dir, card)
     print(f"    measurement phase {time.perf_counter() - t0:.1f} s")
+    print("[4] dynamics: python -m qmcnn_tpu_torch.evolve and analyze on the "
+          "chain-12 quench and its spectrum (no kernel), tfim16 imaginary "
+          "time in full sum on K1, the 8x8 MC quench (no kernel), "
+          f"heis10x10_sr imaginary time on K1's fused sweep ({card})",
+          flush=True)
+    t0 = time.perf_counter()
+    dynamics = dynamics_phase(out_dir, card)
+    print(f"    dynamics phase {time.perf_counter() - t0:.1f} s")
     print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
           "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
           "with pcg and cg, heis10x10_sr tempered, the 4x4 E1 deflation), "
@@ -3576,6 +4190,7 @@ def main() -> int:
         "replaces": "qmcnn_tpu/kernels/metropolis_pallas.py:97",
         "launches": launches,
         "measure_launches": measured["k1"],
+        "dynamics_launches": dynamics["k1"],
         "max_abs_err": errs["flagship_exchange"],
         "ms": t_flag["ms"],
         "plain_ms": t_flag["plain_ms"],
@@ -3596,6 +4211,7 @@ def main() -> int:
         "replaces": "qmcnn_tpu/kernels/gcnn_pallas.py:259",
         "launches": gcnn["launches"],
         "measure_launches": measured["k2_f32"],
+        "dynamics_launches": dynamics["k2_f32"],
         "max_abs_err": errs["gcnn"],
         "ms": t_eloc["ms"],
         "plain_ms": t_eloc["plain_ms"],
@@ -3621,6 +4237,7 @@ def main() -> int:
         "deflation_per_step": excited["defl8"]["per_step"],
         "deflation_draw": excited["defl8"]["draw"],
         "measure_launches": measured["k2_bf16"],
+        "dynamics_launches": dynamics["k2_bf16"],
         "max_abs_err": bf16_err["max_abs_err"],
         "ms": t_r2["ms"],
         "plain_ms": t_r2["plain_ms"],

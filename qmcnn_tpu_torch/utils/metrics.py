@@ -38,6 +38,15 @@ def binned_stderr(series: np.ndarray, min_bins: int = 16) -> float:
     return float(best)
 
 
+def integrated_autocorr_time(series: np.ndarray) -> float:
+    """tau_int estimate via the binning ratio (stderr_binned/stderr_naive)^2."""
+    x = np.asarray(series, dtype=np.float64)
+    if x.size < 4 or x.std() == 0:
+        return 1.0
+    naive = x.std(ddof=1) / np.sqrt(x.size)
+    return float((binned_stderr(x) / naive) ** 2)
+
+
 class MetricsLogger:
     """Streams per-step metric dicts to stdout, CSV, and (optionally)
     TensorBoard (guarded import — tensorflow is present in this image but

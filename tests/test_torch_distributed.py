@@ -613,3 +613,54 @@ def test_sharded_measure_matches_one_rank(tmp_path):
     for key in ("renyi2_entropy", "sma_gap_bound", "lanczos_energy",
                 "fidelity_vs_ckpt", "sector_energy", "total_spin_sq"):
         assert key in ref["report"], key
+
+
+def test_sharded_tdvp_matches_one_rank(tmp_path):
+    """TDVP.rhs with a walker group (``tests/torch_dist_ranks.py``'s tdvp
+    suite): 2 gloo ranks, each with half the rows of the 8-site chain's
+    basis (Born weights, normalized over both ranks) or of a 64-row MC
+    batch (uniform weights), in imaginary and real time with the dense
+    and the minSR solve, against 1 rank: theta-dot within rtol 1e-5 of
+    its largest entry, the energy, its variance, epsilon^2 and the
+    residual within rtol 1e-5 (atol 1e-6), both ranks identical. At
+    diag_shift 0.1: the dense S summed in two halves differs from one sum
+    by f32 reduction order, which the solve amplifies by S + shift's
+    condition number (2.8e-5 of theta-dot's largest entry at shift 1e-2,
+    4e-6 at 0.1; minSR's gathered Gram 7e-7 at either)."""
+    from qmcnn_tpu_torch.models.cnn import LogPsiCNN
+
+    rng = np.random.default_rng(13)
+    mc = (2 * rng.integers(0, 2, (64, R.N)) - 1).astype(np.float32)
+    model = LogPsiCNN(lattice_shape=(R.N,), channels=(4, 4),
+                      complex_params=True, param_scale=0.2)
+    spec = {"params": model.init(5), "mc": torch.as_tensor(mc)}
+    torch.save(spec, tmp_path / "spec.pt")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_dist_ranks.py"),
+         str(r), "2", str(tmp_path), "tdvp"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        ref = R.run_tdvp(spec, None)
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+             for r in range(2)]
+    assert sorted(ref) == sorted(ranks[0]) and len(ref) == 8
+    for key, want in ref.items():
+        for rk in ranks:
+            td = want["theta_dot"].numpy()
+            np.testing.assert_allclose(
+                rk[key]["theta_dot"].numpy(), td, rtol=1e-5,
+                atol=1e-5 * np.abs(td).max(), err_msg=key)
+            np.testing.assert_allclose(rk[key]["scalars"].numpy(),
+                                       want["scalars"].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
+        assert torch.equal(ranks[0][key]["theta_dot"],
+                           ranks[1][key]["theta_dot"]), key

@@ -185,7 +185,8 @@ def test_unported_run_options_raise_before_building(override, monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing every qmcnn_tpu_torch module and chip_smoke loads neither
-    JAX (nor flax/optax/orbax) nor the JAX package."""
+    JAX (nor flax/optax/orbax) nor the JAX package; the walk includes the
+    dynamics modules (evolve, analyze, ops.tdvp, ops.spectroscopy)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import qmcnn_tpu_torch as p\n"
@@ -195,12 +196,14 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'qmcnn_tpu'))\n"
+        "new = ['evolve', 'analyze', 'ops.tdvp', 'ops.spectroscopy']\n"
+        "bad += [m for m in new if 'qmcnn_tpu_torch.' + m not in mods]\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 21
+    assert int(out.stdout.split()[0]) >= 25
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

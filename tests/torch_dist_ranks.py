@@ -12,7 +12,8 @@ run, which the parent computes with the same functions and no group.
 With ``excited`` the ranks run only the tempering, deflation and penalty
 legs (``run_excited``; tests/test_torch_tempering.py); with ``measure``
 only the measurement with every flag (``run_measure``;
-tests/test_torch_distributed.py); with ``pcg`` only
+tests/test_torch_distributed.py); with ``tdvp`` only the TDVP right-hand
+sides (``run_tdvp``; tests/test_torch_distributed.py); with ``pcg`` only
 the tempered heis10x10_sr leg with pcg's loop values traced
 (``run_pcg_trace``; tests/torch_pcg_margins.py), on the spec's device.
 """
@@ -423,6 +424,44 @@ def run_pcg_trace(spec, group) -> dict:
     return out
 
 
+def run_tdvp(spec, group) -> dict:
+    """TDVP.rhs of the 8-site TFIM chain's complex CNN in every mode and
+    solver, on the basis with Born weights and on the spec's MC batch with
+    uniform weights: this rank's rows of the samples and their weights
+    (all of them with no group; the weights normalized over every rank)."""
+    from qmcnn_tpu_torch.ops.tdvp import TDVP, all_states, state_weights
+    from qmcnn_tpu_torch.sr import ravel
+
+    lat = chain(N)
+    model = LogPsiCNN(lattice_shape=(N,), channels=(4, 4),
+                      complex_params=True, param_scale=0.2)
+
+    def log_psi_fn(p, s):
+        return log_psi_apply(model, p, s)
+
+    params = spec["params"]
+    basis = torch.as_tensor(all_states(N))
+    mc = spec["mc"]
+    sets = {"born": (basis, state_weights(log_psi_fn, params, basis)),
+            "uniform": (mc, torch.full((mc.shape[0],), 1.0 / mc.shape[0]))}
+    out = {}
+    for name, (s, w) in sets.items():
+        if group is not None:
+            rows = group.rows(s.shape[0])
+            s, w = s[rows], w[rows]
+        for mode in ("imag", "real"):
+            for solver in ("dense", "minsr"):
+                r = TDVP(log_psi_fn, TFIM(lat, h=1.2), mode=mode,
+                         solver=solver, diag_shift=0.1, group=group
+                         ).rhs(params, s, w)
+                out[f"{name}_{mode}_{solver}"] = {
+                    "theta_dot": ravel(r.theta_dot)[0],
+                    "scalars": torch.stack([r.energy.re, r.energy.im,
+                                            r.e_var, r.tdvp_error,
+                                            r.residual])}
+    return out
+
+
 def main():
     rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     suite = sys.argv[4] if len(sys.argv) > 4 else "all"
@@ -440,6 +479,8 @@ def main():
         out = run_excited(spec, group)
     elif suite == "measure":
         out = run_measure(spec, group)
+    elif suite == "tdvp":
+        out = run_tdvp(spec, group)
     elif suite == "pcg":
         out = run_pcg_trace(spec, group)
     else:
