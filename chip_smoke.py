@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the last ansatz families (``families_phase``): the ViT
                 snapshots in their runs' configs (4x4, 100 sweeps and 10
                 steps, within 0.01/site of -0.528248 and 1e-2 of the
-                port's ED; 8x8, 50 sweeps and 4 steps, within 0.01/site of
+                port's ED; 8x8, 25 sweeps and 4 steps, within 0.01/site of
                 -0.497066, |E_im| under 3 binned stderr), the kagome ARNN
                 snapshot with the direct sampler (4 steps, within 0.01/site
                 of -0.390776, acceptance exactly 1), tfim16_arnn and
@@ -171,6 +171,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 (MC, minSR, 5 steps) on K1's fused sweep and recompute
                 forward at the expected count, within 0.01/site of
                 -0.6705; K2 0 on every leg; each leg's split per step;
+                the tooling (``tooling_phase``): (b) ``python -m
+                qmcnn_tpu_torch.supervise`` on heis10x10_sr from the fixture
+                (6 steps, a checkpoint every 2), its child SIGSTOPped once
+                .events holds ``save_end 2``: the supervisor kills it at 20
+                s of stale heartbeat, attempt 2 resumes at step 2 and ends
+                with rc 0, its final params bitwise those of the same run
+                uninterrupted in this process (K1 at its expected count),
+                the five event names, the last heartbeat at 6; while it
+                runs, (a) ``python -m qmcnn_tpu_torch.scan`` over
+                tfim16_sgd at full width (h = 3.0, 2.0, 1.5, 100 steps a
+                point; ED rel_err < 0.15, cold then warm starts, each
+                point's npz loading, K1 at 3 x its expected count, printed
+                by the child) and (g) native ED built here (tfim16 and the
+                4x4 Heisenberg within 1e-9 of the sparse ED, the 24-site
+                chain's S^z = 0 sector within 1e-8 of the Bethe ansatz);
+                then (c) the checked step (``run.checkify``): heis10x10_sr
+                2 steps on K1 and j1j2_8x8_gcnn 1 step on K2 f32 bitwise
+                the unchecked runs with the same launches, a NaN in K1's
+                packed weights raising from K1's wrapper, an out-of-bounds
+                index_select on the card raising before its launch with K1
+                bitwise right after it; (d) a torch.profiler trace of 2
+                heis10x10_sr steps (the ten largest kernels, the device
+                idle share, K1 with its counted launches; the gzipped
+                chrome trace under ``TOOLING_OUT``); (e) MFU
+                of K1's flagship sweep, K2 f32 at the E_loc chunk and a
+                whole heis10x10_sr step (``utils/mfu``); (f) the 8x8 ViT
+                snapshot with the bf16 trunk (E_loc in bf16 within 3 binned
+                stderr of f32 on one set of walkers, 4 bf16 steps, K1 = K2
+                = 0, its step split);
                 then walker sharding: the same code in 2 ranks spawned on
                 cuda:0 (this script with ``--sharded-rank``; a gloo group,
                 since NCCL refuses two ranks on one card) against the
@@ -214,12 +243,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   6. report   — one JSON line of kernel records (the sweep, K2's f32 route,
                 K2's bf16 route with the SPRING leg's launches beside the
                 plain leg's; each with its launches in the measurement
-                phase; the sharded and measurement phases printed their
+                phase, and K1's and K2 f32's in the tooling phase; the sharded and measurement phases printed their
                 own ``{"sharded": ...}`` and ``{"measure": ...}`` lines),
                 the card line, and the final ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --measure`` (``--excited``, ``--dynamics``) runs
-only the kernels' build and the measurement (excited, dynamics) phase.
+``python3 chip_smoke.py --measure`` (``--excited``, ``--dynamics``,
+``--tooling``) runs only the kernels' build and the measurement (excited,
+dynamics, tooling) phase.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 CUDA device or without the ``qmcnn_tpu_torch`` package beside it.
@@ -229,6 +259,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -249,14 +280,7 @@ E_SITE_D12 = -0.497679
 D12_MODEL = ("model.channels=[" + ",".join(["10"] * 12) + "]",
              "model.activation=selu", "model.init_mode=fan_in",
              "model.param_scale=1.0", "model.residual=true")
-#: card peaks (H100 SXM data sheet): FP32 outside the tensor cores, dense
-#: TF32 on the tensor cores, HBM rate
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-#: dense bf16 on the tensor cores (H100 SXM data sheet)
-BF16_FLOPS = 989e12
-#: TF32 passes of an f32-accurate product (3xTF32: hi*hi + hi*lo + lo*hi)
-TF32_PASSES = 3
+#: the HBM rate (H100 SXM data sheet; its FLOP rates are in utils/mfu.py)
 HBM_BYTES_PER_S = 3.35e12
 #: the bf16 hero config (bf16 end to end, K2's bf16 route)
 GCNN_R2_CONFIG = ROOT / "configs" / "j1j2_8x8_gcnn_r2.yaml"
@@ -412,15 +436,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def forward_flop(params, n_sites: int) -> int:
-    """FLOPs of one LogPsiCNN forward's convolutions (2 per MAC)."""
-    flop = 0
-    for k, v in params.items():
-        if k.endswith("/kernel"):
-            flop += 2 * n_sites * v.numel()
-    return flop
-
-
 def sweep_case(name, params, lattice, m, move, seed, device):
     """Walkers, noise and the reference log psi for one sweep check."""
     import torch
@@ -529,8 +544,11 @@ def bounds(flop: float, n_bytes: float):
     time of f32-accurate work on the tensor cores (TF32_PASSES TF32 passes
     of ``flop`` at the dense TF32 peak) or of the bytes at the memory rate,
     whichever is larger, and the same with ``flop`` on the FP32 cores."""
-    tc_ms = TF32_PASSES * flop / TF32_FLOPS * 1e3
-    fp32_ms = flop / FP32_FLOPS * 1e3
+    from qmcnn_tpu_torch.utils.mfu import (H100_FP32_CORE_FLOPS,
+                                           H100_TF32_FLOPS, TF32_PASSES)
+
+    tc_ms = TF32_PASSES * flop / H100_TF32_FLOPS * 1e3
+    fp32_ms = flop / H100_FP32_CORE_FLOPS * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (max(tc_ms, bytes_ms), "operations" if tc_ms >= bytes_ms
             else "bytes", max(fp32_ms, bytes_ms))
@@ -546,6 +564,8 @@ def time_sweep(case, card: str) -> dict:
     from qmcnn_tpu_torch.ops.cplx import C
     from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler,
                                                     WalkerState, sweep_noise)
+    from qmcnn_tpu_torch.utils.mfu import (H100_TF32_FLOPS, TF32_PASSES,
+                                           forward_flop)
 
     p, lat, s, lp = case["params"], case["lattice"], case["s"], case["lp"]
     m, n = s.shape
@@ -571,7 +591,7 @@ def time_sweep(case, card: str) -> dict:
     print(f"  {case['name']} ({card}): kernel {ms:.4f} ms/sweep, plain "
           f"version {plain_ms:.4f} ms/sweep, torch sampler {torch_ms:.4f} "
           f"ms/sweep, bound {bound_ms:.4f} ms ({flop:.3e} FLOP x "
-          f"{TF32_PASSES} at {TF32_FLOPS:.3g} TF32 FLOP/s, {bound_by}); "
+          f"{TF32_PASSES} at {H100_TF32_FLOPS:.3g} TF32 FLOP/s, {bound_by}); "
           f"FP32-core bound {fp32_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "torch_sampler_ms": torch_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -607,6 +627,7 @@ def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
     bounds (configurations read once, log psi written once)."""
     import torch
     from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.utils.mfu import TF32_PASSES, forward_flop
 
     n = lattice.n_sites
     rel, x, fused, model = recompute_rel_err(params, lattice, batch)
@@ -627,16 +648,17 @@ def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
             "fp32_bound_ms": fp32_ms, "max_rel_err": rel}
 
 
-def step_split(cfg, state, card: str, label: str, vmc=None) -> dict:
-    """Per-phase time of training steps (``qmcnn_tpu_torch.step_timing``:
-    host clock around synchronized phases), in ms per step, with ``vmc``
-    (None: built from ``cfg``)."""
+def step_split(cfg, state, card: str, label: str, vmc=None,
+               n_steps: int = 3) -> dict:
+    """Per-phase time of ``n_steps`` training steps after one warm-up
+    (``qmcnn_tpu_torch.step_timing``: host clock around synchronized
+    phases), in ms per step, with ``vmc`` (None: built from ``cfg``)."""
     from qmcnn_tpu_torch.builder import build
     from qmcnn_tpu_torch.step_timing import step_split as split
 
     if vmc is None:
         vmc, _, _ = build(cfg, device="cuda")
-    totals = split(vmc, state, 3)
+    totals = split(vmc, state, n_steps)
     parts = ", ".join(f"{k} {v:.2f}" for k, v in totals.items())
     print(f"  {label} step ({card}): {sum(totals.values()):.2f} ms = "
           f"{parts} ms (SR {vmc.sr.solver if vmc.sr else 'off'})")
@@ -647,27 +669,12 @@ def step_split(cfg, state, card: str, label: str, vmc=None) -> dict:
 # the fused GCNN forward
 # ---------------------------------------------------------------------------
 
-def gcnn_flop(hw: int, width: int, n_layers: int, cplx: bool,
-              batch: int) -> float:
-    """The least FLOPs for the readout sums of ``batch`` configurations:
-    the lift (9 taps, Cin = 1, real input: 1 real product per part) and
-    L-1 group layers (9 taps, W -> W), 2 per MAC. A complex group layer
-    takes 3 real products (Karatsuba, as the model computes it) plus
-    4 HW W additions (the input sum re + im, and p1 - p2, p3 - p1 - p2 on
-    the outputs), and 9 W^2 for the weight sum, once per call. The kernel
-    itself does the direct form's 4 products."""
-    lift = 9 * hw * width * 2 * (2 if cplx else 1)
-    group = 9 * hw * width * width * 2 * (3 if cplx else 1)
-    if cplx:
-        group += 4 * hw * width
-    once = (n_layers - 1) * 9 * width * width if cplx else 0
-    return float(batch) * (lift + (n_layers - 1) * group) + once
-
-
 def gcnn_bound(ws, hw: int, width: int, n_layers: int, batch: int):
     """(bound ms, 'operations' | 'bytes', FP32-core bound ms, FLOP) of
     :func:`bounds`, with bytes = x read once, weights once, S_g written
     once."""
+    from qmcnn_tpu_torch.utils.mfu import gcnn_flop
+
     cplx = ws.lift_im is not None
     flop = gcnn_flop(hw, width, n_layers, cplx, batch)
     n_bytes = 4 * (batch * hw + batch * 16
@@ -869,6 +876,7 @@ def time_gcnn(ws, x, kw, card: str, label: str) -> dict:
     """K2 and its plain version (cuDNN, TF32 off) ms per call, and the
     bounds, at one shape."""
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.utils.mfu import TF32_PASSES
 
     batch = x.shape[0]
     reps = 3 if batch > 16384 else 10
@@ -1632,7 +1640,7 @@ def families_phase(out_dir: Path) -> dict:
     check(rel < 1e-2, f"j1j2_4x4_vit_cap: relative error {rel} vs ED")
     vit8 = fixture_leg("j1j2_8x8_vit_cap", VIT8_META, VIT8_FIXTURE,
                        E_SITE_VIT8, out_dir,
-                       ("sampler.n_therm_sweeps=50", "run.n_steps=4"))
+                       ("sampler.n_therm_sweeps=25", "run.n_steps=4"))
     karnn = fixture_leg("kagome3x3_r3_arnn", KARNN_META, KARNN_FIXTURE,
                         E_SITE_KARNN, out_dir, ("run.n_steps=4",))
     check(karnn[1].walkers.n_accept.sum() == karnn[1].walkers.n_prop.sum(),
@@ -1685,6 +1693,7 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
     shape: ms per call, and the bf16 bound (the least FLOP at the dense bf16
     tensor-core rate, or the bytes) beside the f32 route's 3xTF32 bound."""
     from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.utils.mfu import H100_BF16_FLOPS, gcnn_flop
 
     batch = x.shape[0]
     reps = 3 if batch > 16384 else 10
@@ -1705,7 +1714,7 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
                          if w is not None)
                + 4 * sum(w.numel() for w in (ws.lift_re, ws.lift_im, ws.b_re,
                                              ws.b_im) if w is not None))
-    tc_ms = flop / BF16_FLOPS * 1e3
+    tc_ms = flop / H100_BF16_FLOPS * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(tc_ms, bytes_ms)
     bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
@@ -1715,7 +1724,7 @@ def time_gcnn_bf16(ws, x, kw, card: str, label: str) -> dict:
         hw))
     print(f"  {label} B={batch} ({card}): bf16 route {ms:.4f} ms, plain "
           f"bf16 version (cuDNN, TF32 off) {plain_ms:.4f} ms, bf16 bound "
-          f"{bound_ms:.4f} ms ({flop:.3e} FLOP at {BF16_FLOPS:.3g} bf16 "
+          f"{bound_ms:.4f} ms ({flop:.3e} FLOP at {H100_BF16_FLOPS:.3g} bf16 "
           f"FLOP/s, {bound_by}) = {100 * bound_ms / ms:.1f}% of it; the f32 "
           f"route {f32_ms:.4f} ms at the same shape (3xTF32 bound "
           f"{f32_bound:.4f} ms), ratio bf16/f32 {ms / f32_ms:.3f}; {n_cfg} "
@@ -3646,6 +3655,631 @@ def sharded_cards_main(n_cards: int) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the tooling (scan, supervise, the checked step, profiling, MFU, the ViT's
+# bf16 trunk, native ED)
+# ---------------------------------------------------------------------------
+
+#: where the tooling legs write what a caller reads back (git-ignored)
+TOOLING_OUT = ROOT / "chiprun_out" / "tooling"
+#: the supervised leg's overrides of configs/heis10x10_sr.yaml
+SUPERVISE_OVERRIDES = (f"run.init_from={FIXTURE}", "run.n_steps=6",
+                       "run.steps_per_dispatch=1", "run.ckpt_every=2",
+                       "run.log_every=1")
+#: the scan leg: tfim16_sgd at full width over three fields
+SCAN_VALUES = (3.0, 2.0, 1.5)
+SCAN_STEPS = 100
+
+
+def child_pids(pid: int) -> list:
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+        except OSError:
+            continue
+        # pid (comm) state ppid ...: comm may hold spaces, so split after ")"
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(entry.name))
+    return out
+
+
+def tooling_scan_leg(out_dir: Path, card: str) -> dict:
+    """(a) ``python -m qmcnn_tpu_torch.scan`` over tfim16_sgd at full width
+    (N = 16, C = [12, 12], k = 5, M = 2,048), h = 3.0, 2.0, 1.5, 100 steps a
+    point, as a subprocess whose wrapper prints K1's launches at its end:
+    every point an ED energy and rel_err < 0.15, point 0 cold and points 1
+    and 2 warm, each point's npz loading through ``params_from_jax`` with
+    the model's keys and shapes, K1 launches exactly 3 x the run's
+    ``expected_launches``."""
+    import numpy as np
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                params_from_jax)
+
+    scan_dir = out_dir / "scan"
+    shutil.rmtree(scan_dir, ignore_errors=True)
+    argv = ["--config", str(TFIM16_CONFIG), "--param", "hamiltonian.h",
+            "--values", ",".join(str(v) for v in SCAN_VALUES),
+            "--steps-per-point", str(SCAN_STEPS), "--out", str(scan_dir)]
+    code = ("import json, runpy, sys\n"
+            f"sys.argv = ['scan'] + {argv!r}\n"
+            "try:\n"
+            "    runpy.run_module('qmcnn_tpu_torch.scan', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "from qmcnn_tpu_torch.kernels import gcnn_forward as k2\n"
+            "from qmcnn_tpu_torch.kernels import metropolis_sweep as k1\n"
+            "print(json.dumps({'scan_launches': {"
+            "'k1': k1.metropolis_sweep.launches, "
+            "'k2_f32': k2.gcnn_group_sums.launches, "
+            "'k2_bf16': k2.gcnn_group_sums.launches_bf16}}))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (out_dir / "scan.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"(a) scan: rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    got = json.loads(lines[-1])["scan_launches"]
+    rows = json.loads((scan_dir / "summary.json").read_text())["rows"]
+    cfg = configs.load(str(TFIM16_CONFIG), (f"run.n_steps={SCAN_STEPS}",))
+    vmc, params, _ = build(cfg, device="cuda")
+    want = len(SCAN_VALUES) * expected_launches(cfg, vmc)["run"]
+    print(f"    (a) python -m qmcnn_tpu_torch.scan, tfim16_sgd h = "
+          f"{list(SCAN_VALUES)}, {SCAN_STEPS} steps a point: {wall:.1f} s in "
+          f"all, launches {got} (K1 expected {want}); per point "
+          + "; ".join(f"h={r['value']:g} E {r['energy']:.5f} +- "
+                      f"{r['stderr']:.5f}, ED {r['e_exact']:.6f}, rel_err "
+                      f"{r['rel_err']:.4e}, {r['seconds']:.1f} s"
+                      for r in rows) + f" ({card})")
+    check(got["k1"] == want and got["k2_f32"] == got["k2_bf16"] == 0,
+          f"(a) scan: launches {got}, K1 expected {want}")
+    check([r["value"] for r in rows] == list(SCAN_VALUES),
+          f"(a) scan: rows {rows}")
+    for r in rows:
+        check(r["e_exact"] is not None and np.isfinite(r["energy"])
+              and r["rel_err"] < 0.15,
+              f"(a) scan: h={r['value']}: rel_err {r['rel_err']}")
+    starts = [ln for ln in lines if ln.startswith("scan [")
+              and "E =" not in ln]
+    check(len(starts) == 3 and "(cold start)" in starts[0]
+          and all("(warm from point_" in ln for ln in starts[1:]),
+          f"(a) scan: start lines {starts}")
+    for i, v in enumerate(SCAN_VALUES):
+        point = params_from_jax(load_checkpoint_params(
+            str(scan_dir / f"point_{i}_{v:g}.npz")), "cuda")
+        check(sorted(point) == sorted(params) and all(
+            point[k].shape == params[k].shape for k in params),
+            f"(a) scan: point {i}'s npz does not hold the model's params")
+    return {"launches": got, "expected_k1": want, "seconds": wall,
+            "rel_err": [r["rel_err"] for r in rows]}
+
+
+def start_supervised(out_dir: Path) -> dict:
+    """(b) part 1: ``python -m qmcnn_tpu_torch.supervise`` on heis10x10_sr
+    from the fixture (6 steps, a chunk a step, a checkpoint every 2, the
+    checkpoints under ``TOOLING_OUT``), and a watcher thread that SIGSTOPs the
+    child's process group once its .events holds ``save_end 2`` (a wedged
+    dispatch: no exception, no output)."""
+    import signal
+    import threading
+
+    sup_dir = TOOLING_OUT
+    ckpt = sup_dir / "heis10x10_sr_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    csv = sup_dir / "heis10x10_sr_supervised.csv"
+    for suffix in ("", ".params.npz", ".meta.json"):
+        Path(str(csv) + suffix).unlink(missing_ok=True)
+    argv = [sys.executable, "-m", "qmcnn_tpu_torch.supervise", "--config",
+            str(ROOT / "configs" / "heis10x10_sr.yaml"), "--stall-timeout",
+            "20", "--poll", "1"]
+    for ov in SUPERVISE_OVERRIDES + (f"run.ckpt_dir={ckpt}",
+                                     f"run.csv_path={csv}"):
+        argv += ["--override", ov]
+    log = open(sup_dir / "supervise.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+    events = ckpt / "heartbeat.events"
+    state = {"stopped": None}
+
+    def watch():
+        deadline = time.monotonic() + 300
+        while proc.poll() is None and time.monotonic() < deadline:
+            if events.exists() and any(
+                    line.split()[1:3] == ["save_end", "2"]
+                    for line in events.read_text().splitlines()):
+                kids = child_pids(proc.pid)
+                if kids:
+                    os.killpg(kids[0], signal.SIGSTOP)
+                    state["stopped"] = (kids[0], time.perf_counter() - t0)
+                return
+            time.sleep(0.2)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return {"proc": proc, "watcher": watcher, "state": state, "t0": t0,
+            "log": log, "dir": sup_dir, "ckpt": ckpt, "csv": csv}
+
+
+def finish_supervised(run: dict, twin_params, card: str) -> dict:
+    """(b) part 2: the supervisor killed the stopped child and started
+    attempt 2, which printed ``resumed from checkpoint at step 2`` and
+    ended with rc 0; the final .params.npz is bitwise the uninterrupted
+    in-process run's (``twin_params``); .events holds the five event names
+    and the last heartbeat reads step 6."""
+    import numpy as np
+    from qmcnn_tpu_torch.supervise import read_heartbeat
+    from qmcnn_tpu_torch.utils.transfer import params_to_jax
+
+    import signal
+
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=400)
+    finally:
+        if proc.poll() is None:  # its SIGTERM handler kills the child
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        stopped = run["state"]["stopped"]
+        for pgid in ([stopped[0]] if stopped else []) + child_pids(proc.pid):
+            try:
+                os.killpg(pgid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        run["log"].close()
+    run["watcher"].join(timeout=10)
+    wall = time.perf_counter() - run["t0"]
+    text = (run["dir"] / "supervise.log").read_text()
+    hb = read_heartbeat(str(run["ckpt"] / "heartbeat"))
+    names = {line.split()[1] for line in
+             (run["ckpt"] / "heartbeat.events").read_text().splitlines()}
+    stopped = run["state"]["stopped"]
+    want = params_to_jax(twin_params)
+    with np.load(str(run["csv"]) + ".params.npz") as z:
+        got = {k: z[k] for k in z.files}
+    diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    bitwise = sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+    print(f"    (b) python -m qmcnn_tpu_torch.supervise, heis10x10_sr 6 "
+          f"steps: rc {rc}, {wall:.1f} s in all; child SIGSTOPped "
+          f"{'at ' + format(stopped[1], '.1f') + ' s' if stopped else 'never'}"
+          f"; attempts {text.count('supervise: starting attempt')}, "
+          f"resumed {'resumed from checkpoint at step 2' in text}, last "
+          f"heartbeat {hb}, events {sorted(names)}; final params vs the "
+          f"uninterrupted in-process run: bitwise {bitwise}, max |diff| "
+          f"{diff:.3e} ({card})")
+    check(stopped is not None, "(b) supervise: no child to stop")
+    check(rc == 0, f"(b) supervise: rc {rc}")
+    check("heartbeat stale" in text and "starting attempt 2" in text,
+          "(b) supervise: the wedged child was not killed and restarted")
+    check("resumed from checkpoint at step 2" in text,
+          "(b) supervise: attempt 2 did not resume at step 2")
+    check(names >= {"dispatch_start", "dispatch_end", "save_start",
+                    "save_end", "save_ping"}, f"(b) events {names}")
+    check(hb is not None and hb[0] == 6, f"(b) last heartbeat {hb}")
+    check(bitwise, f"(b) supervised params differ from the uninterrupted "
+          f"run's by {diff}")
+    return {"seconds": wall, "bitwise": bitwise, "max_abs_diff": diff}
+
+
+def supervise_twin(card: str):
+    """(b) part 3: the same 6 steps uninterrupted in this process: the
+    reference of the supervised run, and its K1 launches."""
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+
+    cfg = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"),
+                       SUPERVISE_OVERRIDES + ("run.csv_path=null",))
+    want = expected_launches(cfg, build(cfg, device="cuda")[0])["run"]
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _, _ = train_quiet(cfg)
+    got = counts()
+    print(f"    (b) the uninterrupted twin in-process: "
+          f"{time.perf_counter() - t0:.1f} s, launches {got} (K1 expected "
+          f"{want}) ({card})")
+    check(got["k1"] == want, f"(b) twin: K1 {got['k1']}, expected {want}")
+    return state, got
+
+
+def timed_step(run_steps, state, ids, reps: int = 3) -> float:
+    """Mean ms of one ``run_steps(state, 0, ids, 1)`` over ``reps`` calls
+    from the same state, after one warm-up (host clock, synchronized)."""
+    import torch
+
+    run_steps(state, 0, ids, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, m = run_steps(state, 0, ids, 1)
+        float(m[0].energy_re)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def checked_pair(label: str, overrides: tuple, route: str) -> dict:
+    """train() of ``overrides`` with and without run.checkify on the card:
+    no fault, energies and params bitwise equal, the kernel's launches
+    equal and as expected; then one step's time each way."""
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.utils.debug import checked
+
+    out = {}
+    for flag in ("false", "true"):
+        cfg = configs.load(str(overrides[0]), overrides[1:] + (
+            "run.log_every=1", "run.csv_path=null",
+            f"run.checkify={flag}"))
+        reset_counts()
+        state, logger, _ = train_quiet(cfg)
+        out[flag] = (state, logger.history["energy_re"], counts())
+    vmc, _, _ = build(cfg, device="cuda")
+    want = expected_launches(cfg, vmc)["run"]
+    (s0, e0, n0), (s1, e1, n1) = out["false"], out["true"]
+    same = e0 == e1 and all(torch.equal(s0.params[k], s1.params[k])
+                            for k in s0.params)
+    ids = torch.arange(cfg.sampler.n_walkers, device="cuda")
+    plain_ms = timed_step(vmc.run_steps, s0, ids)
+    checked_ms = timed_step(checked(vmc.run_steps), s0, ids)
+    print(f"    (c) {label}: checked energies {e1}, bitwise {same}; launches "
+          f"unchecked {n0}, checked {n1} ({route} expected {want}); one step "
+          f"{plain_ms:.1f} ms unchecked, {checked_ms:.1f} ms checked")
+    check(same, f"(c) {label}: the checked run differs")
+    check(n0 == n1 and n1[route] == want,
+          f"(c) {label}: launches {n0} / {n1}, expected {want}")
+    return {"launches": n1, "bitwise": same, "ms": plain_ms,
+            "checked_ms": checked_ms, "cfg": cfg, "state": s0}
+
+
+def tooling_checked_leg(card: str) -> dict:
+    """(c) the checked step: heis10x10_sr (2 steps from the fixture) on K1
+    and j1j2_8x8_gcnn (1 step) on K2 f32, each bitwise the unchecked run;
+    a NaN written into K1's packed weights outside the checked call makes
+    the checked K1 call raise naming the kernel; an out-of-bounds
+    index_select on the card raises the Python error before its launch,
+    and K1 runs right after it (the context survived)."""
+    import torch
+    from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
+    from qmcnn_tpu_torch.utils.debug import CheckError, checked
+
+    heis = checked_pair("heis10x10_sr, 2 steps, K1", (
+        ROOT / "configs" / "heis10x10_sr.yaml", f"run.init_from={FIXTURE}",
+        "sampler.n_therm_sweeps=20", "run.n_steps=2"), "k1")
+    gcnn = checked_pair("j1j2_8x8_gcnn, 1 step, K2 f32", (
+        GCNN_CONFIG, "sampler.n_therm_sweeps=20", "run.n_steps=1"),
+        "k2_f32")
+    state = heis["state"]
+    params, s = state.params, state.walkers.s
+    fused = k1.FusedCNNLogPsi(lattice_shape=(10, 10))
+    reset_counts()
+    want = fused(params, s).re.clone()
+    blob = k1.packed_weights(k1.conv_layers(params, (10, 10)), 9)
+    saved = blob.clone()
+    blob[0] = float("nan")
+    try:
+        checked(fused)(params, s)
+        raised = ""
+    except CheckError as e:
+        raised = str(e)
+    finally:
+        blob.copy_(saved)
+    check("metropolis_sweep" in raised, f"(c) a NaN in K1's packed weights: "
+          f"raised {raised!r}")
+    x = torch.arange(4.0, device="cuda")
+    try:
+        checked(lambda t, i: torch.index_select(t, 0, i))(
+            x, torch.tensor([1, 5], device="cuda"))
+        oob = ""
+    except CheckError as e:
+        oob = str(e)
+    after = fused(params, s).re
+    torch.cuda.synchronize()
+    print(f"    (c) a NaN in K1's packed weights: {raised!r}; index_select "
+          f"[1, 5] of 4 on the card: {oob!r}; K1 after it bitwise "
+          f"{torch.equal(after, want)} ({card})")
+    check("out-of-bounds" in oob and "index_select" in oob,
+          f"(c) out-of-bounds index_select: {oob!r}")
+    check(torch.equal(after, want), "(c) K1 after the out-of-bounds check")
+    k1_extra = counts()["k1"]
+    return {"launches": {"k1": heis["launches"]["k1"] + k1_extra,
+                         "k2_f32": gcnn["launches"]["k2_f32"]},
+            "heis_ms": [heis["ms"], heis["checked_ms"]],
+            "gcnn_ms": [gcnn["ms"], gcnn["checked_ms"]]}
+
+
+def tooling_profile_leg(card: str) -> dict:
+    """(d) a torch.profiler trace of 2 heis10x10_sr steps after one
+    warm-up step: the ten CUDA kernels with the most device time, the
+    device idle share of the window; K1's kernel in the trace with the
+    count the launch counters give. The gzipped chrome trace goes under
+    ``TOOLING_OUT``/profile/."""
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
+    from qmcnn_tpu_torch.train import chunked_thermalize
+    from qmcnn_tpu_torch.utils import profiling
+    from qmcnn_tpu_torch.utils.transfer import warm_start
+
+    cfg = configs.load(str(ROOT / "configs" / "heis10x10_sr.yaml"))
+    vmc, params, _ = build(cfg, device="cuda")
+    params = warm_start(params, str(FIXTURE))
+    m = cfg.sampler.n_walkers
+    ids = torch.arange(m, device="cuda")
+    state = vmc.init_state(prng_key(1), m, params, device="cuda")
+    state = chunked_thermalize(vmc, state, prng_key(2), ids, 20, 0)
+    state, _ = vmc.step(state, fold_in(prng_key(3), 0), ids)  # warm-up
+    torch.cuda.synchronize()
+    logdir = TOOLING_OUT / "profile"
+    with profiling.trace(str(logdir / "warmup")):  # the profiler's start-up
+        torch.ones(1, device="cuda").add_(1.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(str(logdir)) as prof:
+        for i in (1, 2):
+            state, _ = vmc.step(state, fold_in(prng_key(3), i), ids)
+    window = time.perf_counter() - t0
+    n = counts()
+    table = profiling.kernel_table(prof)
+    idle = profiling.idle_share(prof)
+    events = list(prof.events())
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    sweep = [r for r in table if "sweep_kernel" in r["name"]]
+    device_ms = sum(r["total_ms"] for r in table)
+    size = (logdir / profiling.TRACE_FILE).stat().st_size
+    print(f"    (d) torch.profiler, 2 heis10x10_sr steps ({card}): traced "
+          f"window {span:.1f} ms ({window * 1e3:.1f} ms of host clock with "
+          f"the export), device time {device_ms:.2f} ms in {len(table)} "
+          f"kernel names, device idle share "
+          f"{idle if idle is None else round(idle, 4)} (the profiler on); "
+          f"trace {size} bytes; launches {n}; the ten largest:")
+    for r in table[:10]:
+        print(f"      {r['total_ms']:9.3f} ms  x{r['count']:<5d} "
+              f"{r['name'][:110]}")
+    check(table, "(d) key_averages() shows no device time")
+    check(idle is not None and 0.0 <= idle < 1.0, f"(d) idle share {idle}")
+    check(len(sweep) == 1 and sweep[0]["count"] == n["k1"] == 6,
+          f"(d) K1 in the trace {sweep}, counted {n}")
+    return {"launches": n, "idle_share": idle, "device_ms": device_ms,
+            "window_ms": span,
+            "top": [{k: r[k] for k in ("name", "count", "total_ms")}
+                    for r in table[:10]],
+            "state": state, "vmc": vmc, "ids": ids}
+
+
+def tooling_mfu_leg(card: str, prof: dict) -> dict:
+    """(e) MFU of K1's flagship sweep (hand FLOPs / CUDA-event time), of K2
+    f32 at the j1j2_8x8_gcnn E_loc chunk, and of one whole heis10x10_sr
+    step (``step_flops`` / host-clock step time), each with its peak."""
+    import torch
+    from qmcnn_tpu_torch.kernels import gcnn_forward as k2
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
+    from qmcnn_tpu_torch.lattice import square
+    from qmcnn_tpu_torch.sampler.metropolis import sweep_noise
+    from qmcnn_tpu_torch.utils.mfu import (H100_FP32_CORE_FLOPS,
+                                           device_peak_flops, fmt_mfu,
+                                           forward_flop, gcnn_flop, mfu,
+                                           pallas_sweep_flops_per_proposal,
+                                           step_flops)
+    from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
+                                                params_from_jax)
+
+    peak = device_peak_flops("float32")
+    check(peak is not None, f"(e) no float32 peak for {card}")
+    reset_counts()
+    flagship = params_from_jax(load_checkpoint_params(str(FIXTURE)), "cuda")
+    case = sweep_case("heis10x10", flagship, square(10), 2048, "exchange", 1,
+                      "cuda")
+    m, n = case["s"].shape
+    noise = sweep_noise(case["key"], case["ids"], n, case["n_choices"])
+    sweep_ms = cuda_ms(lambda: metropolis_sweep(
+        flagship, case["s"], case["lp"], lattice_shape=(10, 10), n_props=n,
+        move="exchange", bonds=case["bonds"], noise=noise), reps=10)
+    sweep_flop = m * n * forward_flop(flagship, n)
+    tpu_model = m * n * pallas_sweep_flops_per_proposal(flagship, (10, 10))
+    main_kw = dict(lattice_shape=(8, 8), channels=(8, 8, 8),
+                   complex_params=True, param_scale=0.05)
+    _, ws, x, kw = gcnn_case(main_kw, 256 * 256 * 2, 26, "cuda")
+    k2_ms = cuda_ms(lambda: k2.gcnn_group_sums(x, ws, **kw), reps=5)
+    k2_flop = gcnn_flop(64, 64, 3, True, x.shape[0])
+    launches = counts()
+    vmc, state, ids = prof["vmc"], prof["state"], prof["ids"]
+    step_fl = step_flops(vmc, state, ids)
+    step_ms = timed_step(vmc.run_steps, state, ids)
+    rows = {
+        "k1_sweep": (sweep_flop, sweep_ms),
+        "k2_f32_e_loc_chunk": (k2_flop, k2_ms),
+        "heis10x10_sr_step": (step_fl, step_ms),
+    }
+    out = {}
+    for name, (flop, ms) in rows.items():
+        frac = mfu(flop, ms / 1e3, "float32")
+        out[name] = {"flop": flop, "ms": ms, "mfu": frac}
+        print(f"    (e) MFU {name}: {flop:.4e} FLOP in {ms:.4f} ms = "
+              f"{flop / ms / 1e9:.2f} TFLOP/s, {fmt_mfu(frac)} of the "
+              f"float32 peak {peak:.4g} (3xTF32; the FP32-core rate "
+              f"{H100_FP32_CORE_FLOPS:.3g}: "
+              f"{100 * flop / (ms / 1e3) / H100_FP32_CORE_FLOPS:.1f}%) "
+              f"({card})")
+        check(frac is not None and 0.0 < frac < 1.0, f"(e) {name}: {frac}")
+    ratio = tpu_model / sweep_flop
+    print(f"    (e) the TPU kernel's dense-circulant model counts "
+          f"{tpu_model:.4e} FLOP for the same sweep ({ratio:.1f}x K1's "
+          f"work; not K1's numerator); launches {launches}")
+    out["launches"] = launches
+    return out
+
+
+def vit8_bf16_leg(out_dir: Path, card: str, vit8=None) -> dict:
+    """(f) the j1j2_8x8_vit_cap snapshot with the bf16 trunk: E_loc on one
+    set of thermalized walkers at the snapshot's params in f32 and in bf16
+    (the mean difference under 3 binned stderr of the f32 mean), then 4
+    bf16 steps from those walkers (finite energies, |E_im| under 3 binned
+    stderr, K1 = K2 = 0) and the bf16 step split. ``vit8``: (config, state)
+    of the families phase's f32 leg, whose walkers are used; None: 20
+    thermalization sweeps at the snapshot's params here."""
+    import numpy as np
+    import torch
+    from qmcnn_tpu_torch import configs
+    from qmcnn_tpu_torch.builder import build
+    from qmcnn_tpu_torch.ops.local_energy import local_energy
+    from qmcnn_tpu_torch.sampler.metropolis import prng_key
+    from qmcnn_tpu_torch.train import chunked_thermalize
+    from qmcnn_tpu_torch.utils.metrics import binned_stderr
+    from qmcnn_tpu_torch.utils.transfer import warm_start
+
+    t0 = time.perf_counter()
+    if vit8 is None:
+        cfg = meta_config(VIT8_META, ("sampler.n_therm_sweeps=20",))
+        vmc, params, _ = build(cfg, device="cuda")
+        params = warm_start(params, str(VIT8_FIXTURE))
+        m = cfg.sampler.n_walkers
+        ids = torch.arange(m, device="cuda")
+        state = vmc.init_state(prng_key(5), m, params, device="cuda")
+        state = chunked_thermalize(vmc, state, prng_key(6), ids, 20, 10)
+    else:
+        cfg, state = vit8
+    cfg16 = configs.apply_overrides(cfg, ("model.compute_dtype=bfloat16",))
+    vmc16, _, _ = build(cfg16, device="cuda")
+    vmc32, _, _ = build(cfg, device="cuda")
+    w, params = state.walkers, state.params
+    e = {}
+    with torch.no_grad():
+        for dtype, vmc in (("float32", vmc32), ("bfloat16", vmc16)):
+            lp = vmc.eval_log_psi_fn(params, w.s)
+            e[dtype] = local_energy(vmc.eval_log_psi_fn, params, vmc.ham,
+                                    w.s, lp, chunk_size=vmc.chunk_size
+                                    ).re.double()
+    diff = float((e["bfloat16"] - e["float32"]).mean())
+    err = binned_stderr(e["float32"].cpu().numpy())
+    print(f"    (f) j1j2_8x8_vit_cap E_loc on {w.s.shape[0]} walkers: f32 "
+          f"{float(e['float32'].mean()) / 64:.6f}/site, bf16 "
+          f"{float(e['bfloat16'].mean()) / 64:.6f}/site; mean difference "
+          f"{diff:.5f} vs binned stderr of the f32 mean {err:.5f} "
+          f"({abs(diff) / err:.2f} stderr)")
+    check(np.isfinite(diff) and abs(diff) < 3 * err,
+          f"(f) ViT bf16 E_loc mean differs by {diff}, >= 3 x {err}")
+    ids = torch.arange(cfg.sampler.n_walkers, device="cuda")
+    state16 = vmc16.init_state(prng_key(0), cfg.sampler.n_walkers, params,
+                               device="cuda")._replace(walkers=w)
+    reset_counts()
+    new, metrics = vmc16.run_steps(state16, prng_key(9), ids, 4)
+    n = counts()
+    energies = [float(mt.energy_re) / 64 for mt in metrics]
+    print(f"    (f) 4 bf16 steps: E/site {[round(v, 5) for v in energies]}, "
+          f"E_im {[round(float(mt.energy_im), 5) for mt in metrics]}, "
+          f"launches {n}")
+    check(np.isfinite(energies).all(), "(f) non-finite bf16 energies")
+    check(sum(n.values()) == 0, f"(f) the ViT launched a kernel {n}")
+    e_im_check("(f) j1j2_8x8_vit_cap bf16", vmc16, new)
+    split = step_split(cfg16, new, card, "j1j2_8x8_vit_cap bf16", vmc=vmc16,
+                       n_steps=1)
+    if vit8 is None:  # else phase 5 prints the f32 split of this call
+        step_split(cfg, state, card, "j1j2_8x8_vit_cap f32", vmc=vmc32,
+                   n_steps=1)
+    return {"seconds": time.perf_counter() - t0, "e_loc_diff": diff,
+            "stderr": err, "split": split}
+
+
+def native_ed_leg(card: str) -> dict:
+    """(g) the native ED library built here (g++), its tfim16 and 4x4
+    Heisenberg ground energies against the port's sparse ops/exact.py
+    (1e-9 relative), and the 24-site Heisenberg chain in its S^z = 0 sector
+    (C(24, 12) = 2,704,156 states) against the Bethe ansatz (1e-8)."""
+    from qmcnn_tpu_torch.lattice import chain, square
+    from qmcnn_tpu_torch.ops import bethe, exact, exact_native
+
+    t0 = time.perf_counter()
+    check(exact_native.available(), f"(g) native ED: "
+          f"{exact_native._load_error}")
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s}
+    c16, sq = chain(16), square(4)
+    for name, op, sp in (
+            ("tfim16", exact_native.tfim_operator(16, c16.nn_bonds),
+             exact.sparse_tfim(16, c16.nn_bonds)),
+            ("heis4x4", exact_native.heisenberg_operator(16, sq.nn_bonds),
+             exact.sparse_heisenberg(16, sq.nn_bonds))):
+        t0 = time.perf_counter()
+        got = exact_native.ground_energy(op)
+        solve = time.perf_counter() - t0
+        want = exact.ground_energy(sp)
+        rel = abs(got - want) / abs(want)
+        print(f"    (g) {name}: native {got:.12f} in {solve:.2f} s, sparse "
+              f"{want:.12f}, relative {rel:.2e}")
+        check(rel < 1e-9, f"(g) {name}: {got} vs {want}")
+        out[name] = {"e": got, "solve_s": solve, "rel": rel}
+    t0 = time.perf_counter()
+    op = exact_native.heisenberg_sector_operator(24, chain(24).nn_bonds)
+    got = exact_native.ground_energy(op)
+    solve = time.perf_counter() - t0
+    want = bethe.ground_energy(24)
+    rel = abs(got - want) / abs(want)
+    print(f"    (g) heis24 chain, S^z = 0 ({op.shape[0]} states): native "
+          f"{got:.12f} in {solve:.2f} s, Bethe {want:.12f}, relative "
+          f"{rel:.2e}; build {build_s:.2f} s "
+          f"({exact_native._lib.ed_num_threads()} threads; {card})")
+    check(op.shape[0] == 2704156 and rel < 1e-8,
+          f"(g) heis24: {got} vs {want}")
+    out["heis24"] = {"e": got, "solve_s": solve, "rel": rel}
+    return out
+
+
+def tooling_phase(out_dir: Path, card: str, vit8=None) -> dict:
+    """The tooling (``scan``, ``supervise``, ``utils/debug``,
+    ``utils/profiling``, ``utils/mfu``, the ViT's bf16 trunk,
+    ``ops/exact_native``): the supervised run (b) goes first, and while it
+    runs the legs that time nothing on the card: its uninterrupted twin,
+    (a) the scan subprocess and (g) native ED; then, alone on the card,
+    (c) the checked steps, (d) the profile, (e) MFU and (f) the ViT in
+    bf16. Each leg's counters are zeroed just before it and read just after
+    it (the scan's in its own process)."""
+    t0 = time.perf_counter()
+    run = start_supervised(out_dir)
+    try:
+        twin, twin_n = supervise_twin(card)
+        scan = tooling_scan_leg(out_dir, card)
+        native = native_ed_leg(card)
+    finally:
+        sup = finish_supervised(run, twin.params, card)
+    print(f"    (a), (b), (g) {time.perf_counter() - t0:.1f} s")
+    checked_leg = tooling_checked_leg(card)
+    prof = tooling_profile_leg(card)
+    mfu = tooling_mfu_leg(card, prof)
+    vit = vit8_bf16_leg(out_dir, card, vit8)
+    launches = {
+        "k1": (scan["launches"]["k1"] + twin_n["k1"]
+               + checked_leg["launches"]["k1"] + prof["launches"]["k1"]),
+        "k2_f32": (checked_leg["launches"]["k2_f32"]
+                   + mfu["launches"]["k2_f32"])}
+    print(json.dumps({"tooling": {
+        "launches": launches, "scan": {k: scan[k] for k in (
+            "launches", "seconds", "rel_err")},
+        "supervise": sup, "checked": {k: checked_leg[k] for k in (
+            "launches", "heis_ms", "gcnn_ms")},
+        "profile": {k: prof[k] for k in (
+            "launches", "idle_share", "device_ms", "window_ms", "top")},
+        "mfu": {k: mfu[k] for k in ("k1_sweep", "k2_f32_e_loc_chunk",
+                                    "heis10x10_sr_step")},
+        "vit_bf16": vit, "native": native}}, default=float))
+    return launches
+
+
 def phase_main(flag: str, label: str, phase) -> int:
     """``python3 chip_smoke.py --excited`` / ``--measure``: only the build
     and that phase (its legs, checks and splits), for iterating on it."""
@@ -3870,6 +4504,8 @@ def main() -> int:
         return phase_main("--measure", "measurement", measure_phase)
     if len(sys.argv) > 1 and sys.argv[1] == "--dynamics":
         return phase_main("--dynamics", "dynamics", dynamics_phase)
+    if len(sys.argv) > 1 and sys.argv[1] == "--tooling":
+        return phase_main("--tooling", "tooling", tooling_phase)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -4134,6 +4770,15 @@ def main() -> int:
     t0 = time.perf_counter()
     dynamics = dynamics_phase(out_dir, card)
     print(f"    dynamics phase {time.perf_counter() - t0:.1f} s")
+    print("[4] tooling: python -m qmcnn_tpu_torch.scan over tfim16_sgd "
+          "(K1), python -m qmcnn_tpu_torch.supervise on heis10x10_sr wedged "
+          "and resumed (K1), the checked heis10x10_sr (K1) and j1j2_8x8_gcnn "
+          "(K2 f32) steps, a torch.profiler trace of heis10x10_sr, MFU, the "
+          "8x8 ViT snapshot in bf16 and native ED "
+          f"({card})", flush=True)
+    t0 = time.perf_counter()
+    tooling = tooling_phase(out_dir, card, vit8=families["vit8"])
+    print(f"    tooling phase {time.perf_counter() - t0:.1f} s")
     print(f"[4] sharded: {SHARD_RANKS} gloo ranks on cuda:0 against 1 rank "
           "(heis10x10_sr, j1j2_8x8_gcnn gather and ring, the dryrun shape "
           "with pcg and cg, heis10x10_sr tempered, the 4x4 E1 deflation), "
@@ -4176,9 +4821,9 @@ def main() -> int:
           f"{frustrated['spring']['per_step']}")
     step_split(frustrated["spring"]["cfg"], frustrated["spring"]["state"],
                card, "j1j2_8x8_gcnn_r2 with SPRING")
-    step_split(*frustrated["tgcnn"], card, "tri6x6_tgcnn")
+    step_split(*frustrated["tgcnn"], card, "tri6x6_tgcnn", n_steps=1)
     step_split(*frustrated["kgcnn"], card, "kagome3x3_kgcnn")
-    step_split(*families["vit8"], card, "j1j2_8x8_vit_cap")
+    step_split(*families["vit8"], card, "j1j2_8x8_vit_cap", n_steps=1)
     direct_split(*families["karnn"], card, "kagome3x3_r3_arnn")
     direct_split(*families["heis40"], card, "heis40_arnn")
 
@@ -4191,6 +4836,7 @@ def main() -> int:
         "launches": launches,
         "measure_launches": measured["k1"],
         "dynamics_launches": dynamics["k1"],
+        "tooling_launches": tooling["k1"],
         "max_abs_err": errs["flagship_exchange"],
         "ms": t_flag["ms"],
         "plain_ms": t_flag["plain_ms"],
@@ -4212,6 +4858,7 @@ def main() -> int:
         "launches": gcnn["launches"],
         "measure_launches": measured["k2_f32"],
         "dynamics_launches": dynamics["k2_f32"],
+        "tooling_launches": tooling["k2_f32"],
         "max_abs_err": errs["gcnn"],
         "ms": t_eloc["ms"],
         "plain_ms": t_eloc["plain_ms"],

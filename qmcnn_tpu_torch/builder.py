@@ -751,6 +751,16 @@ def build(cfg: Config, device="cuda", group=None
         lattice_shape=tuple(lattice.shape),
         ema_decay=o.ema_decay,
     )
+    # the memory preflight: surface dangerous-looking configs before any
+    # step runs (the JAX builder's warning, SR only)
+    if cfg.sr.enabled:
+        est = memory.peak_estimate(
+            cfg, lattice, ham, n_params, solver=sr.solver,
+            chunk_size=chunk_size, jacobian_chunk=sr.jacobian_chunk,
+            device=device, world_size=world)
+        msg = memory.preflight_message(est)
+        if msg:
+            print(f"WARNING: {msg}", flush=True)
     return vmc, params, lattice
 
 

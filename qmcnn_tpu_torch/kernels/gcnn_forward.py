@@ -50,6 +50,7 @@ from qmcnn_tpu_torch.models.gcnn import (_group_kernel, _lift_kernel,
                                          effective_kernel)
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.debug import check_kernel_output
 
 SOURCE = CSRC / "gcnn_forward.cu"
 G = 8
@@ -561,10 +562,15 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
             _DTYPE_CODES[compute_dtype], threads, smem, stream)
     if compute_dtype == "bfloat16":
         gcnn_group_sums.launches_bf16 += 1
+        gcnn_group_sums.rows_bf16 += batch
     else:
         gcnn_group_sums.launches += 1
+        gcnn_group_sums.rows += batch
     if err != 0:
         raise RuntimeError(f"gcnn_group_sums launch failed: CUDA error {err}")
+    # under utils/debug.checked: the launch is invisible to its dispatch
+    # mode, so the outputs are checked here
+    check_kernel_output(f"gcnn_group_sums ({compute_dtype})", out_re, out_im)
     return C(out_re, out_im)
 
 
@@ -572,6 +578,9 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
 #: which run the plain version, do not count)
 gcnn_group_sums.launches = 0
 gcnn_group_sums.launches_bf16 = 0
+#: configurations the launches computed, per route (``utils/mfu.step_flops``)
+gcnn_group_sums.rows = 0
+gcnn_group_sums.rows_bf16 = 0
 
 
 class FusedLogPsi:

@@ -40,6 +40,7 @@ from qmcnn_tpu_torch.kernels.nvcc import CSRC, MAX_SMEM_BYTES, build_library
 from qmcnn_tpu_torch.kernels.tf32 import tf32_split
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN, _tap_offsets, log_psi_apply
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.debug import check_kernel_output
 
 SOURCE = CSRC / "metropolis_sweep.cu"
 MAX_LAYERS = 16
@@ -415,14 +416,21 @@ def metropolis_sweep(params, s: torch.Tensor, log_psi_re: torch.Tensor, *,
             len(layers), ctypes.cast(ch, ctypes.c_void_p), walkers,
             launch_threads(n, channels, walkers), smem, stream)
     metropolis_sweep.launches += 1
+    metropolis_sweep.rows += m * max(n_props, 1)
     if err != 0:
         raise RuntimeError(f"metropolis_sweep launch failed: CUDA error {err}")
+    # under utils/debug.checked: the launch is invisible to its dispatch
+    # mode, so the outputs are checked here
+    check_kernel_output("metropolis_sweep", s_out, lp_out)
     return s_out, lp_out, n_acc
 
 
 #: launches of the CUDA kernel since the last reset (CPU calls, which run
 #: the plain version, do not count)
 metropolis_sweep.launches = 0
+#: forwards the launches computed (walkers x max(proposals, 1)): the
+#: configurations ``utils/mfu.step_flops`` multiplies by the hand model
+metropolis_sweep.rows = 0
 
 
 class FusedCNNLogPsi:

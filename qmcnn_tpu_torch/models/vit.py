@@ -19,7 +19,20 @@ as E[x^2] - E[x]^2 (clamped at 0), and ``DenseGeneral((H, hd))`` maps
 keep the Flax keys and layouts (``params/block0/attn/v/kernel``
 ``[D, H, hd]``, ``params/block0/attn/relpos_bias`` ``[H, T]``). The
 attention is written as explicit einsums, in true float32
-(``models/cnn.py:true_f32``). The bfloat16 trunk is not ported.
+(``models/cnn.py:true_f32``).
+
+With ``compute_dtype='bfloat16'`` the trunk runs in bf16 as the JAX
+model's does: the parameters stay f32 and each dense layer casts its
+kernel and bias to bf16 (Flax's ``promote_dtype``), so the patch embed,
+the ``v`` / ``q`` / ``k`` / ``proj`` products, the MLP, the residual sums
+and the attention einsums are bf16 ops; GELU is computed op by op in bf16
+with its constants rounded to bf16 (XLA's weak-typed Python floats,
+:func:`gelu_bf16`); the factored attention's softmax(bias) and the
+dot-product logits' softmax are f32, cast to bf16 for the einsum with v;
+layer norm computes its statistics and its output in f32 from the bf16
+input (Flax's ``force_float32_reductions``) and rounds the output to bf16.
+``ln_f``'s output is cast to f32, and the head and the logmeanexp
+projection run in f32.
 """
 from __future__ import annotations
 
@@ -81,10 +94,13 @@ class _Leaf(nn.Module):
 
 
 class _Dense(_Leaf):
-    """Flax ``nn.Dense``: kernel [in, out], bias [out]."""
+    """Flax ``nn.Dense``: kernel [in, out], bias [out], both cast to the
+    compute ``dtype`` per call."""
 
-    def __init__(self, d_in: int, d_out: int, std=None):
+    def __init__(self, d_in: int, d_out: int, std=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if std is None:
             self._param("kernel", (d_in, d_out), "lecun", d_in)
         else:
@@ -92,37 +108,59 @@ class _Dense(_Leaf):
         self._param("bias", (d_out,), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
 
 
 class _DenseGeneral(_Leaf):
-    """Flax ``nn.DenseGeneral((H, hd))``: [..., D] -> [..., H, hd]."""
+    """Flax ``nn.DenseGeneral((H, hd))``: [..., D] -> [..., H, hd], kernel
+    and bias cast to the compute ``dtype`` per call."""
 
-    def __init__(self, d: int, heads: int, hd: int):
+    def __init__(self, d: int, heads: int, hd: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self._param("kernel", (d, heads, hd), "lecun", d)
         self._param("bias", (heads, hd), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d, heads, hd = self.kernel.shape
-        y = x @ self.kernel.reshape(d, heads * hd)
-        return y.reshape(*x.shape[:-1], heads, hd) + self.bias
+        y = x @ self.kernel.reshape(d, heads * hd).to(self.dtype)
+        return y.reshape(*x.shape[:-1], heads, hd) + self.bias.to(self.dtype)
 
 
 class _LayerNorm(_Leaf):
-    """Flax ``nn.LayerNorm``: epsilon 1e-6, var = max(E[x^2] - E[x]^2, 0)."""
+    """Flax ``nn.LayerNorm``: epsilon 1e-6, var = max(E[x^2] - E[x]^2, 0),
+    computed in f32 from the input and rounded to ``dtype``."""
 
-    def __init__(self, d: int):
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self._param("scale", (d,), "ones")
         self._param("bias", (d,), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
         mean = x.mean(-1, keepdim=True)
         mean2 = (x * x).mean(-1, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + _LN_EPS) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
+def _const(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (an XLA weak-typed Python float)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` on a bf16 ``x`` as XLA computes
+    it: x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 x^3)))), each op
+    rounded to bf16, the constants rounded to bf16 first."""
+    dt = x.dtype
+    c = _const(0.044715, dt)
+    s2pi = _const(float(np.sqrt(2 / np.pi)), dt)
+    inner = x + c * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(s2pi * inner)))
 
 
 class _Attention(_Leaf):
@@ -130,7 +168,7 @@ class _Attention(_Leaf):
     patch torus; ``factored`` drops q k^T and uses the bias alone."""
 
     def __init__(self, grid: Tuple[int, ...], d: int, n_heads: int,
-                 factored: bool):
+                 factored: bool, dtype: torch.dtype = torch.float32):
         super().__init__()
         if d % n_heads:
             raise ValueError(f"d_model {d} not divisible by n_heads "
@@ -139,14 +177,15 @@ class _Attention(_Leaf):
         self.n_heads = n_heads
         self.factored = factored
         self.hd = d // n_heads
+        self.dtype = dtype
         self._rel = {}  # the relative-position table on each device
         t = int(np.prod(grid))
         self._param("relpos_bias", (n_heads, t), "normal", 0.5)
-        self.v = _DenseGeneral(d, n_heads, self.hd)
+        self.v = _DenseGeneral(d, n_heads, self.hd, dtype)
         if not factored:
-            self.q = _DenseGeneral(d, n_heads, self.hd)
-            self.k = _DenseGeneral(d, n_heads, self.hd)
-        self.proj = _Dense(d, d)
+            self.q = _DenseGeneral(d, n_heads, self.hd, dtype)
+            self.k = _DenseGeneral(d, n_heads, self.hd, dtype)
+        self.proj = _Dense(d, d, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D]
         b, t, d = x.shape
@@ -157,13 +196,13 @@ class _Attention(_Leaf):
         bias = self.relpos_bias[:, rel]                    # [H, T, T]
         v = self.v(x)                                      # [B, T, H, hd]
         if self.factored:
-            attn = torch.softmax(bias, dim=-1)
+            attn = torch.softmax(bias, dim=-1).to(self.dtype)
             out = torch.einsum("hij,bjhd->bihd", attn, v)
         else:
             q, k = self.q(x), self.k(x)
             logits = torch.einsum("bihd,bjhd->bhij", q, k).to(torch.float32)
             logits = logits / float(np.sqrt(self.hd)) + bias[None]
-            attn = torch.softmax(logits, dim=-1)
+            attn = torch.softmax(logits, dim=-1).to(self.dtype)
             out = torch.einsum("bhij,bjhd->bihd", attn, v)
         return self.proj(out.reshape(b, t, d))
 
@@ -172,23 +211,27 @@ class _Block(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, grid: Tuple[int, ...], d: int, n_heads: int,
-                 mlp_ratio: int, factored: bool):
+                 mlp_ratio: int, factored: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = _LayerNorm(d)
-        self.attn = _Attention(grid, d, n_heads, factored)
-        self.ln2 = _LayerNorm(d)
-        self.mlp1 = _Dense(d, mlp_ratio * d)
-        self.mlp2 = _Dense(mlp_ratio * d, d)
+        self.ln1 = _LayerNorm(d, dtype)
+        self.attn = _Attention(grid, d, n_heads, factored, dtype)
+        self.ln2 = _LayerNorm(d, dtype)
+        self.mlp1 = _Dense(d, mlp_ratio * d, dtype=dtype)
+        self.mlp2 = _Dense(mlp_ratio * d, d, dtype=dtype)
+        self.gelu = (gelu_bf16 if dtype == torch.bfloat16 else
+                     functools.partial(F.gelu, approximate="tanh"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(self.mlp1(self.ln2(x)), approximate="tanh")
+        h = self.gelu(self.mlp1(self.ln2(x)))
         return x + self.mlp2(h)
 
 
 class LogPsiViT(nn.Module):
     """Translation-invariant ViT wavefunction; the fields of the JAX
-    ``LogPsiViT`` (``compute_dtype='bfloat16'`` raises)."""
+    ``LogPsiViT`` (``compute_dtype``: the trunk's, 'float32' or
+    'bfloat16')."""
 
     def __init__(self, lattice_shape: Tuple[int, ...],
                  channels: Sequence[int] = (32, 32), patch: int = 2,
@@ -196,10 +239,9 @@ class LogPsiViT(nn.Module):
                  complex_params: bool = False, param_scale: float = 0.05,
                  compute_dtype: str = "float32"):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"the ViT trunk in compute_dtype={compute_dtype!r} is not "
-                "ported yet (ROADMAP.md); use float32")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        dtype = getattr(torch, compute_dtype)
         shape = tuple(lattice_shape)
         for length in shape:
             if length % patch:
@@ -212,13 +254,14 @@ class LogPsiViT(nn.Module):
         self.patch = patch
         self.n_blocks = len(channels)
         self.complex_params = complex_params
+        self.dtype = dtype
         d = channels[0]
         grid = tuple(length // patch for length in shape)
-        self.embed = _Dense(patch ** len(shape), d)
+        self.embed = _Dense(patch ** len(shape), d, dtype=dtype)
         for i in range(self.n_blocks):
             self.add_module(f"block{i}", _Block(grid, d, n_heads, mlp_ratio,
-                                                factored))
-        self.ln_f = _LayerNorm(d)
+                                                factored, dtype))
+        self.ln_f = _LayerNorm(d, dtype)
         head_std = param_scale / float(np.sqrt(d))
         self.head_re = _Dense(d, d, std=head_std)
         if complex_params:
@@ -235,10 +278,10 @@ class LogPsiViT(nn.Module):
         a = len(shifts)
         x = x.reshape(a * batch, *shape)
         with true_f32():
-            h = self.embed(_patchify(x, shape, p))
+            h = self.embed(_patchify(x, shape, p).to(self.dtype))
             for i in range(self.n_blocks):
                 h = getattr(self, f"block{i}")(h)
-            h = self.ln_f(h)
+            h = self.ln_f(h).to(torch.float32)
             zre = self.head_re(h)
             if self.complex_params:
                 z = cplx.lncosh(C(zre, self.head_im(h)))

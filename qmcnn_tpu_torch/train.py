@@ -20,6 +20,21 @@ directory holds a checkpoint resumes from it), writes the
 ``optimizer.ema_decay``) and the ``<csv>.meta.json`` manifest in the JAX
 package's formats, and — for exactly diagonalizable systems
 (n_sites <= 20) — reports the relative error against the ED ground energy.
+
+Liveness (the JAX loop's, for ``qmcnn_tpu_torch.supervise``): with
+``run.heartbeat_path`` rank 0 rewrites '<step> <unix-time>' there after
+every completed chunk of steps, the first beat only after the first chunk,
+and appends timestamped ``dispatch_start`` / ``dispatch_end`` /
+``save_start`` / ``save_end`` / ``save_ping`` lines to
+'<heartbeat>.events'; ``run.dispatch_warn_s`` starts a watchdog around
+each chunk that prints a warning when the device has stalled;
+``run.save_settle_s`` sleeps after the device ping that follows each
+periodic save; ``run.steps_per_dispatch <= 0`` sizes the chunk from two
+timed, unlogged single steps to a ~40 s budget; ``run.checkify`` runs the
+steps under ``utils/debug.checked``. The JAX entry point's
+``enable_compilation_cache`` has no counterpart: the port compiles nothing
+at run time but its CUDA kernels, which ``kernels/nvcc.py`` caches in
+``qmcnn_tpu_torch/_build/`` already.
 """
 from __future__ import annotations
 
@@ -28,6 +43,7 @@ import json
 import os
 import platform
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -111,6 +127,65 @@ def check_rank_layout(cfg, group, module: str) -> None:
         raise ValueError("a walker group needs run.distributed: true")
 
 
+def _heartbeat(path: Optional[str], step: int) -> None:
+    """Liveness marker for qmcnn_tpu_torch.supervise: '<step> <unix-time>'.
+
+    Rewritten after every completed chunk; the supervisor watches the mtime
+    and restarts the run (from its checkpoint) if it goes stale.
+    Best-effort: a failed write never kills training. Atomic (tmp +
+    rename): the supervisor polls concurrently, and an open("w")
+    truncation window would let it read an empty file and take a live
+    child for one that never beat."""
+    if not path:
+        return
+    try:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(f"{step} {time.time()}\n")
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _event(hb_path: Optional[str], name: str, step: int,
+           extra: str = "") -> None:
+    """Append '<unix-time> <name> <step> [extra]' to <heartbeat>.events:
+    timestamped chunk and save bounds, so the interval from a save to a
+    stall is a measured quantity. Best-effort, append-only (the
+    supervisor never reads it)."""
+    if not hb_path:
+        return
+    try:
+        with open(hb_path + ".events", "a") as f:
+            f.write(f"{time.time():.3f} {name} {step}"
+                    + (f" {extra}" if extra else "") + "\n")
+    except OSError:
+        pass
+
+
+def _post_save_settle(cfg, hb_path: Optional[str], step: int, dev) -> None:
+    """Device ping (+ optional cool-down) between a save and the next
+    chunk: if the save stalled the host or the device, the ping absorbs and
+    measures the stall instead of the next chunk. The ping (a one-element
+    add and ``torch.cuda.synchronize``, on CUDA only) lands in .events."""
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.ones(1, device=dev).add_(1.0)
+        torch.cuda.synchronize(dev)
+    _event(hb_path, "save_ping", step, f"{time.perf_counter() - t0:.3f}s")
+    if cfg.run.save_settle_s > 0:
+        time.sleep(cfg.run.save_settle_s)
+
+
+def _metric_rows(metrics) -> list:
+    """Per step (energy_re, energy_im, energy_var, accept, grad_norm,
+    sr_iters, overlap) as floats: the chunk's one device-to-host read."""
+    return [[float(x) for x in (mt.energy_re, mt.energy_im, mt.energy_var,
+                                mt.accept_rate, mt.grad_norm, mt.sr_iters,
+                                mt.overlap)]
+            for mt in metrics]
+
+
 def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     """Run the configured experiment; returns (final state, logger).
 
@@ -123,12 +198,8 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     With ``run.distributed`` this process is one rank of the walker group
     (``group``, else the default process group, which must be initialized:
     ``parallel.mesh.init_distributed``): the state holds its walkers, its
-    device is the group's, and only rank 0 logs and writes files."""
-    if cfg.run.checkify or cfg.run.heartbeat_path:
-        raise NotImplementedError(
-            "run.checkify and run.heartbeat_path (the checked step and the "
-            "supervisor's liveness file) are not ported yet (ROADMAP.md, "
-            "A19)")
+    device is the group's, and only rank 0 logs and writes files (the
+    heartbeat and its events too)."""
     if cfg.run.nan_policy not in ("rollback", "halt", "ignore"):
         raise ValueError(f"unknown run.nan_policy {cfg.run.nan_policy!r}")
     check_rank_layout(cfg, group, "qmcnn_tpu_torch.train")
@@ -190,18 +261,62 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
     nan_retries = 0
     base_key0 = fold_in(key, 2)
     base_key = base_key0  # the per-step key is fold_in(base_key, step)
-    # metrics come to the host once per chunk of steps
-    per = max(cfg.run.steps_per_dispatch, 1)
+    run_steps = vmc.run_steps
+    if cfg.run.checkify:
+        from qmcnn_tpu_torch.utils.debug import checked
+
+        run_steps = checked(vmc.run_steps)
     it = state.step
+    # the first beat comes only after the first completed chunk: the
+    # supervisor's short stall timeout runs from the first beat, and its
+    # startup timeout covers the warm start, thermalization and the build
+    hb_path = cfg.run.heartbeat_path if is_main else None
+    per = cfg.run.steps_per_dispatch
+    if per <= 0:
+        # auto-size: time one single-step chunk (after the first, which may
+        # build the kernels) and fill a ~40 s budget. The timing steps are
+        # real training steps and their state is kept (the per-step key
+        # derives from state.step); only their metrics go unlogged.
+        t0 = time.perf_counter()
+        state, m0 = run_steps(state, base_key, walker_ids, 1)
+        _metric_rows(m0)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, m0 = run_steps(state, base_key, walker_ids, 1)
+        _metric_rows(m0)
+        dt1 = max(time.perf_counter() - t0, 1e-6)
+        it = min(it + 2, cfg.run.n_steps)
+        per = max(1, min(100, int(40.0 / dt1)))
+        _heartbeat(hb_path, it)
+        if is_main:
+            print(f"auto steps_per_dispatch: per-step {dt1:.3f}s (first "
+                  f"{first:.1f}s) -> {per}", flush=True)
     while it < cfg.run.n_steps:
         chunk = min(per, cfg.run.n_steps - it)
         t0 = time.perf_counter()
-        state, metrics = vmc.run_steps(state, base_key, walker_ids, chunk)
-        rows = [[float(x) for x in (mt.energy_re, mt.energy_im, mt.energy_var,
-                                    mt.accept_rate, mt.grad_norm,
-                                    mt.sr_iters, mt.overlap)]
-                for mt in metrics]
+        watchdog = None
+        if cfg.run.dispatch_warn_s > 0:
+            watchdog = threading.Timer(
+                cfg.run.dispatch_warn_s,
+                lambda: print(
+                    f"WARNING: dispatch at step {it} has been blocked for "
+                    f"> {cfg.run.dispatch_warn_s:.0f}s — the device may "
+                    "have stalled (a healthy chunk here takes "
+                    "steps_per_dispatch x per-step time). If this repeats, "
+                    "restart the run; it resumes from the last checkpoint.",
+                    flush=True))
+            watchdog.daemon = True
+            watchdog.start()
+        _event(hb_path, "dispatch_start", it)
+        try:
+            state, metrics = run_steps(state, base_key, walker_ids, chunk)
+            rows = _metric_rows(metrics)
+        finally:
+            if watchdog is not None:
+                watchdog.cancel()
         dt = (time.perf_counter() - t0) / chunk
+        _event(hb_path, "dispatch_end", it + chunk)
+        _heartbeat(hb_path, it + chunk)
         e_re = np.asarray([r[0] for r in rows])
         # the energies are all-reduce outputs, the same on every rank, so
         # every rank takes this branch alike
@@ -256,10 +371,15 @@ def train(cfg, device="cuda", ckpt_manager=None, logger=None, group=None):
         it += chunk
         if (ckpt_manager is not None and (it // cfg.run.ckpt_every)
                 > ((it - chunk) // cfg.run.ckpt_every)):
+            _event(hb_path, "save_start", it)
             ckpt_manager.save(it, state, group=group)
+            _event(hb_path, "save_end", it)
+            _post_save_settle(cfg, hb_path, it, dev)
 
     if ckpt_manager is not None:
+        _event(hb_path, "save_start", cfg.run.n_steps)
         ckpt_manager.save(cfg.run.n_steps, state, group=group)
+        _event(hb_path, "save_end", cfg.run.n_steps)
     if not is_main:
         return state, logger
     e_tail, e_err = logger.tail_energy()

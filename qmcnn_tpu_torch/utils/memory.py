@@ -1,7 +1,9 @@
 """Memory-estimate-driven auto-chunking (port of
 ``qmcnn_tpu/utils/memory.py``: ``model_footprint``, ``auto_chunk_size``,
-``auto_jacobian_chunk``, and the JAX builder's chunk rules for the
-(1 + alpha H) ansatz and sector optimization in :func:`run_chunk_size`).
+``auto_jacobian_chunk``, the JAX builder's chunk rules for the
+(1 + alpha H) ansatz and sector optimization in :func:`run_chunk_size`,
+and the builder's memory preflight: :func:`connected_k`,
+:func:`peak_estimate`, :func:`preflight_message`, :func:`describe`).
 
 ``chunk_size: null`` / ``jacobian_chunk: null`` mean "fit it for me": the
 estimators return None (no chunking) whenever the unchunked batch fits the
@@ -45,6 +47,14 @@ def device_memory_bytes(device="cuda") -> int:
     if dev.type == "cuda":
         return int(torch.cuda.get_device_properties(dev).total_memory)
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+def connected_k(ham, n_sites: int) -> int:
+    """Connected-state count K of ``ham``, counted from its enumeration on
+    one configuration (the JAX package's abstract evaluation of
+    ``ham.connected``)."""
+    _, mel, _ = ham.connected_batch(torch.ones((1, n_sites)))
+    return int(mel.shape[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,3 +243,63 @@ def run_chunk_size(cfg, lattice, ham, n_params: Optional[int] = None,
     if cfg.optimizer.sector_momentum is not None and chunk is None:
         chunk = m_local
     return chunk
+
+
+def peak_estimate(cfg, lattice, ham, n_params: Optional[int] = None,
+                  mem_bytes: Optional[int] = None,
+                  solver: Optional[str] = None,
+                  chunk_size: Optional[int] = None,
+                  jacobian_chunk: Optional[int] = None, device="cuda",
+                  world_size: int = 1) -> dict:
+    """Rough per-card peak-memory estimate for the configured train step
+    (the JAX package's model and keys; ``hbm_bytes`` is the card's memory,
+    :func:`device_memory_bytes` unless ``mem_bytes`` pins it).
+
+    persistent (SR Jacobian/Gram + pad) + max(E_loc transient, Jacobian-
+    materialization transient) at the *given* chunk sizes. A lower-bound
+    sanity model (workspaces, copies during the chunked Jacobian assembly
+    and fragmentation are not itemized): read fractions near 1 as "will run
+    out of memory" and above ~0.8 as risky."""
+    mem = device_memory_bytes(device) if mem_bytes is None else mem_bytes
+    m_local = _local_walkers(cfg, world_size)
+    fp = model_footprint(cfg, lattice.n_sites)
+    k1 = connected_k(ham, lattice.n_sites) + 1
+    if solver is not None:
+        cfg = dataclasses.replace(
+            cfg, sr=dataclasses.replace(cfg.sr, solver=solver))
+    persistent = _persistent_bytes(cfg, n_params, m_local)
+    cs = chunk_size or m_local
+    eloc_t = cs * k1 * fp.fwd_bytes()
+    jac_t = 0.0
+    if cfg.sr.enabled and cfg.sr.solver != "cg" and n_params:
+        jac_t = (jacobian_chunk or m_local) * fp.bwd_bytes()
+    transient = max(eloc_t, jac_t)
+    peak = persistent + transient
+    return {"hbm_bytes": float(mem), "persistent_bytes": persistent,
+            "transient_bytes": transient, "peak_bytes": peak,
+            "fraction": peak / mem}
+
+
+def preflight_message(est: dict) -> Optional[str]:
+    """A warning string when the estimate looks dangerous (above 0.8 of
+    the card's memory), else None."""
+    frac = est["fraction"]
+    if frac <= 0.8:
+        return None
+    return (f"estimated peak HBM {est['peak_bytes'] / 2**30:.1f} GiB of "
+            f"{est['hbm_bytes'] / 2**30:.0f} GiB ({100 * frac:.0f}%; "
+            f"persistent SR buffers {est['persistent_bytes'] / 2**30:.1f} "
+            "GiB). Running out of the card's memory raises "
+            "torch.OutOfMemoryError and ends the run — consider fewer "
+            "walkers (sampler.n_walkers), sr.solver=cg, or more devices.")
+
+
+def describe(cfg, lattice, ham, n_params: Optional[int] = None,
+             mem_bytes: Optional[int] = None, device="cuda",
+             world_size: int = 1) -> str:
+    cs = auto_chunk_size(cfg, lattice, ham, n_params, mem_bytes, device,
+                         world_size)
+    jc = auto_jacobian_chunk(cfg, lattice, ham, n_params, mem_bytes, device,
+                             world_size)
+    return (f"auto-chunking: chunk_size={cs or 'off'} "
+            f"jacobian_chunk={jc or 'off'}")

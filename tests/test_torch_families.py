@@ -281,12 +281,20 @@ def test_guards_raise_as_in_jax(name):
 
 
 def test_later_slices_raise_not_implemented():
-    """The ViT's bf16 trunk (ROADMAP A20) is the one refusal left (the
-    (1 + alpha H) ansatz builds since slice 10:
-    tests/test_torch_sector_lanczos.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.build(_load(("model.compute_dtype=bfloat16",),
-                       "j1j2_4x4_vit.yaml")[1], device="cpu")
+    """No refusal is left: the ViT's bf16 trunk (ROADMAP A20, the last one)
+    builds since slice 14, as JAX's does, with a finite log psi from its
+    bf16 trunk (its parity with JAX's bf16 model is
+    tests/test_torch_vit.py::test_bf16_log_psi_matches_jax), and the
+    (1 + alpha H) ansatz since slice 10 (tests/test_torch_sector_lanczos.py)."""
+    jc_, tc_ = _load(("model.compute_dtype=bfloat16",), "j1j2_4x4_vit.yaml")
+    jb.build(jc_)
+    vmc, params, _ = tb.build(tc_, device="cpu")
+    lp = vmc.log_psi_fn(params, torch.from_numpy(_spins(3, 16, 16)))
+    assert lp.re.dtype == torch.float32
+    assert torch.isfinite(lp.re).all() and torch.isfinite(lp.im).all()
+    model = tb.build_model(tc_, tb.build_lattice(tc_))
+    inner = getattr(model, "inner", model)
+    assert inner.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("move,hx,jy", [("auto", 0.0, 1.0), ("auto", 0.2, 1.0),

@@ -170,23 +170,33 @@ def test_once_refused_options_train_a_step(tmp_path):
 
 @pytest.mark.parametrize("override", ["run.checkify=true",
                                       "run.heartbeat_path=hb.json"])
-def test_unported_run_options_raise_before_building(override, monkeypatch):
-    """run.checkify and run.heartbeat_path are refused, not ignored: train()
-    raises before it builds anything (tooling, ROADMAP.md A19)."""
-    cfg = tcfg.load(HEIS, SMALL + (override,))
+def test_unported_run_options_raise_before_building(override, tmp_path):
+    """run.checkify and run.heartbeat_path were refused until they were
+    ported (slice 14, ROADMAP.md A19); both now train a step: the checked
+    step (utils/debug.py) is bitwise the unchecked one, and the heartbeat
+    reads the last step."""
+    if override.startswith("run.heartbeat_path"):
+        override = f"run.heartbeat_path={tmp_path / 'hb'}"
+    base = SMALL + ("run.n_steps=1", "run.csv_path=null")
+    state, logger = ttrain.train(tcfg.load(HEIS, base + (override,)),
+                                 device="cpu")
+    plain, plain_log = ttrain.train(tcfg.load(HEIS, base), device="cpu")
+    assert state.step == 1
+    assert logger.history["energy_re"] == plain_log.history["energy_re"]
+    for k, v in plain.params.items():
+        assert torch.equal(state.params[k], v), k
+    if "heartbeat" in override:
+        from qmcnn_tpu_torch.supervise import read_heartbeat
 
-    def no_build(*args, **kwargs):
-        raise AssertionError("train() built the model")
-
-    monkeypatch.setattr(ttrain, "build", no_build)
-    with pytest.raises(NotImplementedError, match="A19"):
-        ttrain.train(cfg, device="cpu")
+        assert read_heartbeat(str(tmp_path / "hb"))[0] == 1
 
 
 def test_port_imports_no_jax():
     """Importing every qmcnn_tpu_torch module and chip_smoke loads neither
     JAX (nor flax/optax/orbax) nor the JAX package; the walk includes the
-    dynamics modules (evolve, analyze, ops.tdvp, ops.spectroscopy)."""
+    dynamics modules (evolve, analyze, ops.tdvp, ops.spectroscopy) and the
+    tooling (scan, supervise, export, ops.exact_native, utils.debug,
+    utils.mfu, utils.profiling)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import qmcnn_tpu_torch as p\n"
@@ -196,14 +206,16 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'qmcnn_tpu'))\n"
-        "new = ['evolve', 'analyze', 'ops.tdvp', 'ops.spectroscopy']\n"
+        "new = ['evolve', 'analyze', 'ops.tdvp', 'ops.spectroscopy', "
+        "'scan', 'supervise', 'export', 'ops.exact_native', 'utils.debug', "
+        "'utils.mfu', 'utils.profiling']\n"
         "bad += [m for m in new if 'qmcnn_tpu_torch.' + m not in mods]\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 25
+    assert int(out.stdout.split()[0]) >= 32
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

@@ -1,10 +1,21 @@
 """PyTorch port, slice 9: the ViT ansatz (models/vit.py) against the JAX
 package on equal numpy-seeded inputs, at a 4x4 lattice with 2 blocks of
 width 8: factored and dot-product attention, real and complex heads,
-spin-flip sectors +1 and -1, and the point-group average.
+spin-flip sectors +1 and -1, and the point-group average; the bf16 trunk
+(slice 14) at 4x4 and 8x8, factored and dot-product, real and complex.
 
 Tolerances: log psi rtol/atol 1e-4, the phase compared modulo 2 pi; the
-geometry tables exactly equal."""
+geometry tables exactly equal. The bf16 trunk is held to the same 1e-4
+against the JAX bf16 model evaluated op by op (``jm.apply``, each
+primitive rounding to bf16, as the existing cases run it): the port rounds
+where that evaluation does (GELU op by op with bf16 constants, each dense
+layer after its product and after its bias, layer norm once from f32
+statistics), and the two agree to ~1e-5 (the f32 head's summation order).
+Under ``jax.jit`` XLA on the CPU fuses the bf16 chains and rounds once per
+fusion, which moves JAX's own log psi by up to ~0.3 at 4x4 and ~3.7 at
+8x8 dot-product from its op-by-op value at these noisy test weights (my
+CPU run): that is a rounding choice of the compiler, not of the model,
+and it is not the reference here."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,13 +69,16 @@ CASES = {
 }
 
 
+_VIT_KW = dict(lattice_shape=(4, 4), channels=(8, 8), patch=2, n_heads=2,
+               mlp_ratio=2, factored=True, complex_params=True,
+               param_scale=0.5)
+
+
 def _pair(spin_flip=0, point_group=False, seed=0, **kw):
     """JAX and port ViTs (2 blocks of width 8, 2 heads, patch 2 on 4x4)
     with equal parameters: the JAX init plus numpy-seeded noise on every
     leaf (biases and layer-norm offsets start at zero)."""
-    kw = dict(dict(lattice_shape=(4, 4), channels=(8, 8), patch=2,
-                   n_heads=2, mlp_ratio=2, factored=True,
-                   complex_params=True, param_scale=0.5), **kw)
+    kw = dict(_VIT_KW, **kw)
     jm, tm = jv.LogPsiViT(**kw), tv.LogPsiViT(**kw)
     if point_group:
         jm = JPointGroup(inner=jm, lattice_shape=(4, 4))
@@ -72,11 +86,39 @@ def _pair(spin_flip=0, point_group=False, seed=0, **kw):
     if spin_flip:
         jm = jg.SpinFlipSymmetrized(inner=jm, sector=spin_flip)
         tm = SpinFlipSymmetrized(tm, spin_flip)
-    v = jm.init(jax.random.key(seed), jnp.ones((1, 16), jnp.float32))
+    n = int(np.prod(kw["lattice_shape"]))
+    v = jm.init(jax.random.key(seed), jnp.ones((1, n), jnp.float32))
     rng = np.random.default_rng(seed + 1)
     flat = {k: (np.asarray(x) + 0.2 * rng.normal(size=np.shape(x))).astype(
         np.float32) for k, x in _flatten(v).items()}
     return jm, _unflatten(flat), tm, params_from_jax(flat)
+
+
+BF16_CASES = {
+    f"{'x'.join(map(str, shape))}_{'factored' if fac else 'dot'}_"
+    f"{'complex' if cplx else 'real'}": dict(
+        lattice_shape=shape, factored=fac, complex_params=cplx,
+        compute_dtype="bfloat16")
+    for shape in ((4, 4), (8, 8)) for fac in (True, False)
+    for cplx in (True, False)}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_log_psi_matches_jax(name):
+    """The bf16 trunk against JAX's bf16 model on the same params and
+    spins (TOL; see the module docstring), and further from the f32 model
+    than from JAX's bf16 one (the trunk does run in bf16)."""
+    kw = BF16_CASES[name]
+    n = int(np.prod(kw["lattice_shape"]))
+    jm, v, tm, p = _pair(**kw)
+    assert tm.dtype == torch.bfloat16
+    s = _spins(2, 48, n)
+    got = t_apply(tm, p, torch.from_numpy(s))
+    assert got.re.dtype == torch.float32
+    assert_log_psi_close(got, jm.apply(v, s))
+    f32 = t_apply(tv.LogPsiViT(**dict(_VIT_KW, **dict(
+        kw, compute_dtype="float32"))), p, torch.from_numpy(s))
+    assert float((f32.re - got.re).abs().max()) > 10 * TOL
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -118,8 +160,12 @@ def test_translation_invariance_and_gradient():
 
 
 def test_bf16_trunk_and_bad_shapes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv.LogPsiViT((4, 4), channels=(8, 8), compute_dtype="bfloat16")
+    """The bf16 trunk builds (its parity is test_bf16_log_psi_matches_jax);
+    a compute dtype neither package supports, and bad shapes, raise."""
+    assert tv.LogPsiViT((4, 4), channels=(8, 8),
+                        compute_dtype="bfloat16").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tv.LogPsiViT((4, 4), channels=(8, 8), compute_dtype="float16")
     with pytest.raises(ValueError, match="does not divide"):
         tv.LogPsiViT((5, 4), channels=(8, 8))
     with pytest.raises(ValueError, match="constant-width"):
