@@ -234,8 +234,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 j1j2_8x8_gcnn_r2 E_loc chunk and sweep shapes and at the
                 depth-12 fixture beside its plain version, its bf16
                 tensor-core bound and K2's f32 route at the same shapes, and
-                the per-phase split of a training step of each path
-                (``qmcnn_tpu_torch.step_timing``), the SPRING, tri6x6_tgcnn,
+                the per-phase split of a training step of each path (the
+                program's spans, ``utils/profiling.step_split``), the
+                SPRING, tri6x6_tgcnn,
                 kagome3x3_kgcnn, ViT 8x8, kagome ARNN and heis40_arnn legs
                 included (the direct sampler's ms per site beside the
                 ARNNs), and the excited phase's legs (sample, E_loc, the
@@ -264,6 +265,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -650,11 +652,12 @@ def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
 
 def step_split(cfg, state, card: str, label: str, vmc=None,
                n_steps: int = 3) -> dict:
-    """Per-phase time of ``n_steps`` training steps after one warm-up
-    (``qmcnn_tpu_torch.step_timing``: host clock around synchronized
-    phases), in ms per step, with ``vmc`` (None: built from ``cfg``)."""
+    """Per-phase time of ``n_steps`` training steps of ``VMC.step`` after
+    one warm-up, read from the program's spans (``utils/profiling``: each
+    phase's CUDA events), in ms per step, with ``vmc`` (None: built from
+    ``cfg``)."""
     from qmcnn_tpu_torch.builder import build
-    from qmcnn_tpu_torch.step_timing import step_split as split
+    from qmcnn_tpu_torch.utils.profiling import step_split as split
 
     if vmc is None:
         vmc, _, _ = build(cfg, device="cuda")
@@ -2127,15 +2130,16 @@ def measure_split(seconds: dict, n_samples: int, card: str,
 
 def measure_quiet(cfg, path: Path, **kw):
     """``qmcnn_tpu_torch.measure.measure`` on the card with its stdout
-    captured and echoed: (report, text, timer)."""
-    from qmcnn_tpu_torch.measure import PhaseTimer, measure
+    captured and echoed: (report, text, seconds per phase from the
+    spans)."""
+    from qmcnn_tpu_torch.measure import PHASES, measure
+    from qmcnn_tpu_torch.utils.profiling import recording
 
-    timer = PhaseTimer("cuda")
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        report = measure(cfg, str(path), device="cuda", timer=timer, **kw)
+    with contextlib.redirect_stdout(buf), recording() as window:
+        report = measure(cfg, str(path), device="cuda", **kw)
     sys.stdout.write(buf.getvalue())
-    return report, buf.getvalue(), timer
+    return report, buf.getvalue(), window.seconds(PHASES)
 
 
 def lanczos_gain_check(label: str, rep: dict, traces: dict) -> dict:
@@ -2214,7 +2218,7 @@ def measure_cnn_leg(card: str) -> dict:
     record = {}
     reset_counts()
     t0 = time.perf_counter()
-    rep, _, timer = measure_quiet(
+    rep, _, timings = measure_quiet(
         cfg, FIXTURE, n_samples=n, total_spin=True, dimer=True,
         sector_momentum=[0, 0], renyi2_region=list(MEASURE_REGIONS),
         sma=True, lanczos=True, fidelity_ckpt=str(CNN_BF16_FIXTURE),
@@ -2281,7 +2285,7 @@ def measure_cnn_leg(card: str) -> dict:
     check(0.0 < rep["fidelity_vs_ckpt"] <= 1.05,
           f"measure (a): fidelity {rep['fidelity_vs_ckpt']}")
     check(self_f == 1.0, f"measure (a): self-fidelity {self_f!r}")
-    split = measure_split(timer.seconds, n, card, "(a) heis10x10_sr")
+    split = measure_split(timings, n, card, "(a) heis10x10_sr")
     return {"launches": got, "report": rep, "split": split, "seconds": wall,
             "lanczos_gain": gain, "half_vs_complement": comp,
             "self_fidelity": self_f}
@@ -2368,7 +2372,7 @@ def measure_gcnn_leg(card: str) -> dict:
     want = measure_expected(f32, vmc, lattice, n, 50, sma_disps=disps)
     reset_counts()
     t0 = time.perf_counter()
-    rep, text, timer = measure_quiet(cfg, P15B_FIXTURE, n_samples=n,
+    rep, text, timings = measure_quiet(cfg, P15B_FIXTURE, n_samples=n,
                                      sma=True)
     got = counts()
     wall = time.perf_counter() - t0
@@ -2417,7 +2421,7 @@ def measure_gcnn_leg(card: str) -> dict:
           f"measure (b): SMA gap at q index {rep['sma_gap_q_index']}")
     check(abs(gap_rel) <= 0.1, f"measure (b): SMA gap bound "
           f"{rep['sma_gap_bound']} vs JAX {ref_sma['sma_gap_bound']}")
-    split = measure_split(timer.seconds, n, card, "(b) j1j2_8x8_p15b")
+    split = measure_split(timings, n, card, "(b) j1j2_8x8_p15b")
     return {"launches": got, "report": rep, "split": split, "seconds": wall}
 
 
@@ -2828,16 +2832,16 @@ def dynamics_expected(cfg, lattice, sampling: str, integrator: str,
 
 
 def evolve_quiet(cfg, **kw):
-    """``qmcnn_tpu_torch.evolve.evolve`` with its stdout captured, a
-    ``PhaseTimer`` on the device: (params, logger, text, timer)."""
-    from qmcnn_tpu_torch.evolve import evolve
-    from qmcnn_tpu_torch.measure import PhaseTimer
+    """``qmcnn_tpu_torch.evolve.evolve`` with its stdout captured, its
+    phases read from the spans: (params, logger, text, seconds per
+    phase)."""
+    from qmcnn_tpu_torch.evolve import PHASES, evolve
+    from qmcnn_tpu_torch.utils.profiling import recording
 
-    timer = PhaseTimer(kw.get("device", "cuda"))
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        params, logger = evolve(cfg, timer=timer, **kw)
-    return params, logger, buf.getvalue(), timer
+    with contextlib.redirect_stdout(buf), recording() as window:
+        params, logger = evolve(cfg, **kw)
+    return params, logger, buf.getvalue(), window.seconds(PHASES)
 
 
 def dynamics_split(seconds: dict, n_steps: int, card: str,
@@ -3176,7 +3180,7 @@ def dynamics_tfim16_leg(card: str) -> dict:
                              fused_sweep=True)
     reset_counts()
     t0 = time.perf_counter()
-    _, logger, _, timer = evolve_quiet(cfg, n_steps=n_steps, device="cuda",
+    _, logger, _, timings = evolve_quiet(cfg, n_steps=n_steps, device="cuda",
                                        **kw)
     wall = time.perf_counter() - t0
     got = counts()
@@ -3198,7 +3202,7 @@ def dynamics_tfim16_leg(card: str) -> dict:
           f"dynamics (b): the energy rose: {np.diff(e).max()}")
     check(bool(((err >= 0) & (err <= 1)).all()),
           f"dynamics (b): tdvp_error outside [0, 1]: {err}")
-    split = dynamics_split(timer.seconds, n_steps, card,
+    split = dynamics_split(timings, n_steps, card,
                            "(b) tfim16 imaginary time, ms per step")
     return {"launches": got, "expected_k1": want, "seconds": wall,
             "split": split, "k1_check": k1, "step1_cosine": cos,
@@ -3224,7 +3228,7 @@ def dynamics_tfim8x8_leg(out_dir: Path, card: str) -> dict:
     n_steps = 20
     reset_counts()
     t0 = time.perf_counter()
-    _, logger, _, timer = evolve_quiet(
+    _, logger, _, timings = evolve_quiet(
         cfg, mode="real", dt=0.0025, n_steps=n_steps, diag_shift=0.01,
         sampling="mc", init_from=str(TFIM8X8_FIXTURE),
         corr_csv=str(corr_path), device="cuda")
@@ -3260,7 +3264,7 @@ def dynamics_tfim8x8_leg(out_dir: Path, card: str) -> dict:
     check(len(corr) == 65 and bool((np.abs(corr["c0"] - 0.25) <= 1e-6)
                                    .all()),
           f"dynamics (c): corr CSV columns {len(corr)}, C(0) {corr['c0']}")
-    split = dynamics_split(timer.seconds, n_steps, card,
+    split = dynamics_split(timings, n_steps, card,
                            "(c) tfim8x8 quench, ms per step")
     return {"launches": got, "seconds": wall, "split": split,
             "means": means, "e_im": e_im, "e_im_err": e_im_err}
@@ -3294,7 +3298,7 @@ def dynamics_heis_leg(card: str) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     try:
-        _, logger, _, timer = evolve_quiet(
+        _, logger, _, timings = evolve_quiet(
             cfg, mode="imag", dt=0.01, n_steps=n_steps, diag_shift=1e-3,
             sampling="mc", init_from=str(FIXTURE), device="cuda")
     finally:
@@ -3317,7 +3321,7 @@ def dynamics_heis_leg(card: str) -> dict:
     err = h["tdvp_error"]
     check(bool((np.isfinite(err) & (err >= 0) & (err <= 1)).all()),
           f"dynamics (d): tdvp_error {err}")
-    split = dynamics_split(timer.seconds, n_steps, card,
+    split = dynamics_split(timings, n_steps, card,
                            "(d) heis10x10_sr imaginary time, ms per step")
     return {"launches": got, "expected_k1": want, "seconds": wall,
             "split": split, "e_site": e_site}
@@ -3586,8 +3590,8 @@ def pcg_split_gate(name: str, want: dict, got: list) -> dict:
 def sharded_legs(group, n_ranks: int) -> dict:
     """Every sharded leg on this rank of ``n_ranks`` (or on all walkers with
     no group), and this rank's heis10x10_sr step split
-    (``step_timing.step_split``, collectives included)."""
-    from qmcnn_tpu_torch.step_timing import step_split as split
+    (``utils/profiling.step_split``, collectives included)."""
+    from qmcnn_tpu_torch.utils.profiling import step_split as split
 
     out = {}
     for name, cfg in sharded_configs(n_ranks).items():
@@ -4004,9 +4008,10 @@ def tooling_checked_leg(card: str) -> dict:
 def tooling_profile_leg(card: str) -> dict:
     """(d) a torch.profiler trace of 2 heis10x10_sr steps after one
     warm-up step: the ten CUDA kernels with the most device time, the
-    device idle share of the window; K1's kernel in the trace with the
-    count the launch counters give. The gzipped chrome trace goes under
-    ``TOOLING_OUT``/profile/."""
+    device idle share of the window and its parts by the program span open
+    on the host (``profiling.idle_by_span``), which sum to it; K1's kernel
+    in the trace with the count the launch counters give. The gzipped
+    chrome trace goes under ``TOOLING_OUT``/profile/."""
     import torch
     from qmcnn_tpu_torch import configs
     from qmcnn_tpu_torch.builder import build
@@ -4028,6 +4033,7 @@ def tooling_profile_leg(card: str) -> dict:
     with profiling.trace(str(logdir / "warmup")):  # the profiler's start-up
         torch.ones(1, device="cuda").add_(1.0)
     reset_counts()
+    profiling.clear()
     t0 = time.perf_counter()
     with profiling.trace(str(logdir)) as prof:
         for i in (1, 2):
@@ -4036,6 +4042,11 @@ def tooling_profile_leg(card: str) -> dict:
     n = counts()
     table = profiling.kernel_table(prof)
     idle = profiling.idle_share(prof)
+    parts, untraced = profiling.idle_by_span(prof, profiling.spans())
+    profiling.clear()
+    layers = defaultdict(float)
+    for name, share in parts.items():
+        layers[name.split(".")[0]] += share
     events = list(prof.events())
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3
@@ -4051,11 +4062,21 @@ def tooling_profile_leg(card: str) -> dict:
     for r in table[:10]:
         print(f"      {r['total_ms']:9.3f} ms  x{r['count']:<5d} "
               f"{r['name'][:110]}")
+    print("    (d) the idle share by the span open on the host: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in
+                      sorted(layers.items(), key=lambda kv: -kv[1]))
+          + f", untraced {untraced:.4f}; inside sr: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items())
+                      if k.startswith("sr")))
     check(table, "(d) key_averages() shows no device time")
     check(idle is not None and 0.0 <= idle < 1.0, f"(d) idle share {idle}")
+    check(abs(sum(parts.values()) + untraced - idle) < 1e-4
+          and layers["sr"] > 0.0,
+          f"(d) idle by span {dict(layers)} + {untraced} against {idle}")
     check(len(sweep) == 1 and sweep[0]["count"] == n["k1"] == 6,
           f"(d) K1 in the trace {sweep}, counted {n}")
     return {"launches": n, "idle_share": idle, "device_ms": device_ms,
+            "idle_by_span": dict(layers, untraced=untraced),
             "window_ms": span,
             "top": [{k: r[k] for k in ("name", "count", "total_ms")}
                     for r in table[:10]],
@@ -4273,7 +4294,8 @@ def tooling_phase(out_dir: Path, card: str, vit8=None) -> dict:
         "supervise": sup, "checked": {k: checked_leg[k] for k in (
             "launches", "heis_ms", "gcnn_ms")},
         "profile": {k: prof[k] for k in (
-            "launches", "idle_share", "device_ms", "window_ms", "top")},
+            "launches", "idle_share", "idle_by_span", "device_ms",
+            "window_ms", "top")},
         "mfu": {k: mfu[k] for k in ("k1_sweep", "k2_f32_e_loc_chunk",
                                     "heis10x10_sr_step")},
         "vit_bf16": vit, "native": native}}, default=float))

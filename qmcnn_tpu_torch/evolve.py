@@ -44,6 +44,7 @@ a GPU it raises unless ``--device cpu`` is given).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from typing import Optional
@@ -59,11 +60,15 @@ from qmcnn_tpu_torch.builder import (build_hamiltonian, build_lattice,
 from qmcnn_tpu_torch.models.cnn import log_psi_apply
 from qmcnn_tpu_torch.ops.hamiltonians import TFIM
 from qmcnn_tpu_torch.ops.tdvp import (TDVP, all_states, expectation,
-                                      state_weights, untimed)
+                                      state_weights)
 from qmcnn_tpu_torch.sampler.metropolis import (MetropolisSampler, fold_in,
                                                 prng_key)
 from qmcnn_tpu_torch.train import _resolve_device
 from qmcnn_tpu_torch.utils.metrics import MetricsLogger
+from qmcnn_tpu_torch.utils.profiling import annotate, recording, unit
+
+#: the spans of a step that ``--timings`` reports
+PHASES = ("weights", "sample", "forward", "jacobian", "solve", "observables")
 
 
 def initial_params(cfg, model, device, init_from: Optional[str] = None,
@@ -98,14 +103,13 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
            init_perturb: float = 1e-3,
            sector: str = "auto", csv_path: Optional[str] = None,
            log_every: int = 1, corr_csv: Optional[str] = None,
-           device="cuda", timer=None):
+           device="cuda"):
     """Run the evolution on ``device``; returns (final params, logger).
 
-    ``timer`` (a ``measure.PhaseTimer``) accumulates the seconds of each
-    step's parts: ``weights`` (full sum: the Born weights, the predictor's
-    included) or ``sample`` (MC: refresh and sweeps), ``forward`` (log psi
-    and E_loc of each TDVP stage), ``jacobian``, ``solve`` and
-    ``observables``."""
+    Each step's parts are spans (:data:`PHASES`), carrying the step index:
+    ``weights`` (full sum: the Born weights, the predictor's included) or
+    ``sample`` (MC: refresh and sweeps), ``forward`` (log psi and E_loc of
+    each TDVP stage), ``jacobian``, ``solve`` and ``observables``."""
     if mode == "real" and model_log_psi_is_real(cfg):
         # a real-parameter ansatz has a purely real tangent space, which
         # is orthogonal to the real-time TDVP velocity -i(H - <H>)|psi>:
@@ -119,7 +123,6 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
         raise ValueError("evolve runs the bare model: model.lanczos_alpha "
                          "(the (1 + alpha H) training wrapper) does not "
                          "apply")
-    timer = timer or untimed
     dev = _resolve_device(device)
     lattice = build_lattice(cfg)
     ham = build_hamiltonian(cfg, lattice)
@@ -135,8 +138,7 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
     tdvp = TDVP(log_psi_fn=log_psi_fn, ham=ham, mode=mode, solver=solver,
                 diag_shift=diag_shift, with_im=with_im,
                 jacobian_chunk=cfg.sr.jacobian_chunk,
-                chunk_size=cfg.run.chunk_size, eval_log_psi_fn=eval_fn,
-                timer=timer)
+                chunk_size=cfg.run.chunk_size, eval_log_psi_fn=eval_fn)
 
     # observables beyond the energy: the diagonal ones inline; <sigma_x>
     # through the operator-as-Hamiltonian trick (the TFIM with J = 0,
@@ -163,7 +165,7 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
              .mean(dim=1) * w).sum() for sh in shifts])
 
     def observables(p, s, w):
-        with timer("observables"), torch.no_grad():
+        with annotate("observables"), torch.no_grad():
             zz = (s[:, bonds[:, 0]] * s[:, bonds[:, 1]]).mean(dim=1)
             ms = (s * stag[None, :]).mean(dim=1)
             out = {"szsz_nn": (w * zz).sum(), "stag_m2": (w * ms * ms).sum()}
@@ -184,7 +186,7 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
         states = torch.as_tensor(all_states(n, sz_zero=sz_zero), device=dev)
 
         def resample(p):
-            with timer("weights"):
+            with annotate("weights"):
                 return states, state_weights(eval_fn, p, states)
 
         def run_step(p, walkers, key):
@@ -211,7 +213,7 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
                                      n_sweeps=cfg.sampler.n_therm_sweeps)
 
         def run_step(p, ws, key):
-            with timer("sample"), torch.no_grad():
+            with annotate("sample"), torch.no_grad():
                 ws = sampler.reset_counters(ws)
                 ws = sampler.refresh(p, ws)
                 ws = sampler.sample(p, ws, key, ids,
@@ -230,6 +232,7 @@ def evolve(cfg, mode: str = "imag", dt: float = 0.01, n_steps: int = 100,
     t0 = time.perf_counter()
     try:
         for it in range(n_steps):
+            unit(it)
             params, walkers, r, obs = run_step(params, walkers,
                                                fold_in(key, it))
             corr_t = obs.pop("_corr", None)
@@ -308,30 +311,28 @@ def main(argv=None):
                    help="torch device (default cuda; 'cpu' to run there)")
     p.add_argument("--timings", action="store_true",
                    help="diagnostic: also print one JSON line of seconds "
-                        "per part of the steps (the device synchronized "
-                        "around each) and the CUDA kernels' launch counts")
+                        "per part of the steps (the spans' device time on "
+                        "CUDA, host time on the CPU) and the CUDA kernels' "
+                        "launch counts")
     args = p.parse_args(argv)
     cfg = cfglib.load(args.config, tuple(args.override))
     print(f"=== evolve {cfg.name}: mode={args.mode} dt={args.dt} "
           f"steps={args.steps} sampling={args.sampling} ===")
-    timer = None
-    if args.timings:
-        from qmcnn_tpu_torch.measure import PhaseTimer
-
-        timer = PhaseTimer(args.device)
-    evolve(cfg, mode=args.mode, dt=args.dt, n_steps=args.steps,
-           solver=args.solver, diag_shift=args.diag_shift,
-           integrator=args.integrator, sampling=args.sampling,
-           init_from=args.init_from, init_zero=args.init_zero,
-           init_perturb=args.init_perturb,
-           sector=args.sector, csv_path=args.csv_path,
-           log_every=args.log_every, corr_csv=args.corr_csv,
-           device=args.device, timer=timer)
-    if timer is not None:
+    with (recording() if args.timings
+          else contextlib.nullcontext()) as window:
+        evolve(cfg, mode=args.mode, dt=args.dt, n_steps=args.steps,
+               solver=args.solver, diag_shift=args.diag_shift,
+               integrator=args.integrator, sampling=args.sampling,
+               init_from=args.init_from, init_zero=args.init_zero,
+               init_perturb=args.init_perturb,
+               sector=args.sector, csv_path=args.csv_path,
+               log_every=args.log_every, corr_csv=args.corr_csv,
+               device=args.device)
+    if window is not None:
         from qmcnn_tpu_torch.kernels.gcnn_forward import gcnn_group_sums
         from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
 
-        print(json.dumps({"timings_s": dict(timer.seconds),
+        print(json.dumps({"timings_s": window.seconds(PHASES),
                           "n_steps": args.steps, "launches": {
                               "k1": metropolis_sweep.launches,
                               "k2_f32": gcnn_group_sums.launches,

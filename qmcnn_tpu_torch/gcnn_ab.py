@@ -19,7 +19,9 @@ tree (building its kernel there) and
     bf16 version (relative to 1 + each configuration's largest |S_g|);
   * times a training step of configs/j1j2_8x8_gcnn.yaml and of
     configs/j1j2_8x8_gcnn_r2.yaml phase by phase (three steps after a
-    warm-up, as ``step_timing``).
+    warm-up, read from the program's spans by
+    ``utils/profiling.step_split``; skipped, and said so, in a tree that
+    records no spans).
 The inputs come from seeds through code both trees share (the model's
 init, the walkers' init), so every run sees the same tensors. Prints one
 JSON line per run and, last, the mean of each number per tree.
@@ -62,7 +64,7 @@ def _worker(root: str) -> dict:
     from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN
     from qmcnn_tpu_torch.sampler.metropolis import (fold_in, init_walkers,
                                                     prng_key)
-    from qmcnn_tpu_torch.step_timing import step_split
+    from qmcnn_tpu_torch.utils import profiling
     from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                                 params_from_jax)
 
@@ -134,6 +136,9 @@ def _worker(root: str) -> dict:
             lambda: k2.gcnn_group_sums(x, ws, **kw), reps)
         del got, want, diffs
 
+    if not hasattr(profiling, "step_split"):
+        rec["step_split"] = "skipped: the tree records no spans"
+        return rec
     for label, name in (("step", "j1j2_8x8_gcnn"),
                         ("r2_step", "j1j2_8x8_gcnn_r2")):
         cfg = configs.load(str(here / "configs" / f"{name}.yaml"), ())
@@ -143,7 +148,7 @@ def _worker(root: str) -> dict:
         ids = torch.arange(m, device=dev)
         state = vmc.init_state(fold_in(key, 0), m, params, device=dev)
         state = vmc.thermalize(state, fold_in(key, 1), ids, 20)
-        step = step_split(vmc, state, 3)
+        step = profiling.step_split(vmc, state, 3)
         rec.update({f"{label}_{k}_ms": v for k, v in step.items()})
         rec[f"{label}_total_ms"] = sum(step.values())
     return rec

@@ -3,7 +3,9 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each library is compiled at first use from this repository's sources only,
 into ``qmcnn_tpu_torch/_build/`` (git-ignored), under a name that hashes the
-source and the flags, so an edited source is rebuilt.
+source and the flags, so an edited source is rebuilt. Each compile adds
+its seconds in ``nvcc`` to the process counter ``kernel_build_s`` (a
+library found built adds nothing).
 """
 from __future__ import annotations
 
@@ -11,8 +13,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Tuple
+
+from qmcnn_tpu_torch.utils.profiling import count
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -48,8 +53,10 @@ def build_library(source: Path) -> Tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
+    count("kernel_build_s", time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode})"
                            f":\n{proc.stdout}{proc.stderr}")

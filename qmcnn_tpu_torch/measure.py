@@ -44,7 +44,6 @@ import contextlib
 import dataclasses
 import io
 import json
-import time
 from collections import defaultdict
 from typing import Optional
 
@@ -65,6 +64,7 @@ from qmcnn_tpu_torch.train import (_resolve_device, check_rank_layout,
                                    chunked_thermalize)
 from qmcnn_tpu_torch.utils.memory import divided_chunk
 from qmcnn_tpu_torch.utils.metrics import binned_stderr
+from qmcnn_tpu_torch.utils.profiling import annotate, recording, unit
 from qmcnn_tpu_torch.utils.transfer import warm_start
 from qmcnn_tpu_torch.vmc import pmean
 
@@ -87,35 +87,16 @@ def parse_region(spec: str, n_sites: int) -> np.ndarray:
     return mask
 
 
-class PhaseTimer:
-    """Seconds per named phase on the host clock, the device synchronized
-    at both ends of each phase: ``with timer("e_loc"): ...``."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.seconds = defaultdict(float)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.seconds[name] += time.perf_counter() - t0
-
-
-def _untimed(name: str):
-    return contextlib.nullcontext()
+#: the spans of a measurement that ``--timings`` reports: thermalization,
+#: each sample's sweeps and estimators, and the once-only parts
+PHASES = ("therm", "sweeps", "e_loc", "nn_ss", "diagonal", "lanczos",
+          "sector", "renyi2", "chirality", "sma", "total_spin",
+          "fidelity_therm", "fidelity")
 
 
 def sample_estimators(log_psi_fn, params, walkers, ham, lattice, *,
                       chunk_size: Optional[int] = None, dimer: bool = False,
-                      marshall: bool = False, group=None,
-                      timer=_untimed) -> dict:
+                      marshall: bool = False, group=None) -> dict:
     """The estimators of one sample (JAX ``measure_once``) on the physical
     walkers, through ``log_psi_fn`` (the evaluation forward): the mean
     E_loc, the magnetization, the staggered moments, the S^z-S^z
@@ -123,17 +104,17 @@ def sample_estimators(log_psi_fn, params, walkers, ham, lattice, *,
     C_ab(r) flattened), the nearest-neighbour S.S (0 off the site grid),
     and the dimer correlation and mean (zeros without ``dimer``), as 0-d
     or 1-d tensors on the walkers' device, each a mean over ``group``'s
-    walkers (a rank's own without one). ``timer(name)`` wraps each part
-    (``e_loc``, ``nn_ss``, ``diagonal``)."""
+    walkers (a rank's own without one). Each part is a span (``e_loc``,
+    ``nn_ss``, ``diagonal``)."""
     s, lp = walkers.s, walkers.log_psi
     n = lattice.n_sites
     on_grid = lattice.basis == 1
     with torch.no_grad():
-        with timer("e_loc"):
+        with annotate("e_loc"):
             energy = pmean(local_energy(log_psi_fn, params, ham, s, lp,
                                         chunk_size=chunk_size).re.mean(),
                            group)
-        with timer("nn_ss"):
+        with annotate("nn_ss"):
             if on_grid:
                 nn_disp = int(np.ravel_multi_index(
                     tuple([1] + [0] * (lattice.ndim - 1)), lattice.shape))
@@ -143,7 +124,7 @@ def sample_estimators(log_psi_fn, params, walkers, ham, lattice, *,
                     chunk_size=chunk_size).re
             else:
                 ss_nn = torch.zeros((), device=s.device)
-        with timer("diagonal"):
+        with annotate("diagonal"):
             if on_grid:
                 corr = observables.szsz_correlation(s, lattice, group)
             else:
@@ -367,7 +348,6 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
             use_ema: bool = False,
             sector_momentum=None,
             device="cuda",
-            timer: Optional[PhaseTimer] = None,
             group=None,
             record: Optional[dict] = None) -> dict:
     """Measure the state in ``ckpt_dir`` (a ``.npz`` snapshot or a port
@@ -382,17 +362,16 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
     With ``cfg.run.distributed`` this process is one rank of the walker
     group (``group``, else the default process group, which must be
     initialized): it holds its rows of the walkers, and every rank returns
-    the same report. ``timer`` (a :class:`PhaseTimer`) accumulates the
-    seconds of thermalization (``therm``), each sample's sweeps
-    (``sweeps``) and estimators (``sample_estimators``' parts,
-    ``lanczos``, ``sector``, ``renyi2``, ``chirality``, ``sma``),
-    ``total_spin``, the second chain's thermalization (``fidelity_therm``)
-    and ``fidelity``. ``record``, a dict, receives this rank's physical
+    the same report. Its phases are spans (:data:`PHASES`):
+    thermalization (``therm``), each sample's sweeps (``sweeps``) and
+    estimators (``sample_estimators``' parts, ``lanczos``, ``sector``,
+    ``renyi2``, ``chirality``, ``sma``), ``total_spin``, the second chain's
+    thermalization (``fidelity_therm``) and ``fidelity``; the spans of a
+    sample carry its index. ``record``, a dict, receives this rank's physical
     walkers after thermalization (``walkers``) and the traces the report
     is assembled from (``traces``; the per-walker arrays pooled over the
     ranks)."""
     check_rank_layout(cfg, group, "qmcnn_tpu_torch.measure")
-    timer = timer or _untimed
     # Measurement runs in f32 even when the training config computes in
     # bf16: the Lanczos third moment cancels ~|E|^3 down to O(var), and
     # bf16 log-psi noise destroys it. Params are stored in f32; this only
@@ -478,7 +457,7 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
                         "with optimizer.ema_decay > 0)")
                 state = state._replace(params=state.ema)
                 print("measuring the EMA (Polyak-averaged) parameters")
-    with timer("therm"):
+    with annotate("therm"):
         state = chunked_thermalize(vmc, state, fold_in(key, 1), ids,
                                    therm_sweeps,
                                    cfg.run.therm_sweeps_per_dispatch)
@@ -527,7 +506,8 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
 
     with torch.no_grad():
         for i in range(n_samples):
-            with timer("sweeps"):
+            unit(i)
+            with annotate("sweeps"):
                 state = vmc.thermalize(state, fold_in(key, 100 + i), ids,
                                        n_sweeps=sweeps_between)
             walkers = phys(state.walkers)
@@ -535,19 +515,19 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
             est = sample_estimators(
                 vmc.eval_log_psi_fn, state.params, walkers, vmc.ham, lattice,
                 chunk_size=le_chunk, dimer=dimer, marshall=marshall,
-                group=group, timer=timer)
+                group=group)
             for k, v in est.items():
                 traces[k].append(v.cpu().numpy() if v.dim()
                                  else float(v))
             if lanczos:
-                with timer("lanczos"):
+                with annotate("lanczos"):
                     e1, g = h_moment_samples(
                         vmc.eval_log_psi_fn, state.params, vmc.ham, s, lp,
                         chunk_size=lz_chunk)
                     traces["lanczos_e1"].append(_pooled(e1, group))
                     traces["lanczos_g"].append(_pooled(g, group))
             if sector_momentum is not None:
-                with timer("sector"):
+                with annotate("sector"):
                     num, den = observables.sector_energy_ratio(
                         vmc.eval_log_psi_fn, state.params, s, lp, vmc.ham,
                         tuple(lattice.shape), tuple(sector_momentum),
@@ -555,7 +535,7 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
                     traces["sector_num"].append(_pooled(num, group))
                     traces["sector_den"].append(_pooled(den, group))
             if regions is not None:
-                with timer("renyi2"):
+                with annotate("renyi2"):
                     traces["renyi2_swap"].append(torch.stack([
                         observables.renyi2_swap(
                             vmc.eval_log_psi_fn, state.params, s[0::2],
@@ -563,7 +543,7 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
                             sector_mask=sector_mask, group=group).re
                         for reg in regions]).cpu().numpy())
             if chirality:
-                with timer("chirality"):
+                with annotate("chirality"):
                     traces["chirality"].append(float(
                         observables.scalar_chirality(
                             vmc.eval_log_psi_fn, state.params, s, lp,
@@ -571,7 +551,7 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
             if sma:
                 # C_t(delta) per shell displacement: one amplitude-ratio
                 # pass each, the NN S.S estimator's machinery
-                with timer("sma"):
+                with annotate("sma"):
                     traces["sma_ct"].append(torch.stack([
                         observables.offdiag_observable(
                             vmc.eval_log_psi_fn, state.params, s, lp,
@@ -582,7 +562,7 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
         walkers = phys(state.walkers)
         if total_spin:
             # N(N-1)/2 forwards per walker: once, on the final walkers
-            with timer("total_spin"):
+            with annotate("total_spin"):
                 traces["total_spin_sq"] = float(observables.total_spin_sq(
                     vmc.eval_log_psi_fn, state.params, walkers.s,
                     walkers.log_psi, lattice, marshall=marshall, group=group,
@@ -592,12 +572,12 @@ def measure(cfg, ckpt_dir: str, n_samples: int = 20,
             # second state's params
             params2 = warm_start(dict(state.params), fidelity_ckpt,
                                  step=fidelity_step)
-            with timer("fidelity_therm"):
+            with annotate("fidelity_therm"):
                 state2 = chunked_thermalize(
                     vmc, fresh_state(fold_in(key, 2), params2),
                     fold_in(key, 3), ids, max(therm_sweeps, 50),
                     cfg.run.therm_sweeps_per_dispatch)
-            with timer("fidelity"):
+            with annotate("fidelity"):
                 traces["fidelity"] = float(fidelity(
                     vmc.eval_log_psi_fn, state.params, vmc.eval_log_psi_fn,
                     params2, walkers.s, phys(state2.walkers).s, group=group))
@@ -665,10 +645,10 @@ def main(argv=None):
                    help="torch device (default cuda; 'cpu' to run there)")
     p.add_argument("--timings", action="store_true",
                    help="diagnostic: also print one JSON line of seconds "
-                        "per phase (the device synchronized around each) "
-                        "and the CUDA kernels' launch counts, which show "
-                        "what served the run (0 where a model takes the "
-                        "plain forward)")
+                        "per phase (the spans' device time on CUDA, host "
+                        "time on the CPU) and the CUDA kernels' launch "
+                        "counts, which show what served the run (0 where "
+                        "a model takes the plain forward)")
     args = p.parse_args(argv)
     cfg = cfglib.load(args.config, tuple(args.override))
     group = None
@@ -678,12 +658,12 @@ def main(argv=None):
 
         group = init_distributed(cfg.run, device=args.device)
     is_main = group is None or group.rank == 0
-    timer = PhaseTimer(args.device if group is None else group.device
-                       ) if args.timings else None
     try:
         # rank 0 alone prints; the others' lines (warm starts) are dropped
         with (contextlib.nullcontext() if is_main
-              else contextlib.redirect_stdout(io.StringIO())):
+              else contextlib.redirect_stdout(io.StringIO())), \
+                (recording() if args.timings
+                 else contextlib.nullcontext()) as window:
             report = measure(
                 cfg, args.ckpt_dir, n_samples=args.n_samples,
                 sweeps_between=args.sweeps_between,
@@ -695,7 +675,7 @@ def main(argv=None):
                 sector_momentum=(
                     [int(x) for x in args.sector_momentum.split(",")]
                     if args.sector_momentum else None),
-                device=args.device, timer=timer, group=group)
+                device=args.device, group=group)
     finally:
         if group is not None:
             torch.distributed.destroy_process_group()
@@ -705,11 +685,11 @@ def main(argv=None):
                      indent=2))
     print("szsz_corr:", np.array2string(np.asarray(report["szsz_corr"]),
                                         precision=4))
-    if timer is not None:
+    if window is not None:
         from qmcnn_tpu_torch.kernels.gcnn_forward import gcnn_group_sums
         from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
 
-        print(json.dumps({"timings_s": dict(timer.seconds),
+        print(json.dumps({"timings_s": window.seconds(PHASES),
                           "n_samples": args.n_samples, "launches": {
                               "k1": metropolis_sweep.launches,
                               "k2_f32": gcnn_group_sums.launches,

@@ -43,7 +43,6 @@ rows.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -54,6 +53,7 @@ from qmcnn_tpu_torch.models.cnn import true_f32
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy
 from qmcnn_tpu_torch.sr import chol_or_eigh_solve, materialize_jacobian
+from qmcnn_tpu_torch.utils.profiling import annotate
 
 Params = dict
 
@@ -61,11 +61,6 @@ Params = dict
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the walker group's ranks; identity when not distributed."""
     return x if group is None else group.sum(x)
-
-
-def untimed(name: str):
-    """The no-op ``timer``: a context that times nothing."""
-    return contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +139,9 @@ class TDVP:
       group: the walker group (None: one device).
       eval_log_psi_fn: the evaluation forward of log psi and E_loc (None:
         ``log_psi_fn``).
-      timer: ``timer(name)`` context around the parts of ``rhs``
-        (``forward``: log psi and E_loc; ``jacobian``; ``solve``).
+
+    The parts of ``rhs`` are spans: ``forward`` (log psi and E_loc),
+    ``jacobian`` and ``solve``.
     """
 
     log_psi_fn: Callable[..., C]
@@ -158,7 +154,6 @@ class TDVP:
     chunk_size: Optional[int] = None
     group: Any = None
     eval_log_psi_fn: Optional[Callable[..., C]] = None
-    timer: Callable = untimed
 
     def __post_init__(self):
         if self.mode not in ("imag", "real"):
@@ -176,7 +171,7 @@ class TDVP:
             weights: torch.Tensor) -> TDVPResult:
         """One TDVP solve at the given (samples, weights)."""
         g, fwd = self.group, self.eval_log_psi_fn
-        with self.timer("forward"), torch.no_grad():
+        with annotate("forward"), torch.no_grad():
             lp = fwd(params, s)
             e_loc = local_energy(fwd, params, self.ham, s, lp,
                                  chunk_size=self.chunk_size)
@@ -184,11 +179,11 @@ class TDVP:
                        _psum((weights * e_loc.im).sum(), g))
             de = e_loc - e_mean
             e_var = _psum((weights * de.abs2()).sum(), g)
-        with self.timer("jacobian"):
+        with annotate("jacobian"):
             j_re, j_im, unravel = materialize_jacobian(
                 self.log_psi_fn, params, s, self.jacobian_chunk,
                 with_im=self.with_im)
-        with self.timer("solve"), true_f32():
+        with annotate("solve"), true_f32():
             x, b_dot, s_dot, resid = self._solve(j_re, j_im, de, weights)
             # epsilon^2 = (||target||^2 - 2 x.b + x.S.x) / ||target||^2,
             # ||target||^2_w = <|dE|^2>_w for both modes (|i dE| = |dE|)

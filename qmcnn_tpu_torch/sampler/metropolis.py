@@ -42,6 +42,7 @@ import torch
 
 from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.profiling import annotate
 
 LogPsiFn = Callable[..., C]  # (params, s [B, N]) -> C [B]
 
@@ -362,22 +363,24 @@ class MetropolisSampler:
             return self._sample_tempered(params, state, step_key, walker_ids,
                                          n_sweeps, noise)
         if noise is None:
-            noise = sweep_noise(step_key, walker_ids.to(state.s.device),
-                                n_props, self.n_choices)
-        if self.backend == "cuda":
-            s, lp, acc = metropolis_sweep(
-                params, state.s, state.log_psi.re,
-                lattice_shape=self.lattice_shape, n_props=n_props,
-                move=self.move, bonds=self.bonds, noise=noise)
-            return WalkerState(s=s, log_psi=C(lp, torch.zeros_like(lp)),
-                               n_accept=state.n_accept + acc,
-                               n_prop=state.n_prop + n_props)
-        choices, log_u = (x.to(state.s.device) for x in noise)
-        bonds = self._bonds(state.s.device)
-        for t in range(n_props):
-            state = self._proposal_step(params, state, choices[t], log_u[t],
-                                        bonds)
-        return state
+            with annotate("sampler.noise", device=False):
+                noise = sweep_noise(step_key, walker_ids.to(state.s.device),
+                                    n_props, self.n_choices)
+        with annotate("sampler.sweep", device=False):
+            if self.backend == "cuda":
+                s, lp, acc = metropolis_sweep(
+                    params, state.s, state.log_psi.re,
+                    lattice_shape=self.lattice_shape, n_props=n_props,
+                    move=self.move, bonds=self.bonds, noise=noise)
+                return WalkerState(s=s, log_psi=C(lp, torch.zeros_like(lp)),
+                                   n_accept=state.n_accept + acc,
+                                   n_prop=state.n_prop + n_props)
+            choices, log_u = (x.to(state.s.device) for x in noise)
+            bonds = self._bonds(state.s.device)
+            for t in range(n_props):
+                state = self._proposal_step(params, state, choices[t],
+                                            log_u[t], bonds)
+            return state
 
     def _bonds(self, device) -> Optional[torch.Tensor]:
         return (None if self.bonds is None else torch.as_tensor(
@@ -396,22 +399,23 @@ class MetropolisSampler:
         dev = state.s.device
         ids = walker_ids.to(dev)
         if noise is None:
-            row_ids = (ids[:, None] * r + torch.arange(r, device=dev)
-                       ).reshape(-1)
-            noise = sweep_noise(fold_in(step_key, 0), row_ids, n_sweeps * ss,
-                                self.n_choices) + (swap_noise(
-                                    fold_in(step_key, 1), ids, n_sweeps,
-                                    r - 1),)
-        choices, log_u, swap_log_u = (x.to(dev) for x in noise)
-        beta_rows = self._row_betas(state.s.shape[0], dev)
-        bonds = self._bonds(dev)
-        for u in range(n_sweeps):
-            for i in range(ss):
-                t = u * ss + i
-                state = self._proposal_step(params, state, choices[t],
-                                            log_u[t], bonds, beta_rows)
-            state = self._swap_step(state, swap_log_u[u])
-        return state
+            with annotate("sampler.noise", device=False):
+                row_ids = (ids[:, None] * r + torch.arange(r, device=dev)
+                           ).reshape(-1)
+                noise = sweep_noise(fold_in(step_key, 0), row_ids,
+                                    n_sweeps * ss, self.n_choices) + (
+                    swap_noise(fold_in(step_key, 1), ids, n_sweeps, r - 1),)
+        with annotate("sampler.sweep", device=False):
+            choices, log_u, swap_log_u = (x.to(dev) for x in noise)
+            beta_rows = self._row_betas(state.s.shape[0], dev)
+            bonds = self._bonds(dev)
+            for u in range(n_sweeps):
+                for i in range(ss):
+                    t = u * ss + i
+                    state = self._proposal_step(params, state, choices[t],
+                                                log_u[t], bonds, beta_rows)
+                state = self._swap_step(state, swap_log_u[u])
+            return state
 
     def _swap_step(self, state: WalkerState,
                    log_u: torch.Tensor) -> WalkerState:

@@ -46,6 +46,7 @@ import torch
 from torch.func import grad, jvp, vjp, vmap
 
 from qmcnn_tpu_torch.models.cnn import true_f32
+from qmcnn_tpu_torch.utils.profiling import annotate
 from qmcnn_tpu_torch.vmc import pmean as _pmean
 from qmcnn_tpu_torch.vmc import pmean_all as _pmean_all
 
@@ -68,10 +69,12 @@ def ravel(params: Params) -> Tuple[torch.Tensor, Callable]:
 
 def _agreed(values: torch.Tensor, group) -> list:
     """Host copies of the 1-D ``values`` that every rank takes its loop
-    decisions from: their max over the walker group (one host sync)."""
-    if group is not None:
-        values = group.agree(values)
-    return values.tolist()
+    decisions from: their max over the walker group (one host sync). The
+    wait is the span ``sr.pcg.wait``, on the host clock alone."""
+    with annotate("sr.pcg.wait", device=False):
+        if group is not None:
+            values = group.agree(values)
+        return values.tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +92,13 @@ def pcg_flat(matvec: Callable, b: torch.Tensor, inv_diag: torch.Tensor,
     """Jacobi-preconditioned CG on flat [P] vectors. f32-hardened: if an
     iteration produces a non-finite value the previous iterate is kept and
     the loop stops (the guard of the JAX loop). With a walker ``group`` the
-    loop tests read values agreed over the ranks."""
+    loop tests read values agreed over the ranks. The loop is the span
+    ``sr.pcg``."""
+    with annotate("sr.pcg", device=False):
+        return _pcg_loop(matvec, b, inv_diag, tol, maxiter, group)
+
+
+def _pcg_loop(matvec, b, inv_diag, tol, maxiter, group) -> CGResult:
     x = torch.zeros_like(b)
     r = b - matvec(x)
     z = inv_diag * r
@@ -234,19 +243,22 @@ class JacobianSOperator(NamedTuple):
 def make_jacobian_s(log_psi_fn, params: Params, s: torch.Tensor,
                     chunk_size: Optional[int] = None,
                     with_im: bool = True, group=None) -> JacobianSOperator:
-    j_re, j_im, _ = materialize_jacobian(log_psi_fn, params, s, chunk_size,
-                                         with_im=with_im)
-    means = _pmean_all([j.mean(dim=0) for j in (j_re, j_im)
-                        if j is not None], group)
-    oc_re = j_re - means[0][None, :]
-    diag_s = (oc_re * oc_re).mean(dim=0)
-    oc_im = None
-    if j_im is not None:
-        oc_im = j_im - means[1][None, :]
-        diag_s = diag_s + (oc_im * oc_im).mean(dim=0)
-    return JacobianSOperator(oc_re=oc_re, oc_im=oc_im,
-                             diag_s=_pmean(diag_s, group),
-                             m_local=s.shape[0], group=group)
+    """The centered score matrices and diag(S) (the span
+    ``sr.jacobian``)."""
+    with annotate("sr.jacobian"):
+        j_re, j_im, _ = materialize_jacobian(log_psi_fn, params, s,
+                                             chunk_size, with_im=with_im)
+        means = _pmean_all([j.mean(dim=0) for j in (j_re, j_im)
+                            if j is not None], group)
+        oc_re = j_re - means[0][None, :]
+        diag_s = (oc_re * oc_re).mean(dim=0)
+        oc_im = None
+        if j_im is not None:
+            oc_im = j_im - means[1][None, :]
+            diag_s = diag_s + (oc_im * oc_im).mean(dim=0)
+        return JacobianSOperator(oc_re=oc_re, oc_im=oc_im,
+                                 diag_s=_pmean(diag_s, group),
+                                 m_local=s.shape[0], group=group)
 
 
 def resolve_solver(solver: str, m_total: int, n_params: int,
@@ -282,8 +294,9 @@ def _minsr_delta(o: torch.Tensor, eps: torch.Tensor, shift, m_local: int,
     O(2M_tot P) per rank); 'ring' never holds them — round r broadcasts
     rank r's shard and every rank fills its Gram block (rank, r), so the
     peak is O(2M_loc P + (2M_tot)^2) (JAX moves the shards by ppermute;
-    a broadcast per round runs on NCCL and gloo alike)."""
-    with true_f32():
+    a broadcast per round runs on NCCL and gloo alike). The span
+    ``sr.minsr``."""
+    with annotate("sr.minsr", device=False), true_f32():
         if group is None:
             gram = (o @ o.T) / m_local
             gram = gram + shift * torch.eye(o.shape[0], dtype=o.dtype,

@@ -15,9 +15,10 @@ tree (building its kernel there) and
     411,648 configurations) beside the cuDNN model (TF32 off) on the same
     batch, with the largest relative difference of the two;
   * times a training step of configs/heis10x10_sr.yaml from the same
-    params phase by phase (three steps after a warm-up, as
-    ``step_timing``), with whatever evaluation forward that tree's
-    builder chooses.
+    params phase by phase (three steps after a warm-up, read from the
+    program's spans by ``utils/profiling.step_split``; skipped, and said
+    so, in a tree that records no spans), with whatever evaluation forward
+    that tree's builder chooses.
 The inputs come from seeds through code both trees share (the walkers'
 init, the noise), so every run sees the same tensors. Prints one JSON line
 per run and, last, the mean of each number per tree.
@@ -42,7 +43,7 @@ def _worker(root: str) -> dict:
     from qmcnn_tpu_torch.models.cnn import LogPsiCNN, log_psi_apply
     from qmcnn_tpu_torch.sampler.metropolis import (fold_in, init_walkers,
                                                     prng_key, sweep_noise)
-    from qmcnn_tpu_torch.step_timing import step_split
+    from qmcnn_tpu_torch.utils import profiling
     from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                                 params_from_jax)
 
@@ -107,12 +108,15 @@ def _worker(root: str) -> dict:
         lambda: log_psi_apply(model, flagship, x), 3)
     del x, zeros
 
+    if not hasattr(profiling, "step_split"):
+        rec["step_split"] = "skipped: the tree records no spans"
+        return rec
     cfg = configs.load(str(here / "configs" / "heis10x10_sr.yaml"), ())
     vmc, _, _ = build(cfg, device=dev)
     key = prng_key(cfg.run.seed + 100)
     state = vmc.init_state(fold_in(key, 0), m, flagship, device=dev)
     state = vmc.thermalize(state, fold_in(key, 1), ids, 20)
-    step = step_split(vmc, state, 3)
+    step = profiling.step_split(vmc, state, 3)
     rec.update({f"step_{k}_ms": v for k, v in step.items()})
     rec["step_total_ms"] = sum(step.values())
     return rec

@@ -43,6 +43,7 @@ from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy
 from qmcnn_tpu_torch.sampler.metropolis import WalkerState, fold_in
 from qmcnn_tpu_torch.utils.memory import divided_chunk
+from qmcnn_tpu_torch.utils.profiling import annotate, unit
 
 
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
@@ -107,8 +108,9 @@ def _surrogate_grads(log_psi_fn, params, s: torch.Tensor, centered: C,
         lp = log_psi_fn(p, s)
         return torch.mean(delta.re * lp.re + delta.im * lp.im)
 
-    grads = grad(loss_fn)(params)
-    return dict(zip(grads, pmean_all(list(grads.values()), group)))
+    with annotate("gradient"):
+        grads = grad(loss_fn)(params)
+        return dict(zip(grads, pmean_all(list(grads.values()), group)))
 
 
 def sector_chunk_size(chunk_size: Optional[int], lattice_shape,
@@ -150,11 +152,12 @@ def sector_energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
 
     if eval_log_psi_fn is None:
         eval_log_psi_fn = log_psi_fn
-    num, den = sector_energy_ratio(
-        eval_log_psi_fn, params, walkers.s, walkers.log_psi, ham,
-        tuple(lattice_shape), tuple(momentum),
-        chunk_size=sector_chunk_size(chunk_size, lattice_shape,
-                                     walkers.s.shape[0]))
+    with annotate("e_loc"):
+        num, den = sector_energy_ratio(
+            eval_log_psi_fn, params, walkers.s, walkers.log_psi, ham,
+            tuple(lattice_shape), tuple(momentum),
+            chunk_size=sector_chunk_size(chunk_size, lattice_shape,
+                                         walkers.s.shape[0]))
     n_mean = pmean_c(num.mean(), group)
     d_mean = pmean_c(den.mean(), group)
     e_q = n_mean / d_mean
@@ -183,21 +186,23 @@ def energy_and_grad(log_psi_fn, ham, params, walkers: WalkerState,
     ``overlap`` is the two-chain sum_k F_k (0 without deflation)."""
     if eval_log_psi_fn is None:
         eval_log_psi_fn = log_psi_fn
-    e_loc = local_energy(eval_log_psi_fn, params, ham, walkers.s,
-                         walkers.log_psi, chunk_size=chunk_size)
-    e_mean = pmean_c(e_loc.mean(), group)
-    e_var = pmean((e_loc - e_mean).abs2().mean(), group)
-    overlap = torch.zeros((), device=walkers.s.device)
-    e_mean_a = e_mean
-    if deflate is not None:
-        from qmcnn_tpu_torch.ops.penalty import deflation_e_loc
+    with annotate("e_loc"):
+        e_loc = local_energy(eval_log_psi_fn, params, ham, walkers.s,
+                             walkers.log_psi, chunk_size=chunk_size)
+        e_mean = pmean_c(e_loc.mean(), group)
+        e_var = pmean((e_loc - e_mean).abs2().mean(), group)
+        overlap = torch.zeros((), device=walkers.s.device)
+        e_mean_a = e_mean
+        if deflate is not None:
+            from qmcnn_tpu_torch.ops.penalty import deflation_e_loc
 
-        frozen, c = deflate
-        d_loc, overlap = deflation_e_loc(
-            eval_log_psi_fn, params, walkers.s, walkers.log_psi, frozen,
-            group=group, chunk_size=chunk_size)
-        e_loc = e_loc + d_loc * c
-        e_mean_a = pmean_c(e_loc.mean(), group)
+            frozen, c = deflate
+            with annotate("e_loc.deflation"):
+                d_loc, overlap = deflation_e_loc(
+                    eval_log_psi_fn, params, walkers.s, walkers.log_psi,
+                    frozen, group=group, chunk_size=chunk_size)
+            e_loc = e_loc + d_loc * c
+            e_mean_a = pmean_c(e_loc.mean(), group)
     # L = mean Re[conj(dE) log psi]  ->  grad = Re[<O* dE>]
     grads = _surrogate_grads(log_psi_fn, params, walkers.s,
                              e_loc - e_mean_a, group)
@@ -266,12 +271,18 @@ class VMC:
 
     def step(self, state: TrainState, key: int, walker_ids: torch.Tensor,
              noise=None):
-        """One training step. ``noise`` overrides the sampler's draws."""
+        """One training step. ``noise`` overrides the sampler's draws.
+        Its spans (``utils/profiling``) carry the step index: ``sampler``,
+        ``e_loc``, ``gradient``, ``sr`` and ``update``."""
         params = state.params
-        walkers = self.sampler.reset_counters(state.walkers)
-        walkers = self.sampler.refresh(params, walkers)
-        walkers = self.sampler.sample(params, walkers, key, walker_ids,
-                                      n_sweeps=self.n_sweeps, noise=noise)
+        unit(state.step)
+        with annotate("sampler"):
+            walkers = self.sampler.reset_counters(state.walkers)
+            with annotate("sampler.refresh", device=False):
+                walkers = self.sampler.refresh(params, walkers)
+            walkers = self.sampler.sample(params, walkers, key, walker_ids,
+                                          n_sweeps=self.n_sweeps,
+                                          noise=noise)
         # under tempering only the b = 1 rows are distributed as |psi|^2
         phys = self.sampler.physical(walkers)
         deflate = ((self.penalty_states, self.deflate_c)
@@ -293,27 +304,35 @@ class VMC:
         if self.penalty_states and deflate is None:
             from qmcnn_tpu_torch.ops.penalty import penalty_value_and_grad
 
-            overlap, pen_grads = penalty_value_and_grad(
-                self.log_psi_fn, params, phys.s, self.penalty_states,
-                self.penalty_beta, group=self.group)
-            grads = {k: grads[k] + pen_grads[k] for k in grads}
+            with annotate("gradient"):
+                overlap, pen_grads = penalty_value_and_grad(
+                    self.log_psi_fn, params, phys.s, self.penalty_states,
+                    self.penalty_beta, group=self.group)
+                grads = {k: grads[k] + pen_grads[k] for k in grads}
         sr_iters = 0
         sr_residual = torch.zeros((), device=walkers.s.device)
         sr_aux = state.sr_aux
-        if self.sr is not None and sr_aux is not None:
-            grads, sr_iters, sr_residual, sr_aux = self.sr.solve_spring(
-                self.log_psi_fn, params, phys.s, grads, state.step,
-                sr_aux, e_loc=e_loc, group=self.group)
-        elif self.sr is not None:
-            grads, sr_iters, sr_residual = self.sr.solve(
-                self.log_psi_fn, params, phys.s, grads, state.step,
-                e_loc=e_loc, group=self.group)
-        updates, opt_state = self.optimizer.update(grads, state.opt_state)
-        new_params = {k: params[k] + updates[k] for k in params}
-        ema = state.ema
-        if self.ema_decay > 0 and ema is not None:
-            d = self.ema_decay
-            ema = {k: d * ema[k] + (1.0 - d) * new_params[k] for k in ema}
+        if self.sr is not None:
+            with annotate("sr"):
+                if sr_aux is not None:
+                    grads, sr_iters, sr_residual, sr_aux = \
+                        self.sr.solve_spring(
+                            self.log_psi_fn, params, phys.s, grads,
+                            state.step, sr_aux, e_loc=e_loc,
+                            group=self.group)
+                else:
+                    grads, sr_iters, sr_residual = self.sr.solve(
+                        self.log_psi_fn, params, phys.s, grads, state.step,
+                        e_loc=e_loc, group=self.group)
+        with annotate("update"):
+            updates, opt_state = self.optimizer.update(grads,
+                                                       state.opt_state)
+            new_params = {k: params[k] + updates[k] for k in params}
+            ema = state.ema
+            if self.ema_decay > 0 and ema is not None:
+                d = self.ema_decay
+                ema = {k: d * ema[k] + (1.0 - d) * new_params[k]
+                       for k in ema}
         metrics = StepMetrics(
             energy_re=e_mean.re, energy_im=e_mean.im, energy_var=e_var,
             accept_rate=pmean(self.sampler.acceptance_rate(walkers),
@@ -326,9 +345,11 @@ class VMC:
 
     def thermalize(self, state: TrainState, key: int,
                    walker_ids: torch.Tensor, n_sweeps: int) -> TrainState:
-        walkers = self.sampler.refresh(state.params, state.walkers)
-        walkers = self.sampler.sample(state.params, walkers, key, walker_ids,
-                                      n_sweeps=n_sweeps)
+        with annotate("sampler"):
+            with annotate("sampler.refresh", device=False):
+                walkers = self.sampler.refresh(state.params, state.walkers)
+            walkers = self.sampler.sample(state.params, walkers, key,
+                                          walker_ids, n_sweeps=n_sweeps)
         return state._replace(walkers=walkers)
 
     def run_steps(self, state: TrainState, base_key: int,

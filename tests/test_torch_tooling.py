@@ -635,10 +635,3 @@ def test_union_and_timing_contracts():
     from qmcnn_tpu_torch.utils import profiling
 
     assert profiling._union_us([(0, 2), (1, 3), (5, 6), (5.5, 5.7)]) == 4.0
-    secs, out = profiling.timed(lambda x: x + 1, torch.ones(3), reps=3)
-    assert secs >= 0 and torch.equal(out, torch.full((3,), 2.0))
-
-    def make_scan(n):
-        return lambda: [torch.ones(16) * 2 for _ in range(n)]
-
-    assert profiling.scan_rate(make_scan, 10, 200, reps=2) > 0
