@@ -3771,7 +3771,9 @@ def start_supervised(out_dir: Path) -> dict:
     from the fixture (6 steps, a chunk a step, a checkpoint every 2, the
     checkpoints under ``TOOLING_OUT``), and a watcher thread that SIGSTOPs the
     child's process group once its .events holds ``save_end 2`` (a wedged
-    dispatch: no exception, no output)."""
+    dispatch: no exception, no output). The child settles 2 s after each
+    save (``run.save_settle_s``), so the watcher's 0.2 s poll stops it
+    before step 3 however fast a step runs."""
     import signal
     import threading
 
@@ -3786,7 +3788,8 @@ def start_supervised(out_dir: Path) -> dict:
             str(ROOT / "configs" / "heis10x10_sr.yaml"), "--stall-timeout",
             "20", "--poll", "1"]
     for ov in SUPERVISE_OVERRIDES + (f"run.ckpt_dir={ckpt}",
-                                     f"run.csv_path={csv}"):
+                                     f"run.csv_path={csv}",
+                                     "run.save_settle_s=2.0"):
         argv += ["--override", ov]
     log = open(sup_dir / "supervise.log", "w")
     t0 = time.perf_counter()

@@ -12,7 +12,12 @@ for real parameters, with F the covariance gradient from
   * ``solver='pcg'`` — materializes the centered score matrices
     (J_re, J_im) [M, P] with one ``torch.func.vmap`` of ``torch.func.grad``
     per component (chunked over samples by ``jacobian_chunk``) and runs
-    Jacobi-preconditioned CG whose matvec is two [M, P] matmuls.
+    Jacobi-preconditioned CG whose matvec is two [M, P] matmuls. With no
+    walker group the loop runs as blocks of ``PCG_BLOCK`` masked
+    iterations with one flag read to the host per block
+    (:func:`pcg_blocks`, the JAX ``while_loop``'s ``where`` updates); on a
+    card each block is a CUDA graph replayed over static buffers
+    (:class:`PCGGraphs`).
   * ``solver='dense'`` — builds S [P, P] and solves by Cholesky, with an
     eigh fallback when f32 Cholesky fails.
   * ``solver='minsr'`` — the sample-space form for P >> M: with the
@@ -46,7 +51,8 @@ import torch
 from torch.func import grad, jvp, vjp, vmap
 
 from qmcnn_tpu_torch.models.cnn import true_f32
-from qmcnn_tpu_torch.utils.profiling import annotate
+from qmcnn_tpu_torch.utils import debug
+from qmcnn_tpu_torch.utils.profiling import annotate, count
 from qmcnn_tpu_torch.vmc import pmean as _pmean
 from qmcnn_tpu_torch.vmc import pmean_all as _pmean_all
 
@@ -145,6 +151,215 @@ def cg(matvec: Callable, b: Params, tol: float = 1e-5, maxiter: int = 100,
 
 
 # ---------------------------------------------------------------------------
+# PCG as blocks of masked iterations (no walker group), CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: pcg iterations per block when there is no walker group: the host reads
+#: the loop's flag once a block, and a block that the stop falls inside runs
+#: its remaining iterations masked (the choice against the card's numbers:
+#: PERF.md, "pcg on the device")
+PCG_BLOCK = 16
+
+
+class _PCGCarry(NamedTuple):
+    """The block loop's state, updated in place: the iterate, residual,
+    preconditioned residual and direction [P], r.z, the stopping threshold
+    (tol ||b||)^2, the iteration count (int64) and whether the loop runs
+    on (bool)."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    atol2: torch.Tensor
+    k: torch.Tensor
+    active: torch.Tensor
+
+    @staticmethod
+    def empty(n: int, dtype, device) -> "_PCGCarry":
+        vec = [torch.empty(n, dtype=dtype, device=device) for _ in range(4)]
+        return _PCGCarry(*vec, torch.empty((), dtype=dtype, device=device),
+                         torch.empty((), dtype=dtype, device=device),
+                         torch.empty((), dtype=torch.int64, device=device),
+                         torch.empty((), dtype=torch.bool, device=device))
+
+
+def _pcg_start(op, shift, b, inv_diag, tol, c: _PCGCarry) -> torch.Tensor:
+    """Fill the carry as ``_pcg_loop`` starts (x = 0, r = b - A x, ...),
+    the entry test rr > atol2 as ``active``; returns ||b||."""
+    c.x.zero_()
+    c.r.copy_(b - op.matvec(c.x, shift))
+    c.z.copy_(inv_diag * c.r)
+    c.p.copy_(c.z)
+    c.rz.copy_(torch.dot(c.r, c.z))
+    b_norm = torch.linalg.norm(b)
+    c.atol2.copy_((tol * b_norm) ** 2)
+    c.k.zero_()
+    torch.gt(torch.dot(c.r, c.r), c.atol2, out=c.active)
+    return b_norm
+
+
+def _pcg_block(op, shift, inv_diag, c: _PCGCarry, maxiter: int,
+               block: int) -> torch.Tensor:
+    """``block`` iterations of ``_pcg_loop`` on the device alone: each
+    computes the same ops in the same order, keeps its new values only
+    where the loop is active and the step finite (``good``), counts where
+    active, and stops the loop on the device (not good, k = maxiter or
+    rr <= atol2). Once stopped, the carry stays bitwise as it is. Returns
+    [k, active] (int64), the flag the host reads."""
+    eps = 1e-30
+    for _ in range(block):
+        ap = op.matvec(c.p, shift)
+        alpha = c.rz / torch.clamp(torch.dot(c.p, ap), min=eps)
+        x_new = c.x + alpha * c.p
+        r_new = c.r - alpha * ap
+        z_new = inv_diag * r_new
+        rz_new = torch.dot(r_new, z_new)
+        good = torch.isfinite(rz_new) & torch.isfinite(alpha)
+        rr = torch.dot(r_new, r_new)
+        beta = rz_new / torch.clamp(c.rz, min=eps)
+        p_new = z_new + beta * c.p
+        keep = c.active & good
+        for new, old in ((x_new, c.x), (r_new, c.r), (z_new, c.z),
+                         (p_new, c.p), (rz_new, c.rz)):
+            torch.where(keep, new, old, out=old)
+        c.k.add_(c.active)
+        torch.logical_and(keep, (c.k < maxiter) & (rr > c.atol2),
+                          out=c.active)
+    return torch.stack([c.k, c.active.to(c.k.dtype)])
+
+
+class PCGGraph:
+    """One operator shape's pcg on a card: static buffers for the centered
+    score matrices, the preconditioner, the shift and the carry, which
+    every solve of the shape writes into, and each block of masked
+    iterations captured once as a CUDA graph over them and replayed."""
+
+    def __init__(self, device, m: int, n: int, dtype, with_im: bool,
+                 stream=None):
+        self.device = torch.device(device)
+        # the capture stream (a torch.cuda.Stream), shared by the shapes of
+        # a device: cuBLAS keeps a workspace for every stream it runs on
+        self.stream = stream
+        self.oc_re = torch.empty((m, n), dtype=dtype, device=device)
+        self.oc_im = torch.empty_like(self.oc_re) if with_im else None
+        self.inv_diag = torch.empty(n, dtype=dtype, device=device)
+        self.shift = torch.empty((), dtype=dtype, device=device)
+        self.carry = _PCGCarry.empty(n, dtype, device)
+        # the matvec of the static matrices (diag(S) is not read by it)
+        self.op = JacobianSOperator(oc_re=self.oc_re, oc_im=self.oc_im,
+                                    diag_s=self.inv_diag, m_local=m)
+        self._blocks: dict = {}
+
+    @property
+    def matrices(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The buffers ``make_jacobian_s(out=...)`` centers into."""
+        return self.oc_re, self.oc_im
+
+    def block(self, maxiter: int, block: int) -> Callable[[], torch.Tensor]:
+        """A function that replays the block (captured at its first call
+        with these arguments) and returns its flag tensor."""
+        got = self._blocks.get((maxiter, block))
+        if got is None:
+            got = self._blocks[(maxiter, block)] = self._capture(maxiter,
+                                                                 block)
+            count("sr.pcg.captures")
+        graph, flag = got
+
+        def replay() -> torch.Tensor:
+            graph.replay()
+            return flag
+
+        return replay
+
+    def _capture(self, maxiter: int, block: int):
+        c = self.carry
+
+        def run():
+            return _pcg_block(self.op, self.shift, self.inv_diag, c,
+                              maxiter, block)
+
+        side = self.stream
+        with torch.cuda.device(self.device):
+            # warm up on the capture stream (cuBLAS's workspace) with every
+            # iteration masked, so the carry stays as it is
+            active = c.active.clone()
+            c.active.fill_(False)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            c.active.copy_(active)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                flag = run()
+        return graph, flag
+
+
+class PCGGraphs:
+    """An SR solver's :class:`PCGGraph` per (device, M, P, dtype, whether
+    there is an imaginary block)."""
+
+    def __init__(self):
+        self._shapes: dict = {}
+        self._streams: dict = {}
+
+    def get(self, device, m: int, n: int, dtype, with_im: bool) -> PCGGraph:
+        """The card ``device``'s graph of the shape, made at first use."""
+        device = torch.device(device)
+        key = (device, m, n, dtype, with_im)
+        got = self._shapes.get(key)
+        if got is None:
+            stream = self._streams.get(device)
+            if stream is None:
+                stream = self._streams[device] = torch.cuda.Stream(device)
+            got = self._shapes[key] = PCGGraph(device, m, n, dtype, with_im,
+                                               stream)
+        return got
+
+
+def pcg_blocks(op, shift, b: torch.Tensor, inv_diag: torch.Tensor,
+               tol: float = 1e-5, maxiter: int = 100, block: int = PCG_BLOCK,
+               graph: Optional[PCGGraph] = None) -> CGResult:
+    """:func:`pcg_flat` with no walker group on the operator ``op``
+    (``op.matvec(v, shift)``), run as blocks of min(``block``, maxiter)
+    masked iterations (:func:`_pcg_block`), with one flag read to the host
+    (the span ``sr.pcg.wait``) per block: x, iters and the residual equal
+    ``pcg_flat``'s bitwise, whatever the block. With a ``graph`` whose
+    static matrices ``op`` is built on, the blocks replay as its CUDA
+    graphs; else they run eagerly. Counts ``sr.pcg.blocks`` and
+    ``sr.pcg.overrun`` (iterations run masked after the stop). The loop is
+    the span ``sr.pcg``."""
+    with annotate("sr.pcg", device=False):
+        block = max(1, min(block, maxiter))
+        if graph is None:
+            c = _PCGCarry.empty(b.shape[0], b.dtype, b.device)
+        else:
+            if op.oc_re.data_ptr() != graph.oc_re.data_ptr():
+                raise ValueError("pcg_blocks: op must hold the graph's "
+                                 "static matrices (make_jacobian_s(out=))")
+            graph.inv_diag.copy_(inv_diag)
+            graph.shift.copy_(shift)
+            op, shift, inv_diag, c = (graph.op, graph.shift, graph.inv_diag,
+                                      graph.carry)
+        b_norm = _pcg_start(op, shift, b, inv_diag, tol, c)
+        blocks, k, active = 0, 0, maxiter > 0
+        if active:
+            run = (graph.block(maxiter, block) if graph is not None else
+                   lambda: _pcg_block(op, shift, inv_diag, c, maxiter, block))
+        while active:
+            k, active = _agreed(run(), None)
+            blocks += 1
+        count("sr.pcg.blocks", blocks)
+        count("sr.pcg.overrun", blocks * block - k)
+        res = torch.linalg.norm(c.r) / torch.clamp(b_norm, min=1e-30)
+        return CGResult(x=c.x if graph is None else c.x.clone(), iters=k,
+                        residual=res)
+
+
+# ---------------------------------------------------------------------------
 # S operators
 # ---------------------------------------------------------------------------
 
@@ -187,29 +402,31 @@ def make_s_matvec(log_psi_fn, params: Params, s: torch.Tensor, diag_shift,
 
 def materialize_jacobian(log_psi_fn, params: Params, s: torch.Tensor,
                          chunk_size: Optional[int] = None,
-                         with_im: bool = True):
+                         with_im: bool = True, out=None):
     """Score matrices (J_re, J_im) [M, P] (uncentered) + the unravel fn.
 
     ``with_im=False`` skips the imaginary block (returns None) for models
-    whose log-amplitude is real for all parameters."""
+    whose log-amplitude is real for all parameters. ``out``: a pair of
+    [M, P] buffers (the second None without the imaginary block) that the
+    matrices are written into, in place of new ones."""
     _, unravel = ravel(params)
     keys = sorted(params)
 
-    def part(fn):
+    def part(fn, buf):
         g = vmap(grad(fn), in_dims=(None, 0))
 
-        def rows(s_c):
-            out = g(params, s_c)
-            return torch.cat([out[k].reshape(s_c.shape[0], -1)
-                              for k in keys], dim=1)
+        def rows(s_c, dest=None):
+            grads = g(params, s_c)
+            return torch.cat([grads[k].reshape(s_c.shape[0], -1)
+                              for k in keys], dim=1, out=dest)
 
         m = s.shape[0]
         if chunk_size is None or chunk_size >= m:
-            return rows(s)
+            return rows(s, buf)
         if m % chunk_size:
             raise ValueError(f"chunk_size {chunk_size} must divide M={m}")
         return torch.cat([rows(s[i:i + chunk_size])
-                          for i in range(0, m, chunk_size)])
+                          for i in range(0, m, chunk_size)], out=buf)
 
     def f_re(p, si):
         return log_psi_fn(p, si[None, :]).re[0]
@@ -217,8 +434,9 @@ def materialize_jacobian(log_psi_fn, params: Params, s: torch.Tensor,
     def f_im(p, si):
         return log_psi_fn(p, si[None, :]).im[0]
 
-    j_re = part(f_re)
-    j_im = part(f_im) if with_im else None
+    out_re, out_im = (None, None) if out is None else out
+    j_re = part(f_re, out_re)
+    j_im = part(f_im, out_im) if with_im else None
     return j_re, j_im, unravel
 
 
@@ -242,19 +460,22 @@ class JacobianSOperator(NamedTuple):
 
 def make_jacobian_s(log_psi_fn, params: Params, s: torch.Tensor,
                     chunk_size: Optional[int] = None,
-                    with_im: bool = True, group=None) -> JacobianSOperator:
+                    with_im: bool = True, group=None,
+                    out=None) -> JacobianSOperator:
     """The centered score matrices and diag(S) (the span
-    ``sr.jacobian``)."""
+    ``sr.jacobian``), centered in place, into the [M, P] buffers ``out``
+    where given (:attr:`PCGGraph.matrices`)."""
     with annotate("sr.jacobian"):
         j_re, j_im, _ = materialize_jacobian(log_psi_fn, params, s,
-                                             chunk_size, with_im=with_im)
+                                             chunk_size, with_im=with_im,
+                                             out=out)
         means = _pmean_all([j.mean(dim=0) for j in (j_re, j_im)
                             if j is not None], group)
-        oc_re = j_re - means[0][None, :]
+        oc_re = j_re.sub_(means[0][None, :])
         diag_s = (oc_re * oc_re).mean(dim=0)
         oc_im = None
         if j_im is not None:
-            oc_im = j_im - means[1][None, :]
+            oc_im = j_im.sub_(means[1][None, :])
             diag_s = diag_s + (oc_im * oc_im).mean(dim=0)
         return JacobianSOperator(oc_re=oc_re, oc_im=oc_im,
                                  diag_s=_pmean(diag_s, group),
@@ -394,6 +615,9 @@ class SR:
     real_log_psi: bool = False
     minsr_assembly: str = "gather"
     momentum: float = 0.0
+    #: pcg's CUDA graphs and their static buffers, per operator shape
+    graphs: PCGGraphs = dataclasses.field(default_factory=PCGGraphs,
+                                          init=False, repr=False)
 
     def __post_init__(self):
         if self.solver not in ("pcg", "cg", "dense", "minsr"):
@@ -423,12 +647,18 @@ class SR:
             r = cg(matvec, grads, tol=self.cg_tol, maxiter=self.cg_maxiter,
                    group=group)
             return r.x, r.iters, r.residual
+        b, unravel = ravel(grads)
+        graph = None
+        if (self.solver == "pcg" and group is None
+                and s.device.type == "cuda" and not debug.active()):
+            graph = self.graphs.get(s.device, s.shape[0], b.shape[0],
+                                    b.dtype, not self.real_log_psi)
         op = make_jacobian_s(log_psi_fn, params, s,
                              chunk_size=self.jacobian_chunk,
-                             with_im=not self.real_log_psi, group=group)
+                             with_im=not self.real_log_psi, group=group,
+                             out=None if graph is None else graph.matrices)
         if self.proportional_shift:
             shift = shift * torch.clamp(op.diag_s.mean(), min=1e-12)
-        b, unravel = ravel(grads)
         if self.solver == "minsr":
             o, eps = _minsr_rows(op, e_loc, group)
             delta, s_delta = _minsr_delta(o, eps, shift, op.m_local, group,
@@ -438,9 +668,13 @@ class SR:
             return unravel(delta), 0, resid
         if self.solver == "pcg":
             inv_diag = 1.0 / (op.diag_s + shift)
-            r = pcg_flat(lambda v: op.matvec(v, shift), b, inv_diag,
-                         tol=self.cg_tol, maxiter=self.cg_maxiter,
-                         group=group)
+            if group is None:
+                r = pcg_blocks(op, shift, b, inv_diag, tol=self.cg_tol,
+                               maxiter=self.cg_maxiter, graph=graph)
+            else:
+                r = pcg_flat(lambda v: op.matvec(v, shift), b, inv_diag,
+                             tol=self.cg_tol, maxiter=self.cg_maxiter,
+                             group=group)
             return unravel(r.x), r.iters, r.residual
         s_dense = op.oc_re.T @ op.oc_re
         if op.oc_im is not None:

@@ -17,7 +17,8 @@ program's spans and counters, and the profiler helpers that read a trace.
     keeps them: ``with recording() as w: ...`` then ``w.spans`` and
     ``w.seconds(names)``.
   * ``count(name, value)`` / ``counters()`` — always-on process counters
-    (the kernels' ``nvcc`` builds), never on a step's path.
+    (the kernels' ``nvcc`` builds; pcg's blocks, masked overrun and CUDA
+    graph captures, a few dict adds a solve).
   * ``trace(logdir)`` — ``torch.profiler.profile`` with the CPU and (where
     a card is present) CUDA activities; writes the gzipped chrome trace into
     ``logdir`` and yields the profiler, which :func:`kernel_table`,

@@ -357,7 +357,10 @@ def run_pcg_trace(spec, group) -> dict:
 
     With ``spec["split_mean"]`` (one process, no group) the S matvec's
     walker mean is taken as the mean of two half-means, the summation
-    order of 2 ranks without a collective."""
+    order of 2 ranks without a collective. With no group the solve runs
+    ``pcg_flat``'s per-iteration loop in place of ``pcg_blocks`` (bitwise
+    the same iterates, ``tests/test_torch_pcg_blocks.py``), so that every
+    iteration's values are read."""
     from qmcnn_tpu_torch import sr as srmod
     from qmcnn_tpu_torch.train import chunked_thermalize
     from qmcnn_tpu_torch.utils.transfer import warm_start
@@ -381,7 +384,7 @@ def run_pcg_trace(spec, group) -> dict:
     out = {"s_therm": state.walkers.s.cpu(), "steps": [],
            "params0": {k: v.cpu() for k, v in state.params.items()}}
     traces = []
-    agreed, pcg = srmod._agreed, srmod.pcg_flat
+    agreed, pcg, blocks = srmod._agreed, srmod.pcg_flat, srmod.pcg_blocks
 
     rhs = []
 
@@ -395,6 +398,10 @@ def run_pcg_trace(spec, group) -> dict:
         traces[-1].append(got)
         return got
 
+    def per_iteration(op, shift, b, inv_diag, tol, maxiter, graph=None):
+        return srmod.pcg_flat(lambda v: op.matvec(v, shift), b, inv_diag,
+                              tol=tol, maxiter=maxiter)
+
     op_matvec = srmod.JacobianSOperator.matvec
 
     def halves_matvec(op, v, diag_shift):
@@ -406,6 +413,7 @@ def run_pcg_trace(spec, group) -> dict:
         return (parts[0] + parts[1]) / 2 + diag_shift * v
 
     srmod.pcg_flat, srmod._agreed = traced_pcg, traced_agreed
+    srmod.pcg_blocks = per_iteration
     if spec.get("split_mean"):
         srmod.JacobianSOperator.matvec = halves_matvec
     try:
@@ -420,6 +428,7 @@ def run_pcg_trace(spec, group) -> dict:
                 "trace": torch.tensor(traces[-1], dtype=torch.float64)})
     finally:
         srmod.pcg_flat, srmod._agreed = pcg, agreed
+        srmod.pcg_blocks = blocks
         srmod.JacobianSOperator.matvec = op_matvec
     return out
 
