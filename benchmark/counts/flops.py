@@ -3,11 +3,9 @@ inputs, never from what the program launched: the same work reads the same
 count whatever computes it. 2 FLOPs per multiply-add.
 
   * An evaluation forward of one configuration (:func:`forward_flop`): the
-    convolutions of the real CNN; for the GCNN the least work of its group
-    sums (the lift, 1 real product per part for the real input, and the
-    group layers, 3 real products per complex multiply-add as Karatsuba
-    takes them, plus 4 HW W additions), times 2 under the spin-flip
-    projection, which evaluates s and -s.
+    least work of the model's forward, counted by its kind's file
+    (``reference/kinds/<kind>.py``): the convolutions of the real CNN; for
+    the GCNN its group sums, times 2 under the spin-flip projection.
   * A sweep proposal that changes the walker is one forward; an exchange
     proposal on an aligned bond is the identity and needs none.
   * An E_loc row is one anti-aligned bond of a walker: a bond whose spins
@@ -26,15 +24,7 @@ from __future__ import annotations
 
 import math
 
-#: order of C4v
-G = 8
-
-
-def _kernel(cfg: dict) -> int:
-    k = min(int(cfg["model"]["kernel_size"]), *cfg["lattice"]["shape"])
-    if cfg["model"]["kind"] == "gcnn" and k % 2 == 0:
-        k -= 1
-    return k
+from benchmark.reference import models
 
 
 def n_sites(cfg: dict) -> int:
@@ -47,47 +37,14 @@ def parts(cfg: dict) -> int:
 
 
 def n_params(cfg: dict) -> int:
-    m, k = cfg["model"], _kernel(cfg)
-    chans = [int(c) for c in m["channels"]]
-    p = 2 if m["complex_params"] else 1
-    total, cin = 0, 1
-    for i, c in enumerate(chans):
-        if m["kind"] == "gcnn":
-            total += p * ((k * k * cin * c if i == 0 else G * k * k * cin * c)
-                          + c)
-        else:
-            total += p * (k * k * cin * c + c)
-        cin = c
-    return total
-
-
-def gcnn_flop(hw: int, width: int, n_layers: int, cplx: bool, taps: int = 9
-              ) -> float:
-    """The least FLOPs of one configuration's group sums at ``width`` = G C
-    expanded channels (the program's hand model, frozen here)."""
-    lift = taps * hw * width * 2 * (2 if cplx else 1)
-    group = taps * hw * width * width * 2 * (3 if cplx else 1)
-    if cplx:
-        group += 4 * hw * width
-    return float(lift + (n_layers - 1) * group)
+    """The entries of the kind's parameter layout."""
+    return sum(math.prod(shape)
+               for shape, _ in models.param_layout(cfg).values())
 
 
 def forward_flop(cfg: dict) -> float:
     """FLOPs of one evaluation forward of one configuration."""
-    m, k, n = cfg["model"], _kernel(cfg), n_sites(cfg)
-    chans = [int(c) for c in m["channels"]]
-    if m["kind"] == "cnn":
-        cin, flop = 1, 0.0
-        for c in chans:
-            flop += 2.0 * n * k * k * cin * c * (2 if m["complex_params"]
-                                                 else 1)
-            cin = c
-        return flop
-    if m["kind"] == "gcnn":
-        flop = gcnn_flop(n, G * chans[0], len(chans),
-                         bool(m["complex_params"]), k * k)
-        return flop * (2 if m["spin_flip_sector"] else 1)
-    raise NotImplementedError(f"no count for model {m['kind']!r}")
+    return float(models.kind(cfg["model"]["kind"]).forward_flop(cfg))
 
 
 def forward_bytes(cfg: dict) -> float:

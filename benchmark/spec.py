@@ -2,9 +2,12 @@
 checkout names the cell's configuration, traffic and chips and the metrics
 it reports; the configuration is ``configs/<name>.json``, the traffic
 ``traffic/<traffic>.json``, the limits of the correctness check
-``limits/<cell>.json`` and each metric a reader ``metrics/<name>.py``. A
-new cell, configuration, traffic mix or metric is a new file here and an
-entry in ``BENCHMARK.json``; no code changes.
+``limits/<cell>.json``, each metric a reader ``metrics/<name>.py`` and
+each model kind (the configuration's ``model.kind``) a file
+``reference/kinds/<kind>.py`` of its reference forward, weight layout and
+work count (see ``reference/models.py``). A new cell, configuration, model
+kind, traffic mix or metric is a new file here and an entry in
+``BENCHMARK.json``; no code changes.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ def cell(name: str, root: str = ROOT) -> dict:
     entry (``workload``), the configuration entry and file (``config``,
     ``config_meta``), the traffic parameters, the limits, and the metrics
     it reports (``end_to_end``, ``per_layer``: the entries whose
-    ``workloads`` name it, or that have none)."""
+    ``workloads`` name it, or that have none). A configuration whose model
+    kind has no ``reference/kinds/<kind>.py`` raises here, before any
+    run."""
     spec = benchmark(root)
     work = next((w for w in spec["workloads"] if w["name"] == name), None)
     if work is None:
@@ -40,6 +45,13 @@ def cell(name: str, root: str = ROOT) -> dict:
     conf = next(c for c in spec["configs"] if c["name"] == work["config"])
     meta = _load_json(os.path.join(root, conf["file"]))
     here = os.path.join(root, FOLDER)
+    kind = os.path.join(FOLDER, "reference", "kinds",
+                        f"{meta['config']['model']['kind']}.py")
+    if not os.path.exists(os.path.join(root, kind)):
+        raise FileNotFoundError(
+            f"configuration {conf['name']!r} is of a model kind with no "
+            f"file: {kind} (its reference forward, weight layout and work "
+            f"count) is missing")
     traffic = _load_json(os.path.join(here, "traffic",
                                       f"{work['traffic']}.json"))
     limits_path = os.path.join(here, "limits", f"{name}.json")
