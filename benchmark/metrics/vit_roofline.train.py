@@ -1,0 +1,29 @@
+"""vit_roofline.train: the ViT trunk's share of its roofline. 100 x the
+least time (``counts/peaks.roofline_seconds`` at the float32 peak) of the
+forwards the traced steps needed, over the device seconds of the program's
+``vit`` spans in them. The forwards needed are counted from the inputs:
+each step's evaluation rows (``counts/flops.eval_rows``: the refresh, the
+sweep's changing proposals, the E_loc rows with an element) and 2 m more,
+the gradient's and the score Jacobian's; each costs ``forward_flop`` and
+``forward_bytes``. None where the program records no ``vit`` span."""
+from benchmark import program_spans
+from benchmark.counts import flops, peaks
+
+
+def read(run):
+    if "steps" not in run or not run.get("eval_rows"):
+        return None
+    a, b = run.get("traced_steps", (0, 0))
+    spans = [sp for sp in program_spans.recorded() or ()
+             if sp.name == "vit"]
+    if not spans or b <= a:
+        return None
+    ms = [sp.device_ms() for sp in spans]
+    if any(x is None for x in ms) or sum(ms) <= 0:
+        return None
+    cfg = run["cfg"]
+    rows = sum(run["eval_rows"][a:b]) + 2.0 * run["m"] * (b - a)
+    bound = peaks.roofline_seconds(rows * flops.forward_flop(cfg),
+                                   rows * flops.forward_bytes(cfg),
+                                   "float32")
+    return 100.0 * bound / (sum(ms) / 1e3)

@@ -33,6 +33,13 @@ layer norm computes its statistics and its output in f32 from the bf16
 input (Flax's ``force_float32_reductions``) and rounds the output to bf16.
 ``ln_f``'s output is cast to f32, and the head and the logmeanexp
 projection run in f32.
+
+Tracing (``utils/profiling``): the span ``vit`` covers a forward from the
+rolls to the logmeanexp, and inside it each block records ``vit.attn``
+(ln1, attention, residual) and ``vit.mlp`` (ln2, mlp1, GELU, mlp2,
+residual); each is one flag test while nothing records. The counter
+``vit.sequences`` adds the rolled copies times the configurations of each
+forward, ``torch.func.vmap``'s batch included (always on).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from torch import nn
 from qmcnn_tpu_torch.models.cnn import Params, true_f32
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.profiling import annotate, count
 
 _LN_EPS = 1e-6
 #: std of a standard normal truncated to [-2, 2] (Flax's lecun_normal)
@@ -223,9 +231,21 @@ class _Block(nn.Module):
                      functools.partial(F.gelu, approximate="tanh"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        h = self.gelu(self.mlp1(self.ln2(x)))
-        return x + self.mlp2(h)
+        with annotate("vit.attn"):
+            x = x + self.attn(self.ln1(x))
+        with annotate("vit.mlp"):
+            h = self.gelu(self.mlp1(self.ln2(x)))
+            return x + self.mlp2(h)
+
+
+def _configurations(s: torch.Tensor) -> int:
+    """Rows of s [B, N], times the batch of every ``torch.func`` level that
+    wraps it (a Jacobian's vmap over walkers calls the model once with
+    B = 1)."""
+    n = s.shape[-1]
+    while torch._C._functorch.is_functorch_wrapped_tensor(s):
+        s = torch._C._functorch.get_unwrapped(s)
+    return s.numel() // n
 
 
 class LogPsiViT(nn.Module):
@@ -270,27 +290,31 @@ class LogPsiViT(nn.Module):
     def forward(self, s: torch.Tensor) -> C:
         shape, p = self.lattice_shape, self.patch
         batch = s.shape[0]
-        grid = s.reshape(batch, *shape).to(torch.float32)
         # the residual sub-patch translations, projected out explicitly
         dims = tuple(range(1, 1 + len(shape)))
         shifts = list(itertools.product(*[range(p)] * len(shape)))
-        x = torch.stack([torch.roll(grid, sh, dims=dims) for sh in shifts])
         a = len(shifts)
-        x = x.reshape(a * batch, *shape)
-        with true_f32():
-            h = self.embed(_patchify(x, shape, p).to(self.dtype))
-            for i in range(self.n_blocks):
-                h = getattr(self, f"block{i}")(h)
-            h = self.ln_f(h).to(torch.float32)
-            zre = self.head_re(h)
-            if self.complex_params:
-                z = cplx.lncosh(C(zre, self.head_im(h)))
-                logs = C(z.re.reshape(a * batch, -1).sum(-1),
-                         z.im.reshape(a * batch, -1).sum(-1))
-            else:
-                out = cplx.lncosh_real(zre).reshape(a * batch, -1).sum(-1)
-                logs = C(out, torch.zeros_like(out))
-        return cplx.logmeanexp(logs.reshape(a, batch), dim=0)
+        count("vit.sequences", a * _configurations(s))
+        with annotate("vit"):
+            grid = s.reshape(batch, *shape).to(torch.float32)
+            x = torch.stack([torch.roll(grid, sh, dims=dims)
+                             for sh in shifts])
+            x = x.reshape(a * batch, *shape)
+            with true_f32():
+                h = self.embed(_patchify(x, shape, p).to(self.dtype))
+                for i in range(self.n_blocks):
+                    h = getattr(self, f"block{i}")(h)
+                h = self.ln_f(h).to(torch.float32)
+                zre = self.head_re(h)
+                if self.complex_params:
+                    z = cplx.lncosh(C(zre, self.head_im(h)))
+                    logs = C(z.re.reshape(a * batch, -1).sum(-1),
+                             z.im.reshape(a * batch, -1).sum(-1))
+                else:
+                    out = cplx.lncosh_real(zre).reshape(a * batch,
+                                                        -1).sum(-1)
+                    logs = C(out, torch.zeros_like(out))
+            return cplx.logmeanexp(logs.reshape(a, batch), dim=0)
 
     def init(self, seed: int, device="cpu") -> Params:
         """Fresh flat Flax-keyed parameters with Flax's initializers

@@ -15,7 +15,16 @@ Under ``jax.jit`` XLA on the CPU fuses the bf16 chains and rounds once per
 fusion, which moves JAX's own log psi by up to ~0.3 at 4x4 and ~3.7 at
 8x8 dot-product from its op-by-op value at these noisy test weights (my
 CPU run): that is a rounding choice of the compiler, not of the model,
-and it is not the reference here."""
+and it is not the reference here.
+
+The trunk's spans and counter (``vit``, ``vit.attn``, ``vit.mlp``,
+``vit.sequences``) are held to what one forward records, and log psi, the
+surrogate gradient and the score Jacobian to bitwise equality with and
+without recording."""
+import dataclasses
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,11 +39,14 @@ from qmcnn_tpu_torch.models import vit as tv
 from qmcnn_tpu_torch.models.cnn import PointGroupAveraged
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
 from qmcnn_tpu_torch.models.gcnn import SpinFlipSymmetrized
+from qmcnn_tpu_torch.sr import materialize_jacobian
+from qmcnn_tpu_torch.utils import profiling
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
 from tests.test_torch_priors import _spins, _unflatten
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def assert_log_psi_close(got, want, tol=TOL):
@@ -172,3 +184,114 @@ def test_bf16_trunk_and_bad_shapes_raise():
         tv.LogPsiViT((4, 4), channels=(8, 16))
     with pytest.raises(ValueError, match="not divisible by n_heads"):
         tv.LogPsiViT((4, 4), channels=(6, 6), n_heads=4)
+
+
+def _sequences() -> float:
+    return profiling.counters().get("vit.sequences", 0.0)
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+def test_forward_records_its_spans_and_counter(batch):
+    """One forward inside a recording window: one ``vit`` span holding
+    n_blocks ``vit.attn`` and ``vit.mlp`` spans in block order, and
+    ``vit.sequences`` up by the 4 rolled copies of each configuration."""
+    _, _, tm, p = _pair()
+    s = torch.from_numpy(_spins(4, batch, 16))
+    before = _sequences()
+    with profiling.recording() as window:
+        t_apply(tm, p, s)
+    assert _sequences() - before == 4 * batch
+    names = [sp.name for sp in window.spans]
+    assert names == ["vit"] + ["vit.attn", "vit.mlp"] * tm.n_blocks
+    top = window.spans[0]
+    assert all(sp.parent is top for sp in window.spans[1:])
+    assert all(sp.end_ns is not None and sp.end_ns >= sp.start_ns
+               for sp in window.spans)
+
+
+def test_nothing_recorded_outside_a_window_and_the_counter_counts_vmap():
+    """Outside a window no span is kept; the counter is always on, and the
+    score Jacobian (one vmap over the walkers a part) counts every walker's
+    copies: 4 M for each of its two parts."""
+    _, _, tm, p = _pair()
+    s = torch.from_numpy(_spins(5, 6, 16))
+    held = len(profiling.spans())
+    before = _sequences()
+    t_apply(tm, p, s)
+    assert len(profiling.spans()) == held
+    assert _sequences() - before == 4 * 6
+    before = _sequences()
+    materialize_jacobian(lambda q, x: t_apply(tm, q, x), p, s)
+    assert _sequences() - before == 2 * 4 * 6
+    assert len(profiling.spans()) == held
+
+
+def test_recording_leaves_log_psi_gradient_and_jacobian_bitwise():
+    """log psi, the surrogate loss's gradient and the score Jacobian read
+    the same bits with the spans recording and without."""
+    _, _, tm, p = _pair(factored=False)
+    s = torch.from_numpy(_spins(6, 8, 16))
+    weights = torch.linspace(-1, 1, 8)
+
+    def fn(q, x):
+        return t_apply(tm, q, x)
+
+    def results():
+        lp = fn(p, s)
+        grads = torch.func.grad(
+            lambda q: (fn(q, s).re * weights).mean()
+            + fn(q, s).im.mean())(p)
+        j_re, j_im, _ = materialize_jacobian(fn, p, s)
+        return [lp.re, lp.im, j_re, j_im] + [grads[k] for k in sorted(grads)]
+
+    off = results()
+    with profiling.recording() as window:
+        on = results()
+    assert len([sp for sp in window.spans if sp.name == "vit"]) == 5
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
+#: an H100 80GB's ``total_memory``
+H100_BYTES = 85_017_493_504
+
+
+@pytest.mark.parametrize("mem, chunk", [(H100_BYTES, None),
+                                        (H100_BYTES // 2, 128)])
+def test_deep_vit_cell_chunks_as_jax(mem, chunk):
+    """The benchmark's 10x10 Deep ViT configuration (d 72, 12 heads, 8
+    blocks, 256 walkers, 400 connected rows each): its footprint and auto
+    E_loc and Jacobian chunks equal the JAX builder's, and on one H100 the
+    E_loc batch of 102,400 configurations runs unchunked (the estimate's
+    transient 256 x 401 x 230,400 bytes = 23.65 GB fits the 45% budget;
+    an H100 80GB HBM3 read a 35.67 GB peak in the cell); on half of it,
+    128 walkers a chunk."""
+    from qmcnn_tpu import builder as jb
+    from qmcnn_tpu import configs as jcfg
+    from qmcnn_tpu.utils import memory as jmem
+    from qmcnn_tpu_torch import builder as tb
+    from qmcnn_tpu_torch import configs as tcfg
+    from qmcnn_tpu_torch.utils import memory as tmem
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "j1j2_10x10_vit.json")) as f:
+        cfg = json.load(f)["config"]
+    # one device: the JAX builder divides the walkers by its device count
+    cfg["run"]["n_devices"] = 1
+    text = json.dumps(cfg)
+    jc, tc = jcfg.from_yaml(text), tcfg.from_yaml(text)
+    jl, tl = jb.build_lattice(jc), tb.build_lattice(tc)
+    jh, th = jb.build_hamiltonian(jc, jl), tb.build_hamiltonian(tc, tl)
+    fp = tmem.model_footprint(tc, tl.n_sites)
+    assert dataclasses.asdict(fp) == dataclasses.asdict(
+        jmem.model_footprint(jc, jl.n_sites))
+    assert fp.fwd_bytes() == 230_400
+    n_params = 267_432
+    got = tmem.auto_chunk_size(tc, tl, th, n_params, mem_bytes=mem)
+    assert got == chunk == jmem.auto_chunk_size(jc, jl, jh, n_params,
+                                                hbm_bytes=mem)
+    assert tmem.auto_jacobian_chunk(tc, tl, th, n_params,
+                                    mem_bytes=mem) is None
+    est = tmem.peak_estimate(tc, tl, th, n_params, mem_bytes=mem,
+                             chunk_size=got)
+    assert est["transient_bytes"] == (chunk or 256) * 401 * 230_400
