@@ -650,6 +650,66 @@ def time_e_loc_batch(params, lattice, batch: int, card: str) -> dict:
             "fp32_bound_ms": fp32_ms, "max_rel_err": rel}
 
 
+def compacted_rows(ham, x):
+    """The connected rows of walkers ``x`` under ``ham`` that carry a
+    matrix element (``mask`` set): the batch E_loc hands its forward
+    (``ops/local_energy.connected_log_psi``), of a size the walkers set."""
+    s_prime, _, mask = ham.connected_batch(x)
+    return s_prime.reshape(-1, x.shape[1])[mask.reshape(-1)]
+
+
+def compacted_e_loc_checks(flagship, lattice, r2_kw: dict, dev) -> None:
+    """The kernels at the compacted E_loc batches the main path runs: K1's
+    recompute forward on the rows with an element of 2,048 S^z = 0 walkers
+    of heis10x10_sr against the cuDNN model (TF32 off) within rtol 1e-5
+    (:func:`time_e_loc_batch`'s tolerance); K2's bf16 and f32 routes on
+    those of a 256-walker gcnn_r2 E_loc chunk (the 8x8 J1-J2 at J2 = 0.5)
+    and their spin flips, S_g against the plain versions (bf16 within
+    BF16_TOL, f32 within the p15b snapshot's 1e-3), and the f32 evaluation
+    forward's log psi (A1, spin-flip +1) against the plain model as
+    :func:`compare_gcnn_log_psi` holds it. Every row is held."""
+    import torch
+    from qmcnn_tpu_torch.kernels.gcnn_forward import FusedLogPsi
+    from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
+    from qmcnn_tpu_torch.lattice import square
+    from qmcnn_tpu_torch.models.cnn import log_psi_apply
+    from qmcnn_tpu_torch.models.gcnn import LogPsiGCNN, SpinFlipSymmetrized
+    from qmcnn_tpu_torch.ops.hamiltonians import Heisenberg
+    from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
+
+    x = init_walkers(prng_key(61), 2048, lattice.n_sites, sector="sz0",
+                     device=dev)
+    rows = compacted_rows(Heisenberg(lattice, j=1.0, marshall=True), x)
+    fused = FusedCNNLogPsi(lattice_shape=lattice.shape)
+    with torch.no_grad():
+        got = fused(flagship, rows).re.double()
+        want = log_psi_apply(cnn_model(flagship, lattice), flagship,
+                             rows).re.double()
+    rel = float(((got - want).abs() / want.abs()).max())
+    print(f"  K1 recompute at the compacted E_loc batch of heis10x10_sr: "
+          f"{rows.shape[0]} of {2048 * 200} rows, log psi max rel err vs "
+          f"cuDNN {rel:.3e}")
+    check(rel <= 1e-5, f"K1 recompute at the compacted batch "
+          f"B={rows.shape[0]}: rel err {rel}")
+    del x, rows, got, want
+
+    model = SpinFlipSymmetrized(LogPsiGCNN(**r2_kw), 1)
+    params, ws, walkers, kw = gcnn_case(r2_kw, 256, 62, dev, model=model)
+    rows = compacted_rows(Heisenberg(square(8), j=1.0, j2=0.5,
+                                     marshall=True), walkers)
+    both = torch.cat((rows, -rows))
+    label = f"gcnn_r2 compacted E_loc chunk ({rows.shape[0]} of {256 * 256}"
+    compare_gcnn_bf16(f"{label} rows and their flips)", ws, both, kw)
+    compare_gcnn(f"{label} rows and their flips), f32", ws, both, kw, 1e-3)
+    fused_kw = {k: v for k, v in r2_kw.items()
+                if k not in ("param_scale", "init_mode")}
+    with torch.no_grad():
+        compare_gcnn_log_psi(f"{label} rows), f32 log psi, A1, spin-flip +1",
+                             model, params, rows,
+                             dict(fused_kw, kernel_size=3, spin_flip_sector=1),
+                             amplitudes=False)
+
+
 def step_split(cfg, state, card: str, label: str, vmc=None,
                n_steps: int = 3) -> dict:
     """Per-phase time of ``n_steps`` training steps of ``VMC.step`` after
@@ -4670,6 +4730,9 @@ def main() -> int:
                             spin_flip_sector=sector),
             amplitudes=character != "A1")
     print(f"    bf16 checks {time.perf_counter() - t0:.1f} s")
+    print("[3] K1 and K2 at the compacted E_loc batches (the rows with an "
+          "element only)", flush=True)
+    compacted_e_loc_checks(flagship, sq, r2_kw, dev)
 
     # 4. main path, counters zeroed just before and read just after
     print("[4] main path: heis10x10_sr training", flush=True)

@@ -3,8 +3,11 @@
 
 E_loc(s) = diag(s) + sum_k mask_k * mel_k * psi(s'_k)/psi(s), with the
 amplitude ratios in log space. The [M, K] connected-state forward is the
-largest batched forward of a training step; it runs as one [M*K, N] batch,
-optionally over walker chunks to bound device memory.
+largest batched forward of a training step, optionally over walker chunks
+to bound device memory. Only the rows that carry a matrix element
+(``mask``) are forwarded: a masked row (an aligned bond of an exchange
+Hamiltonian, a copy of s) takes its walker's log psi, so its ratio is
+exactly 1 and its weight 0, and the [m, K] sum keeps its shape and order.
 """
 from __future__ import annotations
 
@@ -14,6 +17,44 @@ import torch
 
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.profiling import count
+
+
+def _batched(t: torch.Tensor) -> bool:
+    """Whether ``t`` is batched by a ``torch.func.vmap`` at any level of the
+    transforms that wrap it (a batched mask cannot be read on the host)."""
+    functorch = torch._C._functorch
+    while functorch.is_functorch_wrapped_tensor(t):
+        if functorch.is_batchedtensor(t):
+            return True
+        t = functorch.get_unwrapped(t)
+    return False
+
+
+def connected_log_psi(log_psi_fn, params, s_prime: torch.Tensor,
+                      mask: torch.Tensor, lp_c: C) -> C:
+    """log psi [m, K] of the connected rows ``s_prime`` [m, K, N], forwarded
+    only where ``mask`` [m, K] is set, in one batch of those rows (one host
+    read of the mask); elsewhere each walker's ``lp_c`` [m]. Where no row
+    carries an element no forward runs. Under a ``torch.func.vmap`` that
+    batches the mask (a per-walker Jacobian of the (1 + alpha H) ansatz)
+    the mask cannot be read and every row is forwarded; under ``grad``,
+    ``jacrev`` or ``jvp`` alone the rows are compacted. Counters:
+    ``e_loc.rows`` (rows forwarded) and ``e_loc.rows_connected`` (m K)."""
+    m, k, n = s_prime.shape
+    flat = s_prime.reshape(m * k, n)
+    count("e_loc.rows_connected", m * k)
+    if _batched(mask):
+        count("e_loc.rows", m * k)
+        return log_psi_fn(params, flat).reshape(m, k)
+    idx = mask.reshape(-1).nonzero().squeeze(1)
+    count("e_loc.rows", idx.numel())
+    fill = C(lp_c.re[:, None].expand(m, k), lp_c.im[:, None].expand(m, k))
+    if idx.numel() == 0:
+        return fill
+    out = log_psi_fn(params, flat.index_select(0, idx))
+    return C(*(base.reshape(m * k).index_copy(0, idx, part).reshape(m, k)
+               for base, part in zip(fill, out)))
 
 
 def local_energy(
@@ -39,10 +80,8 @@ def local_energy(
     """
 
     def compute(s_c, lp_c: C) -> C:
-        m = s_c.shape[0]
-        k = ham.n_conn
         s_prime, mel, mask = ham.connected_batch(s_c)  # [m,K,N], [m,K] x2
-        lp_prime = log_psi_fn(params, s_prime.reshape(m * k, -1)).reshape(m, k)
+        lp_prime = connected_log_psi(log_psi_fn, params, s_prime, mask, lp_c)
         ratio = cplx.cexp(C(lp_prime.re - lp_c.re[:, None],
                             lp_prime.im - lp_c.im[:, None]))
         w = mel * mask.to(mel.dtype)                     # [m, K] real

@@ -382,7 +382,8 @@ def test_dynamics_expected_counts_every_forward(kind, sampling, integrator,
     Heisenberg chain) and MC, Heun and Euler, unchunked and in E_loc
     chunks."""
     import chip_smoke
-    from qmcnn_tpu_torch.builder import build_lattice
+    from qmcnn_tpu_torch.builder import build_hamiltonian, build_lattice
+    from qmcnn_tpu_torch.ops.tdvp import all_states
 
     calls = []
     real = tev.evaluation_forward
@@ -406,5 +407,13 @@ def test_dynamics_expected_counts_every_forward(kind, sampling, integrator,
         cfg, build_lattice(cfg), sampling, integrator, 2, fused_sweep=False,
         sector_sz0=kind == "heisenberg")
     assert len(calls) == want
-    if chunk != "null":
+    if chunk != "null" and kind == "tfim":
+        # every connected row carries an element
         assert int(chunk) * 6 in calls  # an E_loc chunk's batch
+    elif chunk != "null":
+        # the full sum's E_loc chunks forward their anti-aligned rows
+        lattice = build_lattice(cfg)
+        mask = build_hamiltonian(cfg, lattice).connected_batch(
+            torch.from_numpy(all_states(lattice.n_sites, sz_zero=True)))[2]
+        rows = mask.reshape(-1, int(chunk) * 6).sum(1).tolist()
+        assert any(calls[i:i + len(rows)] == rows for i in range(len(calls)))

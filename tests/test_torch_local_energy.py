@@ -5,7 +5,10 @@ package's (the couplings are dyadic, so every partial sum of the diagonal
 is exact in float32 whatever the summation order); E_loc must match JAX on the same parameters and walkers (rtol
 2e-5, atol 1e-4: float32, different summation order); and on small
 lattices the |psi|^2-weighted mean of E_loc over all configurations must
-equal <psi|H|psi>/<psi|psi> from the ED oracle (float32 vs float64)."""
+equal <psi|H|psi>/<psi|psi> from the ED oracle (float32 vs float64). E_loc
+forwards only the connected rows that carry an element, and is held to the
+static-batch formula of ``tests/torch_static_eloc.py`` (bitwise with a
+row-wise log psi)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +29,9 @@ from qmcnn_tpu_torch.ops import exact as texact
 from qmcnn_tpu_torch.ops import hamiltonians as th
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy as t_eloc
+from qmcnn_tpu_torch.utils import profiling
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
+from tests.torch_static_eloc import static_local_energy
 
 HAMS = {
     "tfim_chain": (dict(shape=(8,)), "TFIM", dict(j=0.8, h=1.3, hz=0.3)),
@@ -114,6 +119,188 @@ def test_weighted_local_energy_equals_expectation(name):
     psi = np.exp(lp.re.double().numpy() - lp.re.double().numpy().max())
     expect = float(psi @ h @ psi / (psi @ psi))
     assert mean_eloc == pytest.approx(expect, rel=1e-5, abs=1e-5)
+
+
+#: torch-only cases beside ``HAMS``: aligned XYZ pair flips carry an element
+#: where Jx != Jy; with a field, every single flip does as well
+XYZ_CASES = {
+    "xyz_jx_ne_jy": dict(jx=1.0, jy=0.6, jz=0.8),
+    "xyz_field": dict(jx=0.9, jy=0.9, jz=1.1, hx=0.7, marshall=True),
+}
+
+
+def make_torch(name):
+    if name in XYZ_CASES:
+        return th.XYZ(TLattice((4, 4)), **XYZ_CASES[name])
+    return make(name)[1]
+
+
+def _rowwise(params, s):
+    """A log psi whose value on a row depends on that row alone and is the
+    same bit for bit in any batch: integer-valued features (exact float32
+    sums in any order), then elementwise maps."""
+    a = (s * params["a"]).sum(-1)
+    b = (s * torch.roll(s, 1, dims=-1)).sum(-1)
+    return C(0.3 * torch.tanh(0.1 * a) + 0.05 * b,
+             0.7 * torch.sin(0.2 * a - 0.1 * b))
+
+
+def _counted(fn, calls):
+    def forward(params, s):
+        calls.append(s.shape[0])
+        return fn(params, s)
+
+    return forward
+
+
+def _rows():
+    c = profiling.counters()
+    return c.get("e_loc.rows", 0.0), c.get("e_loc.rows_connected", 0.0)
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+@pytest.mark.parametrize("name", sorted(HAMS) + sorted(XYZ_CASES))
+def test_compacted_local_energy_equals_static_batch(name, chunk):
+    """E_loc forwards only the connected rows that carry an element, and is
+    bitwise the static batch's formula with a row-wise log psi; the TFIM
+    and XYZ at Jx != Jy (every row carries one) forward all M K rows in one
+    batch, as the static batch does. One
+    walker has no anti-aligned bond. The counters read mask.sum() and
+    M K."""
+    ham = make_torch(name)
+    n, k = ham.lattice.n_sites, ham.n_conn
+    s = torch.from_numpy(spins(np.random.default_rng(5), 12, n))
+    s[3] = 1.0
+    params = {"a": torch.from_numpy(
+        np.random.default_rng(6).integers(-3, 4, n).astype(np.float32))}
+    lp = _rowwise(params, s)
+    mask = ham.connected_batch(s)[2]
+    calls = []
+    before = _rows()
+    got = t_eloc(_counted(_rowwise, calls), params, ham, s, lp,
+                 chunk_size=chunk)
+    after = _rows()
+    want = static_local_energy(_rowwise, params, ham, s, lp, chunk_size=chunk)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert after[0] - before[0] == int(mask.sum())
+    assert after[1] - before[1] == s.shape[0] * k
+    per_chunk = [int(mask[i:i + (chunk or 12)].sum())
+                 for i in range(0, 12, chunk or 12)]
+    assert calls == per_chunk
+    if bool(mask.all()):
+        assert calls == [(chunk or 12) * k] * len(calls)
+    else:
+        assert sum(calls) < 12 * k
+
+
+@pytest.mark.parametrize("name", ["heis_square", "j1j2_square",
+                                  "heis_triangular", "heis_open_chain"])
+def test_no_anti_aligned_bond_runs_no_forward(name):
+    """A batch in which no walker has an anti-aligned bond calls no forward:
+    E_loc is the diagonal, as the static batch gives it."""
+    ham = make_torch(name)
+    n = ham.lattice.n_sites
+    s = torch.ones((4, n))
+    s[1::2] = -1.0
+    params = {"a": torch.arange(n, dtype=torch.float32) % 3 - 1.0}
+    lp = _rowwise(params, s)
+    calls = []
+    before = _rows()
+    got = t_eloc(_counted(_rowwise, calls), params, ham, s, lp, chunk_size=2)
+    after = _rows()
+    want = static_local_energy(_rowwise, params, ham, s, lp)
+    assert calls == []
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert torch.equal(got.re, ham.diag_batch(s))
+    assert after[0] == before[0]
+    assert after[1] - before[1] == 4 * ham.n_conn
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+@pytest.mark.parametrize("name", ["heis_square", "j1j2_square"])
+def test_compacted_local_energy_with_cnn(name, chunk):
+    """With the plain CNN the compacted E_loc is the static batch's within
+    1e-6 relative (a convolution over another batch may round otherwise)."""
+    ham = make_torch(name)
+    _, _, tf, tp = _models(ham.lattice.shape, seed=2)
+    s = torch.from_numpy(spins(np.random.default_rng(7), 16,
+                               ham.lattice.n_sites))
+    lp = tf(tp, s)
+    got = t_eloc(tf, tp, ham, s, lp, chunk_size=chunk)
+    want = static_local_energy(tf, tp, ham, s, lp, chunk_size=chunk)
+    scale = float(want.re.abs().max())
+    np.testing.assert_allclose(got.re.numpy(), want.re.numpy(), rtol=1e-6,
+                               atol=1e-6 * scale)
+    np.testing.assert_allclose(got.im.numpy(), want.im.numpy(), rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+def test_local_energy_under_vmap_forwards_every_row():
+    """Under ``torch.func.vmap`` (a per-walker Jacobian of the (1 + alpha H)
+    ansatz) the mask cannot be read on the host: every row is forwarded,
+    and each walker's E_loc equals the batched one's."""
+    ham = make_torch("j1j2_square")
+    n = ham.lattice.n_sites
+    s = torch.from_numpy(spins(np.random.default_rng(8), 6, n))
+    params = {"a": torch.arange(n, dtype=torch.float32) % 5 - 2.0}
+
+    def one(si):
+        x = si[None, :]
+        e = t_eloc(_rowwise, params, ham, x, _rowwise(params, x))
+        return e.re[0], e.im[0]
+
+    re, im = torch.func.vmap(one)(s)
+    want = t_eloc(_rowwise, params, ham, s, _rowwise(params, s))
+    np.testing.assert_allclose(re.numpy(), want.re.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(im.numpy(), want.im.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("transform", ["grad", "jacrev", "vmap_of_grad"])
+def test_local_energy_under_grad_compacts_rows(transform):
+    """Inside the (1 + alpha H) ansatz, E_loc under ``torch.func.grad`` or
+    ``jacrev`` reads its mask and forwards only the rows that carry an
+    element; a ``vmap`` over it (a per-walker gradient) batches the mask
+    and forwards every row. Either way the result is the static batch's
+    within float32 rounding."""
+    from qmcnn_tpu_torch.ops import lanczos as tl
+
+    ham = make_torch("j1j2_square")
+    n, k = ham.lattice.n_sites, ham.n_conn
+    s = torch.from_numpy(spins(np.random.default_rng(9), 6, n))
+    params = {"a": torch.from_numpy(
+        np.random.default_rng(10).integers(-3, 4, n).astype(np.float32)),
+        tl.ALPHA_KEY: torch.tensor([0.1, 0.05])}
+
+    def run(e_loc_fn):
+        wrapped = tl.lanczos_wrap(_rowwise, ham)
+        tl.local_energy = e_loc_fn
+        try:
+            if transform == "grad":
+                out = torch.func.grad(
+                    lambda q: wrapped(q, s).re.sum())(params)
+            elif transform == "jacrev":
+                out = torch.func.jacrev(lambda q: wrapped(q, s).im)(params)
+            else:
+                out = torch.func.vmap(lambda si: torch.func.grad(
+                    lambda q: wrapped(q, si[None]).re[0])(params))(s)
+        finally:
+            tl.local_energy = t_eloc
+        return torch.cat([v.reshape(-1) for v in out.values()])
+
+    before = _rows()
+    got = run(t_eloc)
+    after = _rows()
+    want = run(static_local_energy)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    forwarded = after[0] - before[0]
+    if transform == "vmap_of_grad":  # one trace of a single walker
+        assert after[1] - before[1] == forwarded == k
+    else:
+        assert after[1] - before[1] == 6 * k
+        assert forwarded == int(ham.connected_batch(s)[2].sum()) < 6 * k
 
 
 def test_cplx_helpers():

@@ -336,8 +336,8 @@ def test_cnn_eval_forward_feeds_sampler_and_e_loc(pair, monkeypatch):
     forced here), the builder hands ``FusedCNNLogPsi`` (the sweep kernel's
     recompute mode, its plain version on CPU tensors) to the sampler and
     E_loc: the refresh, every proposal of the torch loop and the E_loc
-    batch go through it, the gradient keeps the model, and the step equals
-    the plain model's."""
+    batch (its rows that carry an element) go through it, the gradient
+    keeps the model, and the step equals the plain model's."""
     import dataclasses
 
     from qmcnn_tpu_torch.kernels.metropolis_sweep import FusedCNNLogPsi
@@ -370,8 +370,11 @@ def test_cnn_eval_forward_feeds_sampler_and_e_loc(pair, monkeypatch):
     new_c, m_c = vmc_c.step(state, 5, torch.arange(64))
     new_t, m_t = p["vmc_t"].step(state, 5, torch.arange(64))
     n_props = vmc_c.sampler.n_sites
-    n_conn = vmc_c.ham.n_conn
-    assert calls == [64] * (1 + n_props) + [64 * n_conn]
+    # E_loc forwards the connected rows that carry an element, of the
+    # walkers the step sampled
+    mask = vmc_c.ham.connected_batch(new_c.walkers.s)[2]
+    assert 0 < int(mask.sum()) < mask.numel()
+    assert calls == [64] * (1 + n_props) + [int(mask.sum())]
     assert torch.equal(new_c.walkers.s, new_t.walkers.s)
     assert float(m_c.energy_re) == pytest.approx(float(m_t.energy_re),
                                                  rel=1e-5)
