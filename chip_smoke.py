@@ -920,7 +920,7 @@ def expected_launches(cfg, vmc, m=None) -> dict:
     frozen = len(cfg.optimizer.orthogonalize_to or ())
     draw = 0
     if frozen:
-        def fwd(n):  # ops/penalty._chunked_fwd
+        def fwd(n):  # ops/penalty.deflation_e_loc's chunks
             c = vmc.chunk_size
             return n // c if c and c < n and n % c == 0 else 1
 

@@ -47,7 +47,7 @@ import torch
 
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
-from qmcnn_tpu_torch.ops.local_energy import local_energy
+from qmcnn_tpu_torch.ops.local_energy import local_energy, over_walker_chunks
 
 #: the flat key of alpha (JAX: the ``{"lanczos": {"alpha": ...}}``
 #: collection beside ``params``)
@@ -88,7 +88,10 @@ def h_moment_samples(log_psi_fn, params, ham, s: torch.Tensor, log_psi: C,
     ``chunk_size`` chunks the walker axis (it must divide M); a chunk of m
     walkers runs the [m K, N] forward of its connected states, their
     E_loc in inner chunks of m (K forwards of [m K, N]) and its own E_loc,
-    so the peak forward batch is [m K, N]."""
+    so the peak forward batch is [m K, N]. Every connected row is
+    forwarded, not only those that carry an element: the second application
+    of H reads each row's own log psi, and a masked row of a general
+    Hamiltonian is not always s."""
 
     def compute(s_c, lp_c: C):
         m = s_c.shape[0]
@@ -109,16 +112,7 @@ def h_moment_samples(log_psi_fn, params, ham, s: torch.Tensor, log_psi: C,
         return e1_c, C(diag * e1_c.re + re, diag * e1_c.im + im)
 
     with torch.no_grad():
-        m_total = s.shape[0]
-        if chunk_size is None or chunk_size >= m_total:
-            return compute(s, log_psi)
-        if m_total % chunk_size:
-            raise ValueError(
-                f"chunk_size {chunk_size} must divide M={m_total}")
-        parts = [compute(s[i:i + chunk_size], log_psi[i:i + chunk_size])
-                 for i in range(0, m_total, chunk_size)]
-    return tuple(C(torch.cat([p[j].re for p in parts]),
-                   torch.cat([p[j].im for p in parts])) for j in (0, 1))
+        return over_walker_chunks(compute, chunk_size, s, log_psi)
 
 
 def moments_from_samples(e1: C, g: C, weights=None

@@ -8,6 +8,8 @@ to bound device memory. Only the rows that carry a matrix element
 (``mask``) are forwarded: a masked row (an aligned bond of an exchange
 Hamiltonian, a copy of s) takes its walker's log psi, so its ratio is
 exactly 1 and its weight 0, and the [m, K] sum keeps its shape and order.
+The off-diagonal observables (``ops/observables``) take the same
+:func:`connected_sum` over the same :func:`over_walker_chunks`.
 """
 from __future__ import annotations
 
@@ -57,6 +59,41 @@ def connected_log_psi(log_psi_fn, params, s_prime: torch.Tensor,
                for base, part in zip(fill, out)))
 
 
+def over_walker_chunks(fn, chunk_size: Optional[int], *batch):
+    """``fn(*parts)`` over walker chunks of ``chunk_size`` rows of each of
+    ``batch`` (tensors or ``C`` pairs, M rows each), its results (one ``C``
+    or a tuple of them) concatenated; one call when ``chunk_size`` is None
+    or at least M. The chunk must divide M."""
+    m = batch[0].shape[0]
+    if chunk_size is None or chunk_size >= m:
+        return fn(*batch)
+    if m % chunk_size:
+        raise ValueError(f"chunk_size {chunk_size} must divide M={m}")
+    parts = [fn(*(x[i:i + chunk_size] for x in batch))
+             for i in range(0, m, chunk_size)]
+
+    def cat(zs):
+        return C(torch.cat([z.re for z in zs]), torch.cat([z.im for z in zs]))
+
+    if isinstance(parts[0], C):
+        return cat(parts)
+    return tuple(cat(zs) for zs in zip(*parts))
+
+
+def connected_sum(log_psi_fn, params, s: torch.Tensor, log_psi: C,
+                  connected_fn) -> C:
+    """O_loc(s) = sum_k mask_k coeff_k psi(s'_k)/psi(s) [M] from the
+    connected decomposition ``connected_fn(s [M, N]) -> (s' [M, K, N],
+    coeff [K] or [M, K], mask [M, K])``, the rows forwarded by
+    :func:`connected_log_psi`."""
+    s_prime, coeff, mask = connected_fn(s)
+    lp_prime = connected_log_psi(log_psi_fn, params, s_prime, mask, log_psi)
+    ratio = cplx.cexp(C(lp_prime.re - log_psi.re[:, None],
+                        lp_prime.im - log_psi.im[:, None]))
+    w = coeff * mask.to(coeff.dtype)                     # [M, K] real
+    return C((w * ratio.re).sum(-1), (w * ratio.im).sum(-1))
+
+
 def local_energy(
     log_psi_fn,
     params,
@@ -80,20 +117,8 @@ def local_energy(
     """
 
     def compute(s_c, lp_c: C) -> C:
-        s_prime, mel, mask = ham.connected_batch(s_c)  # [m,K,N], [m,K] x2
-        lp_prime = connected_log_psi(log_psi_fn, params, s_prime, mask, lp_c)
-        ratio = cplx.cexp(C(lp_prime.re - lp_c.re[:, None],
-                            lp_prime.im - lp_c.im[:, None]))
-        w = mel * mask.to(mel.dtype)                     # [m, K] real
-        offdiag = C((w * ratio.re).sum(-1), (w * ratio.im).sum(-1))
-        diag = ham.diag_batch(s_c)
-        return C(diag + offdiag.re, offdiag.im)
+        offdiag = connected_sum(log_psi_fn, params, s_c, lp_c,
+                                ham.connected_batch)
+        return C(ham.diag_batch(s_c) + offdiag.re, offdiag.im)
 
-    m_total = s.shape[0]
-    if chunk_size is None or chunk_size >= m_total:
-        return compute(s, log_psi)
-    if m_total % chunk_size:
-        raise ValueError(f"chunk_size {chunk_size} must divide M={m_total}")
-    parts = [compute(s[i:i + chunk_size], log_psi[i:i + chunk_size])
-             for i in range(0, m_total, chunk_size)]
-    return C(torch.cat([p.re for p in parts]), torch.cat([p.im for p in parts]))
+    return over_walker_chunks(compute, chunk_size, s, log_psi)

@@ -4,10 +4,13 @@
 Diagonal observables (magnetizations, S^z correlations, dimer fields)
 come from the walker configurations alone; off-diagonal ones (the
 transverse spin-spin correlation, the scalar chirality, the total spin,
-the Renyi-2 swap and the momentum-sector ratio) from amplitude ratios,
-the machinery of the local energy: their forwards run through whatever ``log_psi_fn`` the
-caller passes (``measure.py`` passes ``VMC.eval_log_psi_fn``, so the
-fused kernels serve them on CUDA). Every device mean goes through
+the Renyi-2 swap and the momentum-sector ratio) from amplitude ratios.
+All but the Renyi-2 swap are connected sums, taken by the local energy's
+``ops/local_energy.connected_sum`` over its ``over_walker_chunks``, so
+they forward only the connected rows that carry an element. Their
+forwards run through whatever ``log_psi_fn`` the caller passes
+(``measure.py`` passes ``VMC.eval_log_psi_fn``, so the fused kernels serve
+them on CUDA). Every device mean goes through
 ``vmc.pmean(x, group)`` (JAX: ``pmean(x, axis_name)``), so the estimators
 reduce over a walker group as the energy does. The host-side functions
 (structure factors, the correlation length, the Binder cumulant, the
@@ -31,6 +34,7 @@ import torch
 from qmcnn_tpu_torch.lattice import Lattice
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.ops.local_energy import connected_sum, over_walker_chunks
 from qmcnn_tpu_torch.vmc import pmean
 
 
@@ -169,14 +173,6 @@ def correlation_length(corr, lattice: Lattice, q_peak=None) -> float:
                  / (2.0 * np.sin(np.pi / length)))
 
 
-def _ratios(log_psi_fn, params, sp: torch.Tensor, log_psi: C) -> C:
-    """psi(s'_k) / psi(s) for s' [m, K, N] and log psi(s) C[m]: [m, K]."""
-    m, k, n = sp.shape
-    lp = log_psi_fn(params, sp.reshape(m * k, n)).reshape(m, k)
-    return cplx.cexp(C(lp.re - log_psi.re[:, None],
-                       lp.im - log_psi.im[:, None]))
-
-
 def offdiag_observable(log_psi_fn, params, s: torch.Tensor, log_psi: C,
                        connected_fn, group=None,
                        chunk_size: Optional[int] = None) -> C:
@@ -185,25 +181,11 @@ def offdiag_observable(log_psi_fn, params, s: torch.Tensor, log_psi: C,
     O_loc(s) = sum_k mask coeff psi(s'_k)/psi(s), as the local energy.
     ``chunk_size`` bounds the [chunk * K, N] forward (it must divide M),
     one forward per walker chunk."""
-
-    def compute(s_c, lp_c: C) -> C:
-        sp, coeff, mask = connected_fn(s_c)
-        ratio = _ratios(log_psi_fn, params, sp, lp_c)
-        w = coeff * mask.to(ratio.re.dtype)
-        return C((w * ratio.re).sum(-1), (w * ratio.im).sum(-1))
-
     with torch.no_grad():
-        m_total = s.shape[0]
-        if chunk_size is None or chunk_size >= m_total:
-            o_loc = compute(s, log_psi)
-        else:
-            if m_total % chunk_size:
-                raise ValueError(
-                    f"chunk_size {chunk_size} must divide M={m_total}")
-            parts = [compute(s[i:i + chunk_size], log_psi[i:i + chunk_size])
-                     for i in range(0, m_total, chunk_size)]
-            o_loc = C(torch.cat([p.re for p in parts]),
-                      torch.cat([p.im for p in parts]))
+        o_loc = over_walker_chunks(
+            lambda s_c, lp_c: connected_sum(log_psi_fn, params, s_c, lp_c,
+                                            connected_fn),
+            chunk_size, s, log_psi)
         return C(pmean(o_loc.re.mean(), group), pmean(o_loc.im.mean(), group))
 
 
@@ -405,24 +387,21 @@ def total_spin_sq(log_psi_fn, params, s: torch.Tensor, log_psi: C,
     dev = s.device
     with torch.no_grad():
         mz = s.sum(-1) / 2.0
-        o_re = mz * mz + n / 2.0
-        o_im = torch.zeros_like(o_re)
+        o = C(mz * mz + n / 2.0, torch.zeros_like(mz))
         for lo in range(0, len(pairs), pair_chunk):
             pk = pairs[lo:lo + pair_chunk]
             kk = len(pk)
             flips = np.ones((kk, n), np.float32)
             flips[np.arange(kk), pk[:, 0]] = -1.0
             flips[np.arange(kk), pk[:, 1]] = -1.0
+            flips = torch.as_tensor(flips, device=dev)
             i0 = torch.as_tensor(pk[:, 0], device=dev)
             i1 = torch.as_tensor(pk[:, 1], device=dev)
-            anti = (s[:, i0] * s[:, i1]) < 0.0
-            sp = s[:, None, :] * torch.as_tensor(flips, device=dev)[None]
-            ratio = _ratios(log_psi_fn, params, sp, log_psi)
-            w = torch.as_tensor(signs[lo:lo + pair_chunk],
-                                device=dev) * anti.to(ratio.re.dtype)
-            o_re = o_re + (w * ratio.re).sum(-1)
-            o_im = o_im + (w * ratio.im).sum(-1)
-        return C(pmean(o_re.mean(), group), pmean(o_im.mean(), group))
+            sign = torch.as_tensor(signs[lo:lo + pair_chunk], device=dev)
+            o = o + connected_sum(log_psi_fn, params, s, log_psi, lambda x: (
+                x[:, None, :] * flips[None], sign,
+                (x[:, i0] * x[:, i1]) < 0.0))
+        return C(pmean(o.re.mean(), group), pmean(o.im.mean(), group))
 
 
 def translation_projected_log_psi(log_psi_fn, lattice_shape, momentum,
@@ -471,14 +450,7 @@ def sector_energy_ratio(log_psi_fn, params, s: torch.Tensor, log_psi: C,
                                          momentum, shift_stride)
 
     def compute(s_c, lp_c: C):
-        m = s_c.shape[0]
-        kk = ham.n_conn
-        s_prime, mel, mask = ham.connected_batch(s_c)
-        pl_prime = plog(params, s_prime.reshape(m * kk, -1)).reshape(m, kk)
-        ratio = cplx.cexp(C(pl_prime.re - lp_c.re[:, None],
-                            pl_prime.im - lp_c.im[:, None]))
-        w = mel * mask.to(mel.dtype)
-        offdiag = C((w * ratio.re).sum(-1), (w * ratio.im).sum(-1))
+        offdiag = connected_sum(plog, params, s_c, lp_c, ham.connected_batch)
         pl_c = plog(params, s_c)
         den = cplx.cexp(C(pl_c.re - lp_c.re, pl_c.im - lp_c.im))
         diag = ham.diag_batch(s_c)
@@ -486,16 +458,7 @@ def sector_energy_ratio(log_psi_fn, params, s: torch.Tensor, log_psi: C,
         return num, den
 
     with torch.no_grad():
-        m_total = s.shape[0]
-        if chunk_size is None or chunk_size >= m_total:
-            return compute(s, log_psi)
-        if m_total % chunk_size:
-            raise ValueError(
-                f"chunk_size {chunk_size} must divide M={m_total}")
-        parts = [compute(s[i:i + chunk_size], log_psi[i:i + chunk_size])
-                 for i in range(0, m_total, chunk_size)]
-    return tuple(C(torch.cat([p[j].re for p in parts]),
-                   torch.cat([p[j].im for p in parts])) for j in (0, 1))
+        return over_walker_chunks(compute, chunk_size, s, log_psi)
 
 
 def sector_energy_from_samples(num: C, den: C):

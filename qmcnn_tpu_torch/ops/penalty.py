@@ -36,6 +36,7 @@ import torch
 
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.ops.local_energy import over_walker_chunks
 
 
 class FrozenState(NamedTuple):
@@ -105,18 +106,6 @@ def overlap_sq(lp_live: C, lpk_live: C, lp_on_frozen: C, lpk_frozen: C,
     return prod.re * scale
 
 
-def _chunked_fwd(fn, s: torch.Tensor, chunk_size: Optional[int]) -> C:
-    """``fn(s)`` over walker chunks of ``chunk_size`` when that divides the
-    batch and is smaller (the same memory bound as the E_loc chunks), else
-    in one call (frozen batches need not match the chunk)."""
-    m = int(s.shape[0])
-    if chunk_size is None or chunk_size >= m or m % chunk_size:
-        return fn(s)
-    parts = [fn(s[i:i + chunk_size]) for i in range(0, m, chunk_size)]
-    return C(torch.cat([p.re for p in parts]),
-             torch.cat([p.im for p in parts]))
-
-
 def deflation_e_loc(log_psi_fn, params, s: torch.Tensor, lp_live: C,
                     frozen: Sequence[FrozenState], group=None,
                     exp_clip: float = 30.0,
@@ -139,16 +128,23 @@ def deflation_e_loc(log_psi_fn, params, s: torch.Tensor, lp_live: C,
     state's own. Returns (d_loc C[M] = sum_k terms WITHOUT the c factor,
     overlap = sum_k Re E_live[term_k]), no gradient. ``exp_clip`` caps the
     per-sample log-ratio, which is unbounded once the states separate.
+    Each forward runs in walker chunks of ``chunk_size`` where that divides
+    its batch (the E_loc chunks' memory bound), else in one call: a frozen
+    batch need not match the chunk.
     """
+
+    def chunked(fn, t: torch.Tensor) -> C:
+        divides = chunk_size is not None and t.shape[0] % chunk_size == 0
+        return over_walker_chunks(fn, chunk_size if divides else None, t)
+
     with torch.no_grad():
         zeros = torch.zeros_like(lp_live.re)
         d_loc = C(zeros, zeros)
         overlap = torch.zeros((), device=zeros.device)
         for f in frozen:
-            lpk_live = _chunked_fwd(lambda t, f=f: f.log_psi_fn(f.params, t),
-                                    s, chunk_size)
-            lp_on_frozen = _chunked_fwd(lambda t: log_psi_fn(params, t),
-                                        f.s_frozen, chunk_size)
+            lpk_live = chunked(lambda t, f=f: f.log_psi_fn(f.params, t), s)
+            lp_on_frozen = chunked(lambda t: log_psi_fn(params, t),
+                                   f.s_frozen)
             # rho_k = mean exp(d2), stabilized: b * e^shift2
             d2 = C(lp_on_frozen.re - f.lp_frozen.re,
                    lp_on_frozen.im - f.lp_frozen.im)

@@ -165,7 +165,8 @@ def test_penalty_matches_enumeration_and_collapse(rbm):
 @pytest.mark.parametrize("chunk", [None, 64])
 def test_deflation_e_loc_matches_jax(rbm, chunk):
     """deflation_e_loc (d_loc C[M] and the overlap), unchunked and in
-    chunks of 64 (_chunked_fwd), with one and with two frozen states."""
+    chunks of 64 (``over_walker_chunks``), with one and with two frozen
+    states."""
     rng = np.random.default_rng(4)
     live = (2.0 * rng.integers(0, 2, size=(256, N)) - 1.0).astype(np.float32)
     s0 = exact_batch(rbm["jfn"], rbm["v_f"], 384, seed=5)

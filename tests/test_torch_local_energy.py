@@ -25,12 +25,14 @@ from qmcnn_tpu.utils.transfer import _flatten
 from qmcnn_tpu_torch.lattice import Lattice as TLattice
 from qmcnn_tpu_torch.models.cnn import LogPsiCNN as TCNN
 from qmcnn_tpu_torch.models.cnn import log_psi_apply as t_apply
+from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops import exact as texact
 from qmcnn_tpu_torch.ops import hamiltonians as th
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.ops.local_energy import local_energy as t_eloc
 from qmcnn_tpu_torch.utils import profiling
 from qmcnn_tpu_torch.utils.transfer import params_from_jax
+from tests.torch_static_eloc import static_connected_sum as _static_sum
 from tests.torch_static_eloc import static_local_energy
 
 HAMS = {
@@ -301,6 +303,100 @@ def test_local_energy_under_grad_compacts_rows(transform):
     else:
         assert after[1] - before[1] == 6 * k
         assert forwarded == int(ham.connected_batch(s)[2].sum()) < 6 * k
+
+
+def _static_chunks(compute, s, lp, chunk):
+    parts = [compute(s[i:i + chunk], lp[i:i + chunk])
+             for i in range(0, s.shape[0], chunk)]
+    return tuple(C(torch.cat([p[j].re for p in parts]),
+                   torch.cat([p[j].im for p in parts]))
+                 for j in range(len(parts[0])))
+
+
+def _estimator_case(name, s, params):
+    """(got, want, mask) of one connected-sum estimator on walkers ``s``:
+    the port's estimator, its static-batch evaluation, and the mask of
+    every connected row it sums (all of its chunks)."""
+    from qmcnn_tpu_torch.ops import observables as tobs
+
+    lattice = TLattice((4, 4))
+    lp = _rowwise(params, s)
+    if name == "spin_spin":
+        conn = tobs.spin_spin_connected(lattice, 1, marshall=True)
+        got = tobs.offdiag_observable(_rowwise, params, s, lp, conn,
+                                      chunk_size=4)
+        want = _static_sum(_rowwise, params, s, lp, conn).mean()
+        return got, want, conn(s)[2]
+    if name == "chirality":
+        conn = tobs.chirality_connected(TLattice((3, 3),
+                                                 geometry="triangular"))
+        got = tobs.offdiag_observable(_rowwise, params, s, lp, conn,
+                                      chunk_size=4)
+        want = _static_sum(_rowwise, params, s, lp, conn).mean()
+        return got, want, conn(s)[2]
+    if name == "total_spin_sq":
+        n = s.shape[1]
+        got = tobs.total_spin_sq(_rowwise, params, s, lp, lattice,
+                                 marshall=True, pair_chunk=50)
+        mz = s.sum(-1) / 2.0
+        want = C(mz * mz + n / 2.0, torch.zeros_like(mz))
+        sub = np.asarray(lattice.sublattice_mask)
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        for lo in range(0, len(pairs), 50):
+            pk = np.asarray(pairs[lo:lo + 50])
+            flips = torch.ones((len(pk), n))
+            flips[np.arange(len(pk)), pk[:, 0]] = -1.0
+            flips[np.arange(len(pk)), pk[:, 1]] = -1.0
+            sign = torch.from_numpy(np.where(
+                sub[pk[:, 0]] != sub[pk[:, 1]], -1.0, 1.0).astype(
+                    np.float32))
+
+            def conn(x, flips=flips, sign=sign, pk=pk):
+                anti = (x[:, pk[:, 0]] * x[:, pk[:, 1]]) < 0.0
+                return x[:, None, :] * flips[None], sign, anti
+
+            want = want + _static_sum(_rowwise, params, s, lp, conn)
+        up = (s > 0).sum(-1)
+        return got, want.mean(), up * (n - up)
+    ham = th.Heisenberg(lattice, j2=0.5)
+    plog = tobs.translation_projected_log_psi(_rowwise, (4, 4), (1, 0))
+    got = tobs.sector_energy_ratio(_rowwise, params, s, lp, ham, (4, 4),
+                                   (1, 0), chunk_size=4)
+
+    def compute(s_c, lp_c):
+        off = _static_sum(plog, params, s_c, lp_c, ham.connected_batch)
+        pl = plog(params, s_c)
+        den = cplx.cexp(C(pl.re - lp_c.re, pl.im - lp_c.im))
+        diag = ham.diag_batch(s_c)
+        return (C(diag * den.re + off.re, diag * den.im + off.im), den)
+
+    return got, _static_chunks(compute, s, lp, 4), ham.connected_batch(s)[2]
+
+
+@pytest.mark.parametrize("name", ["spin_spin", "chirality", "total_spin_sq",
+                                  "sector_ratio"])
+def test_connected_sum_estimators_forward_only_carrying_rows(name):
+    """S.S on the square lattice, the chirality on the triangular one, <S^2>
+    and the momentum-sector ratio take the local energy's connected sum:
+    each equals its static batch (every row forwarded) within float32
+    rounding, and ``e_loc.rows`` advances by exactly the rows that carry
+    an element. One walker is fully polarized (no anti-aligned pair)."""
+    n = 9 if name == "chirality" else 16
+    s = torch.from_numpy(spins(np.random.default_rng(11), 8, n))
+    s[2] = 1.0
+    params = {"a": torch.from_numpy(
+        np.random.default_rng(12).integers(-3, 4, n).astype(np.float32))}
+    before = _rows()
+    with torch.no_grad():
+        got, want, mask = _estimator_case(name, s, params)
+    after = _rows()
+    for g, w in zip(got if name == "sector_ratio" else (got,),
+                    want if name == "sector_ratio" else (want,)):
+        for a, b in ((g.re, w.re), (g.im, w.im)):
+            scale = float(b.abs().max())
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=1e-6 * scale)
+    assert after[0] - before[0] == int(mask.sum()) > 0
 
 
 def test_cplx_helpers():

@@ -4,7 +4,8 @@ evaluation forward computes each configuration on its own (K1's recompute
 mode, K2 bf16) it must be bitwise the static batch's
 (``tests/torch_static_eloc.py``) at the same walkers and params, and with
 the plain-torch ViT (cuBLAS picks its GEMMs by batch size) within 1e-6
-relative. Imports no JAX:
+relative. The nearest-neighbour S.S of the measure cell takes the same
+connected sum and is held bitwise on K1. Imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_local_energy_cuda.py
@@ -21,12 +22,13 @@ from qmcnn_tpu_torch import builder
 from qmcnn_tpu_torch import configs as tcfg
 from qmcnn_tpu_torch.kernels import gcnn_forward as k2
 from qmcnn_tpu_torch.kernels import metropolis_sweep as k1
-from qmcnn_tpu_torch.ops.local_energy import local_energy
+from qmcnn_tpu_torch.ops import observables
+from qmcnn_tpu_torch.ops.local_energy import connected_sum, local_energy
 from qmcnn_tpu_torch.sampler.metropolis import init_walkers, prng_key
 from qmcnn_tpu_torch.utils import profiling
 from qmcnn_tpu_torch.utils.transfer import (load_checkpoint_params,
                                             params_from_jax)
-from tests.torch_static_eloc import static_local_energy
+from tests.torch_static_eloc import static_connected_sum, static_local_energy
 
 ROOT = Path(__file__).resolve().parent.parent
 #: the trained flagship CNN, so the ratios are far from 1
@@ -75,6 +77,34 @@ def test_compacted_e_loc_bitwise_on_k1_recompute():
     got, want = _both(fn, params, vmc.ham, s)
     assert k1.metropolis_sweep.launches - launches == 3
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
+@pytest.mark.cuda
+def test_compacted_nn_ss_bitwise_on_k1_recompute():
+    """The measure cell's nearest-neighbour S.S (heis10x10_sr, 2,048
+    walkers, Marshall basis, the flagship's weights) through K1's recompute
+    forward forwards only its anti-aligned pairs and equals the static
+    batch bit for bit, per walker and in the estimator's mean."""
+    _card()
+    vmc, _, s = _setup("heis10x10_sr", 2048)
+    fn = vmc.eval_log_psi_fn
+    assert isinstance(fn, k1.FusedCNNLogPsi)
+    params = params_from_jax(load_checkpoint_params(str(FLAGSHIP)), "cuda")
+    conn = observables.spin_spin_connected(vmc.ham.lattice, 1,
+                                           marshall=True)
+    with torch.no_grad():
+        lp = fn(params, s)
+        before = profiling.counters().get("e_loc.rows", 0.0)
+        got = connected_sum(fn, params, s, lp, conn)
+        rows = profiling.counters()["e_loc.rows"] - before
+        mean = observables.offdiag_observable(fn, params, s, lp, conn)
+        want = static_connected_sum(fn, params, s, lp, conn)
+    torch.cuda.synchronize()
+    mask = conn(s)[2]
+    assert rows == int(mask.sum()) < mask.numel()
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert torch.equal(mean.re, want.re.mean())
+    assert torch.equal(mean.im, want.im.mean())
 
 
 @pytest.mark.cuda
