@@ -654,6 +654,9 @@ def build(cfg: Config, device="cuda", group=None
     def log_psi_fn(params, s):
         return log_psi_apply(model, params, s)
 
+    # a functional_call of the leaves it is given: graph-safe where the
+    # model declares itself so (utils/cuda_graph.GraphSafe)
+    log_psi_fn.graph_safe = getattr(model, "graph_safe", None)
     params = model.init(cfg.run.seed, device=device)
     if cfg.model.lanczos_alpha is not None:
         # phi = (1 + alpha H) psi: wrapped after the model is composed

@@ -50,6 +50,7 @@ from qmcnn_tpu_torch.models.gcnn import (_group_kernel, _lift_kernel,
                                          effective_kernel)
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.cuda_graph import GraphSafe
 from qmcnn_tpu_torch.utils.debug import check_kernel_output
 
 SOURCE = CSRC / "gcnn_forward.cu"
@@ -502,11 +503,14 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
                     lattice_shape: Sequence[int], channels: Sequence[int],
                     kernel_size: int, activation: str = "lncosh",
                     residual: bool = False,
-                    compute_dtype: str = "float32") -> C:
+                    compute_dtype: str = "float32",
+                    packed: Optional[PackedWeights] = None) -> C:
     """Per-group-element readout sums S_g [B, 8] (re, im) of the GCNN stack
     on x [B, H*W] on the ``compute_dtype`` route (see the module
-    docstring). Counts its launches per route: ``gcnn_group_sums.launches``
-    (float32) and ``gcnn_group_sums.launches_bf16``."""
+    docstring). ``packed``: the route's packing of ``weights``
+    (:func:`packed_weights` when None). Counts its launches per route:
+    ``gcnn_group_sums.launches`` (float32) and
+    ``gcnn_group_sums.launches_bf16``."""
     if x.device.type == "cpu":
         return gcnn_group_sums_reference(
             x, weights, lattice_shape=lattice_shape, channels=channels,
@@ -541,7 +545,8 @@ def gcnn_group_sums(x: torch.Tensor, weights: GCNNWeights, *,
     else:
         threads = launch_threads(hw, width, n_cfg)
         smem = smem_bytes(hw, width, kk, complex_params, n_cfg)
-    packed = packed_weights(weights, compute_dtype)
+    if packed is None:
+        packed = packed_weights(weights, compute_dtype)
     batch = x.shape[0]
     out_re = torch.empty((batch, G), dtype=torch.float32, device=dev)
     out_im = torch.empty((batch, G), dtype=torch.float32, device=dev)
@@ -583,6 +588,15 @@ gcnn_group_sums.rows = 0
 gcnn_group_sums.rows_bf16 = 0
 
 
+class KernelInputs(NamedTuple):
+    """What a launch of :class:`FusedLogPsi` reads besides the walkers: the
+    G-expanded weights and, on a card, the route's packing of them (None on
+    the CPU, whose plain version packs nothing)."""
+
+    weights: GCNNWeights
+    packed: Optional[PackedWeights]
+
+
 class FusedLogPsi:
     """``(params, s) -> log psi(s)`` [B] of ``LogPsiGCNN`` (wrapped in
     ``SpinFlipSymmetrized`` when ``spin_flip_sector`` is +-1) through
@@ -593,7 +607,18 @@ class FusedLogPsi:
     The G-expanded weights and the character phases are kept between calls:
     the weights are gathered again only when ``params`` is another dict or
     one of its tensors was changed in place (its version counter moved), so
-    the sampler's many calls between two parameter updates reuse them."""
+    the sampler's many calls between two parameter updates reuse them.
+
+    Graph-safe (``utils/cuda_graph.GraphSafe``): a launch makes no host
+    sync. The expansion and the packing index with host tables, so they
+    stay out of a capture: :meth:`graph_inputs` gives the tensors a launch
+    reads, the call takes them in place of the params, and a sweep graph
+    copies them into its static buffers before each replay. A replay adds
+    K2's launch and row tallies, as the calls it holds would."""
+
+    graph_safe = GraphSafe(tallies=tuple(
+        (gcnn_group_sums, n)
+        for n in ("launches", "rows", "launches_bf16", "rows_bf16")))
 
     def __init__(self, *, lattice_shape: Tuple[int, int],
                  channels: Sequence[int], kernel_size: int,
@@ -642,16 +667,28 @@ class FusedLogPsi:
             self._consts[device] = consts
         return consts
 
-    def __call__(self, params, s: torch.Tensor) -> C:
+    def graph_inputs(self, params) -> KernelInputs:
+        """The weights of ``params`` (:meth:`weights`) and, for CUDA
+        tensors, their packing (:func:`packed_weights`, also cached)."""
         weights = self.weights(params)
+        packed = (packed_weights(weights, self.compute_dtype)
+                  if weights.lift_re.is_cuda else None)
+        return KernelInputs(weights, packed)
+
+    def __call__(self, params, s: torch.Tensor) -> C:
+        """log psi of ``s`` under ``params``, or under the tensors of
+        :meth:`graph_inputs` given in their place."""
+        inputs = (params if isinstance(params, KernelInputs)
+                  else self.graph_inputs(params))
         phase, shift = self._device_consts(s.device)
         s_eval = torch.cat([s, -s], dim=0) if self.sector else s
         with torch.no_grad():
             s_g = gcnn_group_sums(
-                s_eval.to(torch.float32), weights,
+                s_eval.to(torch.float32), inputs.weights,
                 lattice_shape=self.lattice_shape, channels=self.channels,
                 kernel_size=self.k, activation=self.activation,
-                residual=self.residual, compute_dtype=self.compute_dtype)
+                residual=self.residual, compute_dtype=self.compute_dtype,
+                packed=inputs.packed)
             lp = cplx.logmeanexp(C(s_g.re, s_g.im + phase[None, :]), dim=1)
             if self.sector:
                 pair = lp.reshape(2, s.shape[0])

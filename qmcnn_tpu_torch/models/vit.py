@@ -55,6 +55,7 @@ from torch import nn
 from qmcnn_tpu_torch.models.cnn import Params, true_f32
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.cuda_graph import GraphSafe
 from qmcnn_tpu_torch.utils.profiling import annotate, count
 
 _LN_EPS = 1e-6
@@ -251,7 +252,14 @@ def _configurations(s: torch.Tensor) -> int:
 class LogPsiViT(nn.Module):
     """Translation-invariant ViT wavefunction; the fields of the JAX
     ``LogPsiViT`` (``compute_dtype``: the trunk's, 'float32' or
-    'bfloat16')."""
+    'bfloat16').
+
+    Graph-safe (``utils/cuda_graph.GraphSafe``): a forward makes no host
+    sync, and its one cache, the position table per device, never goes
+    stale. A replay of the sampler's sweep opens the span ``vit`` and adds
+    ``vit.sequences``, as the forwards it holds would."""
+
+    graph_safe = GraphSafe(span="vit", tallies=("vit.sequences",))
 
     def __init__(self, lattice_shape: Tuple[int, ...],
                  channels: Sequence[int] = (32, 32), patch: int = 2,

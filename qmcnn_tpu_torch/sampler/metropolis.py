@@ -17,7 +17,13 @@ torch loop (``backend='torch'``, any model and move; its log psi may be the
 fused GCNN forward, ``kernels/gcnn_forward.py``, or the sweep kernel's
 recompute forward, ``FusedCNNLogPsi``) and the fused CUDA sweep
 kernel (``backend='cuda'``, the plain real CNN with flip or exchange moves;
-``kernels/metropolis_sweep.py``).
+``kernels/metropolis_sweep.py``). On a card, the torch loop of a forward
+declared graph-safe (``utils/cuda_graph.GraphSafe``) is captured once per
+shape as a CUDA graph of one sweep (:class:`SweepGraph`) and replayed once
+a sweep: the same ``_proposal_step`` calls, so the same kernels in the same
+order, with no host launches between them. Tempering, the ``utils/debug``
+checked mode and undeclared forwards keep the eager loop
+(:meth:`MetropolisSampler.graphs_sweep`).
 
 Parallel tempering (``betas``): R replicas per walker, row ``i*R + r``
 sampling |psi|^{2 b_r}, with one replica-exchange pass of adjacent pairs
@@ -34,15 +40,19 @@ draws).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_map
 
 from qmcnn_tpu_torch.kernels.metropolis_sweep import metropolis_sweep
 from qmcnn_tpu_torch.ops.cplx import C
-from qmcnn_tpu_torch.utils.profiling import annotate
+from qmcnn_tpu_torch.utils import cuda_graph, debug
+from qmcnn_tpu_torch.utils.profiling import annotate, count
 
 LogPsiFn = Callable[..., C]  # (params, s [B, N]) -> C [B]
 
@@ -205,6 +215,87 @@ def _propose_exchange_anti(s: torch.Tensor, u: torch.Tensor,
     return s_prop, torch.where(n_anti > 0, log_corr, 0.0)
 
 
+def _inputs(fwd, params):
+    """What a captured call of ``fwd`` reads: ``fwd.graph_inputs(params)``
+    where the forward has it, else the params in the order of their keys."""
+    derive = getattr(fwd, "graph_inputs", None)
+    if derive is not None:
+        return derive(params)
+    return {k: params[k] for k in sorted(params)}
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+class SweepGraph:
+    """One sweep of the torch loop on a card as a CUDA graph: static buffers
+    for the walkers, both parts of the stored log psi, the two counters, one
+    sweep's noise rows, the bond table and the forward's inputs (the params,
+    or what its ``graph_inputs`` makes of them), and ``sweep_size`` calls of
+    ``step`` (the sampler's ``_proposal_step``) over them, the last writing
+    its state back into the static walkers, so sweeps replay back to back.
+    ``run`` copies a call's inputs in, runs its sweeps and returns clones,
+    so the caller's state never aliases the graph. It takes ``step`` at
+    each call and holds no reference to the sampler, so a graph is freed
+    with its sampler and never by the cycle collector, which may run in the
+    middle of another capture.
+
+    The first sweep runs eagerly on the capture stream, which warms it up,
+    and is then captured (``utils/cuda_graph.capture``); every later sweep
+    is a replay. Replays run no Python: they open the span the forward's
+    ``graph_safe`` declaration names and add the tallies it names, as the
+    captured calls counted them. Counts ``sampler.graph.captures`` and
+    ``sampler.graph.replays`` (sweeps)."""
+
+    def __init__(self, fwd, params, state: WalkerState,
+                 choices: torch.Tensor, log_u: torch.Tensor,
+                 bonds: Optional[torch.Tensor]):
+        self.fwd, self.bonds = fwd, bonds
+        self.inputs = tree_map(_clone, _inputs(fwd, params))
+        self.state = tree_map(_clone, state)
+        self.choices, self.log_u = choices.clone(), log_u.clone()
+        self.graph, self.change = None, {}
+
+    def _sweep(self, step) -> None:
+        out = self.state
+        for t in range(self.choices.shape[0]):
+            out = step(self.inputs, out, self.choices[t], self.log_u[t],
+                       self.bonds)
+        torch._foreach_copy_(_tensors(self.state), _tensors(out))
+
+    def run(self, step, params, state: WalkerState, choices: torch.Tensor,
+            log_u: torch.Tensor, n_sweeps: int) -> WalkerState:
+        n = self.choices.shape[0]
+        torch._foreach_copy_(_tensors(self.inputs),
+                             _tensors(_inputs(self.fwd, params)))
+        torch._foreach_copy_(_tensors(self.state), _tensors(state))
+        first = 0
+        if self.graph is None:
+            self.choices.copy_(choices[:n])
+            self.log_u.copy_(log_u[:n])
+            sweep = functools.partial(self._sweep, step)
+            self.graph, _, self.change = cuda_graph.capture(
+                sweep, sweep, self.state.s.device,
+                self.fwd.graph_safe.tallies)
+            count("sampler.graph.captures")
+            first = 1
+        if n_sweeps > first:
+            span = self.fwd.graph_safe.span
+            with annotate(span) if span else contextlib.nullcontext():
+                for u in range(first, n_sweeps):
+                    self.choices.copy_(choices[u * n:(u + 1) * n])
+                    self.log_u.copy_(log_u[u * n:(u + 1) * n])
+                    self.graph.replay()
+            cuda_graph.add_tallies(self.change, n_sweeps - first)
+            count("sampler.graph.replays", n_sweeps - first)
+        return tree_map(_clone, self.state)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MetropolisSampler:
     """Walker-batched Metropolis sampler bound to a log-amplitude function.
@@ -225,6 +316,11 @@ class MetropolisSampler:
         configurations (and stored log psi) with the replica-exchange
         acceptance. Only the b = 1 rows (``physical``) feed the
         estimators. None: plain Metropolis. Runs on the torch loop.
+
+    The sweep graphs (:class:`SweepGraph`) live on the sampler object, not
+    in a field: ``dataclasses.replace(sampler, log_psi_fn=...)`` starts
+    with none, so it never replays a graph that reads another forward's
+    inputs.
     """
 
     log_psi_fn: LogPsiFn
@@ -262,6 +358,7 @@ class MetropolisSampler:
                 raise ValueError(f"betas must lie in (0, 1], got {b}")
             if any(b[i + 1] >= b[i] for i in range(len(b) - 1)):
                 raise ValueError(f"betas must be strictly decreasing: {b}")
+        object.__setattr__(self, "_graphs", {})
 
     @property
     def n_replicas(self) -> int:
@@ -356,7 +453,8 @@ class MetropolisSampler:
         log_u)`` ([n_props, M] each; choices are u_move for exchange_anti)
         replaces the generated draws; with tempering ``(choices, log_u,
         swap_log_u)``: [n_props, M * R] for every row, and the exchange
-        passes' [n_sweeps, R - 1, M].
+        passes' [n_sweeps, R - 1, M]. Where :meth:`graphs_sweep` holds, the
+        torch loop replays as a CUDA graph of one sweep.
         """
         n_props = n_sweeps * self._sweep_size
         if self.betas is not None:
@@ -375,12 +473,47 @@ class MetropolisSampler:
                 return WalkerState(s=s, log_psi=C(lp, torch.zeros_like(lp)),
                                    n_accept=state.n_accept + acc,
                                    n_prop=state.n_prop + n_props)
-            choices, log_u = (x.to(state.s.device) for x in noise)
-            bonds = self._bonds(state.s.device)
+            dev = state.s.device
+            choices, log_u = (x.to(dev) for x in noise)
+            if n_props and self.graphs_sweep(dev):
+                with torch.no_grad():
+                    graph = self._sweep_graph(params, state, choices, log_u)
+                    return graph.run(self._proposal_step, params, state,
+                                     choices, log_u, n_sweeps)
+            if dev.type == "cuda":
+                count("sampler.graph.eager", n_sweeps)
+            bonds = self._bonds(dev)
             for t in range(n_props):
                 state = self._proposal_step(params, state, choices[t],
                                             log_u[t], bonds)
             return state
+
+    def graphs_sweep(self, device) -> bool:
+        """Whether ``sample`` replays the torch loop on ``device`` as a CUDA
+        graph (:class:`SweepGraph`): a CUDA device, the torch backend, no
+        tempering (its exchange pass builds host tensors), a forward
+        declared graph-safe (its ``graph_safe`` attribute a
+        ``utils/cuda_graph.GraphSafe``), and the checked mode of
+        ``utils/debug`` off (its index checks read the device)."""
+        return (torch.device(device).type == "cuda"
+                and self.backend == "torch" and self.betas is None
+                and isinstance(getattr(self.log_psi_fn, "graph_safe", None),
+                               cuda_graph.GraphSafe)
+                and not debug.active())
+
+    def _sweep_graph(self, params, state: WalkerState, choices: torch.Tensor,
+                     log_u: torch.Tensor) -> SweepGraph:
+        """The sweep graph of this device and shape, made at first use."""
+        key = (state.s.device, tuple(state.s.shape), choices.dtype,
+               log_u.dtype, tuple((k, tuple(v.shape), v.dtype)
+                                  for k, v in sorted(params.items())))
+        graph = self._graphs.get(key)
+        if graph is None:
+            ss = self._sweep_size
+            graph = self._graphs[key] = SweepGraph(
+                self.log_psi_fn, params, state, choices[:ss], log_u[:ss],
+                self._bonds(state.s.device))
+        return graph
 
     def _bonds(self, device) -> Optional[torch.Tensor]:
         return (None if self.bonds is None else torch.as_tensor(
@@ -405,6 +538,8 @@ class MetropolisSampler:
                 noise = sweep_noise(fold_in(step_key, 0), row_ids,
                                     n_sweeps * ss, self.n_choices) + (
                     swap_noise(fold_in(step_key, 1), ids, n_sweeps, r - 1),)
+        if dev.type == "cuda":
+            count("sampler.graph.eager", n_sweeps)
         with annotate("sampler.sweep", device=False):
             choices, log_u, swap_log_u = (x.to(dev) for x in noise)
             beta_rows = self._row_betas(state.s.shape[0], dev)

@@ -51,7 +51,7 @@ import torch
 from torch.func import grad, jvp, vjp, vmap
 
 from qmcnn_tpu_torch.models.cnn import true_f32
-from qmcnn_tpu_torch.utils import debug
+from qmcnn_tpu_torch.utils import cuda_graph, debug
 from qmcnn_tpu_torch.utils.profiling import annotate, count
 from qmcnn_tpu_torch.vmc import pmean as _pmean
 from qmcnn_tpu_torch.vmc import pmean_all as _pmean_all
@@ -236,12 +236,8 @@ class PCGGraph:
     every solve of the shape writes into, and each block of masked
     iterations captured once as a CUDA graph over them and replayed."""
 
-    def __init__(self, device, m: int, n: int, dtype, with_im: bool,
-                 stream=None):
+    def __init__(self, device, m: int, n: int, dtype, with_im: bool):
         self.device = torch.device(device)
-        # the capture stream (a torch.cuda.Stream), shared by the shapes of
-        # a device: cuBLAS keeps a workspace for every stream it runs on
-        self.stream = stream
         self.oc_re = torch.empty((m, n), dtype=dtype, device=device)
         self.oc_im = torch.empty_like(self.oc_re) if with_im else None
         self.inv_diag = torch.empty(n, dtype=dtype, device=device)
@@ -280,21 +276,14 @@ class PCGGraph:
             return _pcg_block(self.op, self.shift, self.inv_diag, c,
                               maxiter, block)
 
-        side = self.stream
-        with torch.cuda.device(self.device):
-            # warm up on the capture stream (cuBLAS's workspace) with every
-            # iteration masked, so the carry stays as it is
+        def warm_up():
+            # every iteration masked, so the carry stays as it is
             active = c.active.clone()
             c.active.fill_(False)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                run()
-            torch.cuda.current_stream().wait_stream(side)
+            run()
             c.active.copy_(active)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                flag = run()
+
+        graph, flag, _ = cuda_graph.capture(run, warm_up, self.device)
         return graph, flag
 
 
@@ -304,7 +293,6 @@ class PCGGraphs:
 
     def __init__(self):
         self._shapes: dict = {}
-        self._streams: dict = {}
 
     def get(self, device, m: int, n: int, dtype, with_im: bool) -> PCGGraph:
         """The card ``device``'s graph of the shape, made at first use."""
@@ -312,11 +300,7 @@ class PCGGraphs:
         key = (device, m, n, dtype, with_im)
         got = self._shapes.get(key)
         if got is None:
-            stream = self._streams.get(device)
-            if stream is None:
-                stream = self._streams[device] = torch.cuda.Stream(device)
-            got = self._shapes[key] = PCGGraph(device, m, n, dtype, with_im,
-                                               stream)
+            got = self._shapes[key] = PCGGraph(device, m, n, dtype, with_im)
         return got
 
 

@@ -16,6 +16,8 @@ program's spans and counters, and the profiler helpers that read a trace.
   * ``recording()`` — a window that records spans without a profiler and
     keeps them: ``with recording() as w: ...`` then ``w.spans`` and
     ``w.seconds(names)``.
+  * ``paused()`` — no span records inside it, profiler or window alike (a
+    CUDA graph's capture, whose Python runs once and launches nothing).
   * ``count(name, value)`` / ``counters()`` — always-on process counters
     (the kernels' ``nvcc`` builds; pcg's blocks, masked overrun and CUDA
     graph captures, a few dict adds a solve).
@@ -108,6 +110,7 @@ _free_events: list = []
 #: record without building one (``torch.cuda.current_stream`` does)
 _streams: dict = {}
 _windows = 0
+_paused = 0
 _unit = None
 
 
@@ -169,9 +172,20 @@ def annotate(name: str, device: bool = True):
     """The program's span ``name`` (see the module docstring); ``device``
     False records host times only (spans inside a tight loop, and parts of
     a layer whose device time nothing reads)."""
-    if _windows or _autograd_profiler._is_profiler_enabled:
+    if (_windows or _autograd_profiler._is_profiler_enabled) and not _paused:
         return _Open(name, device)
     return _OFF
+
+
+@contextlib.contextmanager
+def paused():
+    """No span records inside (see the module docstring)."""
+    global _paused
+    _paused += 1
+    try:
+        yield
+    finally:
+        _paused -= 1
 
 
 def unit(index) -> None:

@@ -165,6 +165,25 @@ def test_window_seconds_totals_by_name():
     assert profiling.spans() == []
 
 
+def test_paused_records_no_span():
+    """Inside ``paused()`` no span records, in a window or under a
+    profiler; outside it recording goes on."""
+    with profiling.recording() as window:
+        with profiling.paused():
+            with profiling.annotate("captured"):
+                torch.ones(4).sum()
+        with profiling.annotate("after"):
+            torch.ones(4).sum()
+    assert [sp.name for sp in window.spans] == ["after"]
+    held = profiling.spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        with profiling.paused():
+            with profiling.annotate("captured"):
+                torch.ones(4).sum()
+    assert profiling.spans() == held
+
+
 def test_step_split_reads_the_phases(cases):
     vmc, state, _ = cases["heis_pcg"]
     split = profiling.step_split(vmc, state, n_steps=2)
