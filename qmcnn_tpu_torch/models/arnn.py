@@ -24,6 +24,13 @@ branch gets log-probability -100 (never -inf, so gradients stay finite).
 Complex models read per-site phases, chosen by the realized spin, from the
 same head forward as the logits. A fixed phase prior (``phase_half_angles``)
 adds i sum_i theta_i s_i / 2 and leaves |psi| untouched.
+
+Tracing (``utils/profiling``): the span ``arnn`` (with a CUDA event pair)
+covers a log-psi forward from the trunk to the summed log-probabilities
+and phases, ``arnn.cond`` (host times only) a conditional forward, the
+direct sampler's; each is one flag test while nothing records. The
+counter ``arnn.rows`` adds the configurations of every forward of either
+kind, ``torch.func.vmap``'s batch included (always on).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch import nn
 from qmcnn_tpu_torch.models.cnn import Params, module_names, true_f32
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
+from qmcnn_tpu_torch.utils.profiling import annotate, batch_rows, count
 
 #: log-prob of a sector-forbidden branch: exp(-100) is 0 in any f32
 #: amplitude ratio, and its gradient stays finite
@@ -210,20 +218,24 @@ class LogPsiARNN(nn.Module):
         return log_p_up, log_p_dn
 
     def forward(self, s: torch.Tensor, conditionals: bool = False):
-        logit, ph_up, ph_dn = self._heads(s)
-        log_p_up, log_p_dn = self._conditionals(s, logit)
+        count("arnn.rows", batch_rows(s))
         if conditionals:
-            return log_p_up, log_p_dn
-        is_up = s > 0
-        re = 0.5 * torch.where(is_up, log_p_up, log_p_dn).sum(-1)
-        im = torch.zeros_like(re)
-        if self._half is not None:
-            with true_f32():
-                im = im + s.to(torch.float32) @ self._const(
-                    "half", self._half, s.device)
-        if self.complex_params:
-            im = im + torch.where(is_up, ph_up, ph_dn).sum(-1)
-        return C(re, im)
+            with annotate("arnn.cond", device=False):
+                logit, _, _ = self._heads(s)
+                return self._conditionals(s, logit)
+        with annotate("arnn"):
+            logit, ph_up, ph_dn = self._heads(s)
+            log_p_up, log_p_dn = self._conditionals(s, logit)
+            is_up = s > 0
+            re = 0.5 * torch.where(is_up, log_p_up, log_p_dn).sum(-1)
+            im = torch.zeros_like(re)
+            if self._half is not None:
+                with true_f32():
+                    im = im + s.to(torch.float32) @ self._const(
+                        "half", self._half, s.device)
+            if self.complex_params:
+                im = im + torch.where(is_up, ph_up, ph_dn).sum(-1)
+            return C(re, im)
 
     def init(self, seed: int, device="cpu") -> Params:
         """Fresh flat Flax-keyed parameters: normal(std) kernels, zero

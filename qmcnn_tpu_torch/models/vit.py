@@ -56,7 +56,7 @@ from qmcnn_tpu_torch.models.cnn import Params, true_f32
 from qmcnn_tpu_torch.ops import cplx
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.utils.cuda_graph import GraphSafe
-from qmcnn_tpu_torch.utils.profiling import annotate, count
+from qmcnn_tpu_torch.utils.profiling import annotate, batch_rows, count
 
 _LN_EPS = 1e-6
 #: std of a standard normal truncated to [-2, 2] (Flax's lecun_normal)
@@ -239,16 +239,6 @@ class _Block(nn.Module):
             return x + self.mlp2(h)
 
 
-def _configurations(s: torch.Tensor) -> int:
-    """Rows of s [B, N], times the batch of every ``torch.func`` level that
-    wraps it (a Jacobian's vmap over walkers calls the model once with
-    B = 1)."""
-    n = s.shape[-1]
-    while torch._C._functorch.is_functorch_wrapped_tensor(s):
-        s = torch._C._functorch.get_unwrapped(s)
-    return s.numel() // n
-
-
 class LogPsiViT(nn.Module):
     """Translation-invariant ViT wavefunction; the fields of the JAX
     ``LogPsiViT`` (``compute_dtype``: the trunk's, 'float32' or
@@ -302,7 +292,7 @@ class LogPsiViT(nn.Module):
         dims = tuple(range(1, 1 + len(shape)))
         shifts = list(itertools.product(*[range(p)] * len(shape)))
         a = len(shifts)
-        count("vit.sequences", a * _configurations(s))
+        count("vit.sequences", a * batch_rows(s))
         with annotate("vit"):
             grid = s.reshape(batch, *shape).to(torch.float32)
             x = torch.stack([torch.roll(grid, sh, dims=dims)

@@ -14,17 +14,23 @@ Random draws: the uniform of walker w at site i comes from the counter
 hash of ``sampler/metropolis.py`` keyed by (fold_in(step_key, i), global
 walker id), so n ranks draw what 1 rank draws. ``sample(..., noise=u)``
 takes injected uniforms ``u [N, M]`` instead.
+
+Tracing (``utils/profiling``): the span ``sampler.direct`` (with a CUDA
+event pair) covers a pass's N conditional forwards and its closing log psi;
+the counter ``sampler.direct.sites`` adds the conditional forwards run
+(always on).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, ClassVar, Optional
 
 import torch
 
 from qmcnn_tpu_torch.ops.cplx import C
 from qmcnn_tpu_torch.sampler.metropolis import (WalkerState, _noise_hash,
                                                 _uniform, init_walkers)
+from qmcnn_tpu_torch.utils.profiling import annotate, count
 
 #: salt of the site uniforms in the counter hash
 _SALT = 0x3C6EF372
@@ -54,6 +60,10 @@ class DirectSampler:
     conditional_fn: Callable[..., tuple]
     n_sites: int
     sz_zero: bool = False
+    #: the conditional forwards of one pass, as ``MetropolisSampler``'s
+    #: proposals of one sweep: None means ``n_sites`` (a pass fills every
+    #: site, one forward each)
+    sweep_size: ClassVar[Optional[int]] = None
 
     def init_state(self, params, key: int, n_walkers: int, device="cpu",
                    rows: Optional[slice] = None) -> WalkerState:
@@ -87,11 +97,12 @@ class DirectSampler:
             noise = site_uniforms(step_key, walker_ids.to(dev), n)
         u = noise.to(dev)
         s = -torch.ones((m, n), dtype=torch.float32, device=dev)
-        with torch.no_grad():
+        with annotate("sampler.direct"), torch.no_grad():
             for i in range(n):
                 log_p_up, _ = self.conditional_fn(params, s)
                 p_up = torch.exp(log_p_up[:, i])
                 s[:, i] = torch.where(u[i] < p_up.to(u.dtype), 1.0, -1.0)
+            count("sampler.direct.sites", n)
             lp = self.log_psi_fn(params, s)
         return WalkerState(s=s, log_psi=lp,
                            n_accept=state.n_accept + 1,  # all "accepted"

@@ -88,8 +88,11 @@ def model_footprint(cfg, n_sites: int) -> ModelFootprint:
     GCNN's width is G-expanded (C4v: 8 on the square lattice; D6: 12 on the
     triangular and kagome ones, the kagome width also times the 4/3
     fine-torus points per site); an RBM is one layer of alpha hidden units
-    per site; an ARNN's masked dense activations are [B, width] plus the
-    [B, 3N] heads, reported as one site of that width; a ViT's widest
+    per site; an ARNN's masked dense activations (MADE) are [B, width] plus
+    the [B, 3N] heads, reported as one site of that width, and its
+    PixelCNN trunk holds C channels at each of the N sites per layer (the
+    JAX package counts it as a MADE, which understates it by about N C /
+    max(C, 3N)); a ViT's widest
     tensor is the MLP hidden (the p^d shift copies and the N / p^d tokens
     cancel); a PhaseNet trunk adds its layers and may raise the width; the
     CNN's translation and point-group averaging multiply the batch by N and
@@ -101,6 +104,9 @@ def model_footprint(cfg, n_sites: int) -> ModelFootprint:
     g = (12 if tri else 8) if m.kind == "gcnn" else 1
     if m.kind == "rbm":
         width, n_layers = max(1, int(m.rbm_alpha)), 1
+    elif m.kind == "arnn" and m.arnn_conv_kernel:
+        return ModelFootprint(n_sites=n_sites, max_width=max(channels),
+                              n_layers=len(channels) + 1)
     elif m.kind == "arnn":
         return ModelFootprint(n_sites=1,
                               max_width=max(max(channels), 3 * n_sites),

@@ -20,7 +20,8 @@ program's spans and counters, and the profiler helpers that read a trace.
     CUDA graph's capture, whose Python runs once and launches nothing).
   * ``count(name, value)`` / ``counters()`` — always-on process counters
     (the kernels' ``nvcc`` builds; pcg's blocks, masked overrun and CUDA
-    graph captures, a few dict adds a solve).
+    graph captures, a few dict adds a solve); ``batch_rows(s)`` is the
+    rows a model's forward sees, ``torch.func``'s batch included.
   * ``trace(logdir)`` — ``torch.profiler.profile`` with the CPU and (where
     a card is present) CUDA activities; writes the gzipped chrome trace into
     ``logdir`` and yields the profiler, which :func:`kernel_table`,
@@ -248,6 +249,16 @@ def count(name: str, value: float = 1) -> None:
 
 def counters() -> Dict[str, float]:
     return dict(_counters)
+
+
+def batch_rows(s: torch.Tensor) -> int:
+    """Rows of a model input s [B, N], times the batch of every
+    ``torch.func`` level that wraps it (a Jacobian's vmap over walkers
+    calls the model once with B = 1): what a row counter adds."""
+    n = s.shape[-1]
+    while torch._C._functorch.is_functorch_wrapped_tensor(s):
+        s = torch._C._functorch.get_unwrapped(s)
+    return s.numel() // n
 
 
 # ---------------------------------------------------------------------------

@@ -169,12 +169,19 @@ def test_direct_sampler_matches_jax_given_its_uniforms(name):
     assert out.n_prop.tolist() == [1] * m
 
 
-@pytest.mark.parametrize("sz_zero", [False, True])
-def test_direct_sampler_matches_exact_distribution(sz_zero):
+@pytest.mark.parametrize("kw,m", [
+    (dict(n_sites=8, hidden=(16, 16), sz_zero=False), 8192),
+    (dict(n_sites=8, hidden=(16, 16), sz_zero=True), 8192),
+    (dict(n_sites=16, hidden=(8,) * 10, conv_kernel=3, lattice_shape=(4, 4),
+          sz_zero=True, complex_params=True), 16384),
+], ids=["False", "True", "pixelcnn_4x4_10_layers"])
+def test_direct_sampler_matches_exact_distribution(kw, m):
     """The hashed draws sample |psi|^2: a chi-square over the states of
-    non-negligible probability, as the JAX test does."""
-    n, m = 8, 8192
-    _, _, tm, p = _pair(n_sites=n, hidden=(16, 16), sz_zero=sz_zero)
+    non-negligible probability, as the JAX test does; on the 4x4 lattice
+    with the 10-layer PixelCNN trunk over the 12,870 states of the
+    S^z = 0 sector."""
+    n, sz_zero = kw["n_sites"], kw["sz_zero"]
+    _, _, tm, p = _pair(**kw)
     s_all = torch.from_numpy(_all_configs(n))
     prob = torch.exp(2.0 * t_apply(tm, p, s_all).re.double()).numpy()
     prob = prob / prob.sum()

@@ -33,6 +33,8 @@ TINY = {
     "gcnn_minsr": ("j1j2_8x8_gcnn.yaml", ("lattice.shape=[4,4]",
                                           "model.channels=[2,2]",
                                           "sampler.n_walkers=32")),
+    "arnn_direct": ("j1j2_4x4_arnn.yaml", ("model.channels=[4,4]",
+                                           "sampler.n_walkers=32")),
 }
 #: (name, parent) of each span one step records, in order of opening
 STEP_TREE = {
@@ -45,6 +47,16 @@ STEP_TREE = {
                    ("e_loc", None), ("gradient", None), ("sr", None),
                    ("sr.jacobian", "sr"), ("sr.minsr", "sr"),
                    ("update", None)],
+    # the direct pass: one conditional forward a site of the 4x4 lattice,
+    # then its closing log psi; a log-psi forward each for E_loc and the
+    # gradient, one a part for the complex score Jacobian
+    "arnn_direct": [("sampler", None), ("sampler.refresh", "sampler"),
+                    ("sampler.direct", "sampler")]
+    + [("arnn.cond", "sampler.direct")] * 16
+    + [("arnn", "sampler.direct"), ("e_loc", None), ("arnn", "e_loc"),
+       ("gradient", None), ("arnn", "gradient"), ("sr", None),
+       ("sr.jacobian", "sr"), ("arnn", "sr.jacobian"),
+       ("arnn", "sr.jacobian"), ("sr.minsr", "sr"), ("update", None)],
 }
 
 
@@ -125,6 +137,31 @@ def test_one_step_gives_the_span_tree(cases, name):
         assert len(waits) == pcg_blocks_since(before) > 0
     else:
         assert waits == [] and metrics.sr_iters == 0
+
+
+def test_direct_pass_spans_and_counters(cases):
+    """One step of the direct sampler: one ``sampler.direct`` span holding
+    N ``arnn.cond`` spans and the closing ``arnn``; ``sampler.direct.sites``
+    counts the N conditional forwards and ``arnn.rows`` every row the trunk
+    forwarded: N M conditional rows, the closing M, E_loc's compacted rows
+    (``e_loc.rows``), the gradient's M and the Jacobian's M per part."""
+    vmc, state, _ = cases["arnn_direct"]
+    m, n = state.walkers.s.shape
+    before = profiling.counters()
+    with profiling.recording() as window:
+        one_step(cases["arnn_direct"])
+    after = profiling.counters()
+
+    def added(name):
+        return after.get(name, 0.0) - before.get(name, 0.0)
+
+    passes = [sp for sp in window.spans if sp.name == "sampler.direct"]
+    assert len(passes) == 1 and passes[0].parent.name == "sampler"
+    inside = [sp.name for sp in window.spans if sp.parent is passes[0]]
+    assert inside == ["arnn.cond"] * n + ["arnn"]
+    assert added("sampler.direct.sites") == n
+    assert added("e_loc.rows") > 0
+    assert added("arnn.rows") == n * m + m + added("e_loc.rows") + m + 2 * m
 
 
 def test_spans_record_under_a_profiler_and_stay_until_cleared(cases):

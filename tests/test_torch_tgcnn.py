@@ -294,11 +294,13 @@ def test_kagome_gcnn_fixture_matches_jax():
                                     "tfim16_arnn", "j1j2_4x4_arnn",
                                     "heis40_arnn"])
 @pytest.mark.parametrize("mem_gib", [2, 80])
-def test_footprint_and_auto_chunks_match_jax(config, mem_gib):
+def test_footprint_and_auto_chunks_match_jax(config, mem_gib, monkeypatch):
     """model_footprint (G = 12 on the D6 lattices, kagome's 4/3 fine-torus
     width, hexagonal-star taps, the PhaseNet trunk's layers; the ViT's MLP
-    width and the ARNN's dense heads) and both auto chunk sizes equal
-    JAX's."""
+    width and the MADE ARNN's dense heads) and both auto chunk sizes equal
+    JAX's. The PixelCNN ARNN's footprint is the port's own (N sites of C
+    channels a layer, where the JAX package counts a MADE's one site of
+    max(C, 3N)): the chunks are held to JAX's with it put in."""
     from qmcnn_tpu.utils import memory as jmem
     from qmcnn_tpu_torch.utils import memory as tmem
 
@@ -310,8 +312,13 @@ def test_footprint_and_auto_chunks_match_jax(config, mem_gib):
     n_params = sum(x.numel() for x in tb.build_model(tc, tl).init(0)
                    .values())
     mem = int(mem_gib * 2**30)
-    assert dataclasses.asdict(tmem.model_footprint(tc, tl.n_sites)) == \
-        dataclasses.asdict(jmem.model_footprint(jc, jl.n_sites))
+    fp = dataclasses.asdict(tmem.model_footprint(tc, tl.n_sites))
+    if tc.model.kind == "arnn" and tc.model.arnn_conv_kernel:
+        assert (fp["n_sites"], fp["max_width"], fp["n_layers"]) == (
+            tl.n_sites, max(tc.model.channels), len(tc.model.channels) + 1)
+        monkeypatch.setattr(jmem, "model_footprint", lambda cfg, n: (
+            jmem.ModelFootprint(**fp)))
+    assert fp == dataclasses.asdict(jmem.model_footprint(jc, jl.n_sites))
     assert tmem.auto_chunk_size(tc, tl, th, n_params, mem_bytes=mem) \
         == jmem.auto_chunk_size(jc, jl, jh, n_params, hbm_bytes=mem)
     assert tmem.auto_jacobian_chunk(tc, tl, th, n_params, mem_bytes=mem) \
