@@ -4,7 +4,9 @@
     psi(s) = prod_i sqrt(p(s_i | s_<i)) * exp(i phi(s)),
 
 so |psi|^2 is exactly normalized and the direct sampler
-(``sampler/direct.py``) draws it site by site, one full forward per site.
+(``sampler/direct.py``) draws it site by site: the PixelCNN trunk through
+a ``SiteCache`` (each site computes only its own position at every layer),
+the MADE trunk by one full forward per site.
 
 Two trunks, both autoregressive in the raster site order:
   * MADE: masked dense layers over the flattened configuration; input site
@@ -27,10 +29,11 @@ adds i sum_i theta_i s_i / 2 and leaves |psi| untouched.
 
 Tracing (``utils/profiling``): the span ``arnn`` (with a CUDA event pair)
 covers a log-psi forward from the trunk to the summed log-probabilities
-and phases, ``arnn.cond`` (host times only) a conditional forward, the
-direct sampler's; each is one flag test while nothing records. The
-counter ``arnn.rows`` adds the configurations of every forward of either
-kind, ``torch.func.vmap``'s batch included (always on).
+and phases, ``arnn.cond`` (host times only) a conditional of the direct
+sampler's, a full forward or one cached site; each is one flag test while
+nothing records. The counter ``arnn.rows`` adds the configurations of
+every full forward of either kind, ``torch.func.vmap``'s batch included
+(always on); a cached site adds none.
 """
 from __future__ import annotations
 
@@ -196,6 +199,13 @@ class LogPsiARNN(nn.Module):
         out = out + self.cb_out.reshape(-1, 1, 1)      # [B, heads, H, W]
         return out.permute(0, 2, 3, 1).reshape(b, self.n_sites, self.n_heads)
 
+    def _forced(self, ups_before: torch.Tensor, sites_left):
+        """(force_up, force_dn) of the S^z = 0 sector: the remaining ups
+        fill every remaining site, or none is left (both counts include
+        the site drawn)."""
+        ups_left = self.n_sites / 2.0 - ups_before
+        return ups_left >= sites_left, ups_left <= 0.0
+
     def _conditionals(self, s: torch.Tensor, logit: torch.Tensor):
         log_p_up = F.logsigmoid(logit)
         log_p_dn = F.logsigmoid(-logit)
@@ -205,17 +215,31 @@ class LogPsiARNN(nn.Module):
         up = (s > 0).to(torch.float32)
         u = torch.cumsum(up, dim=-1) - up  # ups placed before each site
         i = torch.arange(n, dtype=torch.float32, device=s.device)
-        ups_left = n / 2.0 - u             # ups still to place (incl. i)
-        sites_left = n - i                 # sites still to fill (incl. i)
-        force_up = ups_left >= sites_left
-        force_dn = ups_left <= 0.0
-        forbidden = torch.full_like(log_p_up, _FORBIDDEN)
-        zero = torch.zeros_like(log_p_up)
-        log_p_up = torch.where(force_up, zero,
-                               torch.where(force_dn, forbidden, log_p_up))
-        log_p_dn = torch.where(force_dn, zero,
-                               torch.where(force_up, forbidden, log_p_dn))
-        return log_p_up, log_p_dn
+        force_up, force_dn = self._forced(u, n - i)
+        return (_pin(log_p_up, force_up, force_dn),
+                _pin(log_p_dn, force_dn, force_up))
+
+    def _site_windows(self, device):
+        """The static layout of a ``SiteCache``: per layer, the flat kernel
+        taps its mask keeps [T] and their offsets in a site's window [T];
+        the window's length; each site's window start (host ints). Built
+        once a device."""
+        key = ("site_windows", str(device))
+        if key not in self._consts:
+            h, w = self.lattice_shape
+            k = self.conv_kernel
+            pad = k // 2
+            width = w + 2 * pad
+            layers = []
+            for mask in self.masks:
+                dy, dx = np.nonzero(mask)
+                layers.append((torch.as_tensor(dy * k + dx, device=device),
+                               torch.as_tensor(dy * width + dx,
+                                               device=device)))
+            r, c = np.divmod(np.arange(h * w), w)
+            self._consts[key] = (layers, pad * width + pad + 1,
+                                 (r * width + c).tolist())
+        return self._consts[key]
 
     def forward(self, s: torch.Tensor, conditionals: bool = False):
         count("arnn.rows", batch_rows(s))
@@ -249,16 +273,102 @@ class LogPsiARNN(nn.Module):
         return out
 
 
+def _pin(log_p: torch.Tensor, to_zero: torch.Tensor,
+         to_forbidden: torch.Tensor) -> torch.Tensor:
+    """``log_p`` with 0 where ``to_zero`` and ``_FORBIDDEN`` where
+    ``to_forbidden`` (a sector-forced branch)."""
+    return torch.where(to_zero, 0.0,
+                       torch.where(to_forbidden, _FORBIDDEN, log_p))
+
+
+class SiteCache:
+    """The PixelCNN trunk's activations over one ancestral pass of M
+    walkers, so that drawing site i computes position i only, at every
+    layer and the head.
+
+    Exact, the same sums in another order: a layer-0 value at site p reads
+    spins at sites < p only (mask A), a later layer's value reads the
+    layer below at p and its causal taps (mask B), so every activation at
+    p is final once the sites < p are drawn. Each layer's input lives in a
+    zero buffer [M, (H + pad) (W + 2 pad), C_in], padded above and on
+    both sides as ``F.conv2d(padding=pad)`` pads; a site not drawn yet
+    holds 0 in the spin buffer (-1 in the full forward's input), which no
+    mask-A tap reads. In raster order a site's taps all lie in one run of
+    positions, from its top-left tap to itself (its window, pad (W + 2 pad)
+    + pad + 1 positions), so a site's layer is one ``addmm`` of that window
+    (a view, no gather) with the layer's kernel laid out over the window
+    (the taps its mask keeps, zeros between them) and the bias, the
+    model's activation, and one copy into position i.
+    """
+
+    def __init__(self, model: LogPsiARNN, weights: Params, m: int, device):
+        h, w = model.lattice_shape
+        k, pad = model.conv_kernel, model.conv_kernel // 2
+        self.model = model
+        layers, self.span, self.starts = model._site_windows(device)
+        # each layer's kernel over the window, once a pass (the params
+        # move every step)
+        self.mats = []
+        for li, (ch, (ktaps, offsets)) in enumerate(zip(model.hidden,
+                                                        layers)):
+            kern = weights[f"conv{li}"].reshape(k * k, -1, ch)
+            mat = torch.zeros(self.span, kern.shape[1], ch, device=device)
+            mat.index_copy_(0, offsets, kern.index_select(0, ktaps))
+            self.mats.append(mat.reshape(-1, ch))
+        self.biases = [weights[f"cb{li}"] for li in range(len(model.hidden))]
+        self.w_head = weights["conv_out"][0, 0, :, 0].contiguous()
+        self.b_head = weights["cb_out"][0]
+        size = (h + pad) * (w + 2 * pad)
+        # layer li's input; the last layer's output feeds the head only
+        self.bufs = [torch.zeros(m, size, c, device=device)
+                     for c in (1,) + model.hidden[:-1]]
+        self.spins = self.bufs[0].select(2, 0)
+        self.ups = torch.zeros(m, device=device)  # ups placed so far
+
+    def log_p_up(self, i: int) -> torch.Tensor:
+        """log p(s_i = +1 | s_<i) [M], the sector forced as
+        ``LogPsiARNN._conditionals`` forces it."""
+        model = self.model
+        start = self.starts[i]
+        with annotate("arnn.cond", device=False), true_f32():
+            for li, (mat, bias) in enumerate(zip(self.mats, self.biases)):
+                window = self.bufs[li].narrow(1, start, self.span)
+                x = model._act(torch.addmm(bias, window.flatten(1), mat))
+                if li + 1 < len(self.bufs):
+                    self.bufs[li + 1].select(1, start + self.span - 1
+                                             ).copy_(x)
+            log_p_up = F.logsigmoid(torch.addmv(self.b_head, x, self.w_head))
+            if not model.sz_zero:
+                return log_p_up
+            force_up, force_dn = model._forced(self.ups,
+                                               model.n_sites - i)
+            return _pin(log_p_up, force_up, force_dn)
+
+    def place(self, i: int, spins: torch.Tensor) -> None:
+        """Site i's drawn spins [M] (+-1) into the cache."""
+        self.spins.select(1, self.starts[i] + self.span - 1).copy_(spins)
+        if self.model.sz_zero:
+            self.ups += spins > 0
+
+
 def conditional_fn(model: LogPsiARNN, prefix: str = "params/"):
     """(params, s [B, N]) -> (log_p_up, log_p_dn) of ``model``, whose
     parameters are the keys under ``prefix`` (``params/inner/`` for an
-    ARNN inside a wrapper)."""
+    ARNN inside a wrapper). For the PixelCNN trunk the function also
+    carries ``site_cache(params, m, device)``, a fresh ``SiteCache`` for
+    one ancestral pass of m walkers."""
+
+    def own(params: Params) -> Params:
+        return module_names({"params/" + k[len(prefix):]: v
+                             for k, v in params.items()
+                             if k.startswith(prefix)})
 
     def fn(params: Params, s: torch.Tensor):
-        own = {"params/" + k[len(prefix):]: v for k, v in params.items()
-               if k.startswith(prefix)}
-        return torch.func.functional_call(model, module_names(own), (s,),
+        return torch.func.functional_call(model, own(params), (s,),
                                           {"conditionals": True},
                                           strict=True)
 
+    if model.conv_kernel:
+        fn.site_cache = lambda params, m, device: SiteCache(
+            model, own(params), m, device)
     return fn

@@ -4,7 +4,10 @@
 |psi|^2 of ``models/arnn.py`` is exactly normalized and factorizes over
 the sites, so one pass over the sites draws an exact i.i.d. sample: no
 chain, no thermalization, no autocorrelation. The pass fills site 0, 1,
-..., N-1 in order; each step runs one full conditional forward on the
+..., N-1 in order. Where the conditional function carries a
+``site_cache`` (the PixelCNN trunk, ``models/arnn.SiteCache``), each site
+computes only its own position at every layer from the activations cached
+so far; otherwise each site runs one full conditional forward on the
 walker batch (the walkers start at -1, and a site's conditional ignores
 the sites at and after it). The sampler has the interface of
 ``MetropolisSampler`` and the same ``WalkerState``, so the VMC step,
@@ -16,9 +19,10 @@ walker id), so n ranks draw what 1 rank draws. ``sample(..., noise=u)``
 takes injected uniforms ``u [N, M]`` instead.
 
 Tracing (``utils/profiling``): the span ``sampler.direct`` (with a CUDA
-event pair) covers a pass's N conditional forwards and its closing log psi;
-the counter ``sampler.direct.sites`` adds the conditional forwards run
-(always on).
+event pair) covers a pass's N site conditionals and its closing log psi;
+the counters ``sampler.direct.sites`` (sites drawn) and
+``sampler.direct.cached_sites`` (sites drawn through a ``site_cache``)
+are always on.
 """
 from __future__ import annotations
 
@@ -43,6 +47,22 @@ def site_uniforms(step_key: int, walker_ids: torch.Tensor, n_sites: int
     return _uniform(_noise_hash(step_key, walker_ids, n_sites), _SALT)
 
 
+class _FullForwards:
+    """A pass without a cache: site i's conditional is column i of one
+    full conditional forward of the walkers drawn so far (``s``, filled
+    in place by the pass)."""
+
+    def __init__(self, conditional_fn: Callable[..., tuple], params,
+                 s: torch.Tensor):
+        self.conditional_fn, self.params, self.s = conditional_fn, params, s
+
+    def log_p_up(self, i: int) -> torch.Tensor:
+        return self.conditional_fn(self.params, self.s)[0][:, i]
+
+    def place(self, i: int, spins: torch.Tensor) -> None:
+        """Nothing to keep: ``s`` already holds the spins."""
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DirectSampler:
     """Exact ancestral sampler bound to an autoregressive conditional fn.
@@ -50,7 +70,10 @@ class DirectSampler:
     Args:
       log_psi_fn: (params, s [B, N]) -> C [B], the stored walker log psi.
       conditional_fn: (params, s [B, N]) -> (log_p_up, log_p_dn) [B, N],
-        column i a function of s_<i only.
+        column i a function of s_<i only; where it has the attribute
+        ``site_cache`` ((params, m, device) -> an object with
+        ``log_p_up(i)`` [m] and ``place(i, spins)``), a pass draws
+        through that instead.
       n_sites: lattice sites.
       sz_zero: draw the placeholder walkers of ``init_state`` in the
         S^z = 0 sector (the conditionals then keep every sample on it).
@@ -60,9 +83,9 @@ class DirectSampler:
     conditional_fn: Callable[..., tuple]
     n_sites: int
     sz_zero: bool = False
-    #: the conditional forwards of one pass, as ``MetropolisSampler``'s
+    #: the site conditionals of one pass, as ``MetropolisSampler``'s
     #: proposals of one sweep: None means ``n_sites`` (a pass fills every
-    #: site, one forward each)
+    #: site)
     sweep_size: ClassVar[Optional[int]] = None
 
     def init_state(self, params, key: int, n_walkers: int, device="cpu",
@@ -97,12 +120,19 @@ class DirectSampler:
             noise = site_uniforms(step_key, walker_ids.to(dev), n)
         u = noise.to(dev)
         s = -torch.ones((m, n), dtype=torch.float32, device=dev)
+        site_cache = getattr(self.conditional_fn, "site_cache", None)
         with annotate("sampler.direct"), torch.no_grad():
+            sites = (_FullForwards(self.conditional_fn, params, s)
+                     if site_cache is None else site_cache(params, m, dev))
             for i in range(n):
-                log_p_up, _ = self.conditional_fn(params, s)
-                p_up = torch.exp(log_p_up[:, i])
-                s[:, i] = torch.where(u[i] < p_up.to(u.dtype), 1.0, -1.0)
+                p_up = torch.exp(sites.log_p_up(i))
+                # compared in float64, u's dtype
+                spins = torch.where(u[i] < p_up, 1.0, -1.0)
+                s[:, i] = spins
+                sites.place(i, spins)
             count("sampler.direct.sites", n)
+            count("sampler.direct.cached_sites",
+                  0 if site_cache is None else n)
             lp = self.log_psi_fn(params, s)
         return WalkerState(s=s, log_psi=lp,
                            n_accept=state.n_accept + 1,  # all "accepted"

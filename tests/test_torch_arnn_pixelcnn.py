@@ -2,8 +2,11 @@
 masked convolutions of 48 channels, SELU, complex per-site phase heads,
 the S^z = 0 sector forced) against the benchmark's plain reference
 (``benchmark/reference/kinds/arnn.py``) on the CPU, its autoregressive
-property at the cell's depth, and the benchmark's training driver run
-through its sampler proxy at a tiny size.
+property at the cell's depth, the harness's training run through its
+sampler proxy at a tiny size, and the direct sampler's cached
+pass (``models/arnn.SiteCache``) against the full forward per site: at
+the cell's widths, with a 5x5 kernel and lncosh, on a non-square lattice,
+inside the Jastrow phase wrapper, and not taken by the MADE trunk.
 
 Tolerance: every compared value a (log psi's real and imaginary parts, and
 both conditionals log p(+-1 | s_<i) at every site) within TOL max(|b|, 1)
@@ -14,6 +17,8 @@ layers carry that rounding on: at the weights below the two read at most
 2.1e-6 relative, while bfloat16 operands in the reference miss by 3.4e-3
 or more (the CPU has no TF32, the card's control)."""
 import copy
+import dataclasses
+import os
 
 import pytest
 import torch
@@ -22,6 +27,12 @@ from benchmark import run as bench
 from benchmark import spec
 from benchmark.drivers import common
 from benchmark.reference import models
+from qmcnn_tpu_torch import builder as tb
+from qmcnn_tpu_torch import configs as tcfg
+from qmcnn_tpu_torch.models.arnn import LogPsiARNN, conditional_fn
+from qmcnn_tpu_torch.models.cnn import log_psi_apply
+from qmcnn_tpu_torch.sampler.direct import DirectSampler, site_uniforms
+from qmcnn_tpu_torch.utils import profiling
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CELL = "j1j2_10x10_arnn.train"
@@ -137,6 +148,177 @@ def test_harness_train_driver_runs_the_direct_sampler():
     assert numbers["log_psi"] <= 1e-5
     assert numbers["unmoved"] < 0.5
     assert all(abs(e) < 1e6 for e in run["energies"])
+
+
+#: the cached pass's models (``LogPsiARNN`` settings over complex sz0 3x3
+#: ones): the cell's own widths, a 5x5 kernel with a non-SELU activation
+#: (``builder.py`` maps an ARNN's lncosh to SELU, so the model is built
+#: directly), a non-square lattice
+CACHED = {
+    "cell_10x10": dict(lattice_shape=(10, 10), hidden=(48,) * 10),
+    "k5_lncosh": dict(lattice_shape=(6, 6), hidden=(48,) * 3,
+                      conv_kernel=5, activation="lncosh"),
+    "nonsquare_4x6": dict(lattice_shape=(4, 6), hidden=(48,) * 4),
+}
+
+
+def pixelcnn_sampler(name: str, device="cpu"):
+    """A direct sampler over the ``CACHED`` model ``name``, and its init's
+    kernels at GAIN times their std with seeded biases."""
+    kw = {"conv_kernel": 3, "complex_params": True, "sz_zero": True,
+          **CACHED[name]}
+    h, w = kw["lattice_shape"]
+    model = LogPsiARNN(n_sites=h * w, **kw)
+    gen = torch.Generator().manual_seed(13)
+    params = {k: (0.2 * torch.randn(v.shape, generator=gen)
+                  if "/cb" in k else GAIN * v).to(device)
+              for k, v in model.init(2 ** 31 + 53).items()}
+    samp = DirectSampler(lambda p, s: log_psi_apply(model, p, s),
+                         conditional_fn(model), n_sites=h * w, sz_zero=True)
+    return samp, params
+
+
+@pytest.fixture(scope="module", params=sorted(CACHED))
+def cached(request):
+    return pixelcnn_sampler(request.param)
+
+
+def added_by(fn, *names):
+    """fn()'s result and what it added to each program counter."""
+    before = profiling.counters()
+    out = fn()
+    after = profiling.counters()
+    return out, [after.get(k, 0.0) - before.get(k, 0.0) for k in names]
+
+
+def assert_cached_pass_is_the_full_pass(samp, params, m: int, seed: int):
+    """Given the same uniforms the cached pass draws bitwise the walkers
+    of the full forward per site (no draw within 1e-6 of its p_up, as in
+    ``tests/test_torch_arnn.py``), in the S^z = 0 sector, with the same
+    closing log psi; the cache engages at every site and its sites add no
+    trunk rows."""
+    n = samp.n_sites
+    assert hasattr(samp.conditional_fn, "site_cache")
+    full = dataclasses.replace(
+        samp, conditional_fn=lambda p, s: samp.conditional_fn(p, s))
+    ids = torch.arange(m)
+    u = site_uniforms(seed, ids, n)
+    state = samp.init_state(params, 3, m)
+    out, (sites, cached_sites, rows) = added_by(
+        lambda: samp.sample(params, state, 0, ids, noise=u),
+        "sampler.direct.sites", "sampler.direct.cached_sites", "arnn.rows")
+    want = full.sample(params, state, 0, ids, noise=u)
+    with torch.no_grad():
+        log_up, _ = samp.conditional_fn(params, want.s)
+    assert int(((u - torch.exp(log_up.double()).T).abs() < 1e-6).sum()) == 0
+    assert torch.equal(out.s, want.s)
+    assert bool((out.s.sum(-1) == 0).all())
+    assert torch.equal(out.log_psi.re, want.log_psi.re)
+    assert torch.equal(out.log_psi.im, want.log_psi.im)
+    assert (sites, cached_sites, rows) == (n, n, m)
+
+
+def test_cached_site_conditionals_match_the_full_forward(cached):
+    """Site by site through the cache, log p(+1 | s_<i) equals column i of
+    the full conditional forward on the prefix drawn (TOL), the sector's
+    forced sites included."""
+    samp, params = cached
+    n, m = samp.n_sites, 4
+    u = site_uniforms(2 ** 31 + 3, torch.arange(m), n)
+    s = -torch.ones(m, n)
+    got = torch.empty(m, n)
+    with torch.no_grad():
+        cache = samp.conditional_fn.site_cache(params, m, "cpu")
+        for i in range(n):
+            got[:, i] = cache.log_p_up(i)
+            s[:, i] = torch.where(u[i] < torch.exp(got[:, i]).double(),
+                                  1.0, -1.0)
+            cache.place(i, s[:, i])
+        want, want_dn = samp.conditional_fn(params, s)
+    # the sector forces some sites of every walker (its last at least)
+    assert bool(((want == -100.0) | (want_dn == -100.0)).any(-1).all())
+    assert within(got, want), float((got - want).abs().max())
+    assert bool((s.sum(-1) == 0).all())
+
+
+def test_cached_pass_draws_the_full_pass_walkers(cached):
+    samp, params = cached
+    assert_cached_pass_is_the_full_pass(samp, params, 16, 2 ** 31 + 7)
+
+
+@pytest.mark.cuda
+def test_cached_pass_on_the_card():
+    """On the card, at the cell's widths and walker count: the cached pass
+    (cuBLAS products in true f32) draws the walkers of the full forward
+    per site (cuDNN's), all but those with a draw within 1e-6 of its p_up,
+    where the two roundings may part; the closing log psi agrees to TOL.
+    On the card: ``python -m pytest --noconftest -p no:cacheprovider -m
+    cuda tests/test_torch_arnn_pixelcnn.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    samp, params = pixelcnn_sampler("cell_10x10", "cuda")
+    n, m = samp.n_sites, 2048
+    full = dataclasses.replace(
+        samp, conditional_fn=lambda p, s: samp.conditional_fn(p, s))
+    ids = torch.arange(m, device="cuda")
+    u = site_uniforms(2 ** 31 + 31, ids, n)
+    state = samp.init_state(params, 3, m, device="cuda")
+    out = samp.sample(params, state, 0, ids, noise=u)
+    want = full.sample(params, state, 0, ids, noise=u)
+    with torch.no_grad():
+        log_up, _ = samp.conditional_fn(params, want.s)
+    far = ((u - torch.exp(log_up.double()).T).abs() >= 1e-6).all(0)
+    assert int(far.sum()) >= m - 8
+    assert torch.equal(out.s[far], want.s[far])
+    assert bool((out.s.sum(-1) == 0).all())
+    assert within(out.log_psi.re[far], want.log_psi.re[far])
+    assert within(out.log_psi.im[far], want.log_psi.im[far])
+
+
+def program_sampler(*overrides):
+    """The program's direct sampler for the 4x4 ARNN recipe with
+    ``overrides``, and its own init's params with every leaf moved by
+    seeded noise (so that no bias is zero)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "j1j2_4x4_arnn.yaml")
+    cfg = tcfg.load(path, ("model.channels=[8,8,8]", "sampler.n_walkers=32")
+                    + overrides)
+    vmc, params, _ = tb.build(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    params = {k: GAIN * v + 0.2 * torch.randn(v.shape, generator=gen)
+              for k, v in params.items()}
+    return vmc.sampler, params
+
+
+def test_jastrow_wrapped_arnn_takes_the_cache():
+    """The pure-phase Jastrow wrapper samples its inner ARNN, whose params
+    sit under ``params/inner/``: the pass still takes the cache."""
+    samp, params = program_sampler("model.jastrow_phase=true")
+    assert any(k.startswith("params/inner/conv0") for k in params)
+    assert_cached_pass_is_the_full_pass(samp, params, 32, 2 ** 31 + 19)
+
+
+def test_made_arnn_keeps_the_full_forwards():
+    """The MADE trunk has no cache: a full conditional forward per site,
+    bitwise the loop it ran before the cache, counted as trunk rows."""
+    samp, params = program_sampler("model.arnn_conv_kernel=0")
+    cond = samp.conditional_fn
+    assert not hasattr(cond, "site_cache")
+    n, m = samp.n_sites, 32
+    ids = torch.arange(m)
+    u = site_uniforms(2 ** 31 + 23, ids, n)
+    state = samp.init_state(params, 3, m)
+    out, (sites, cached_sites, rows) = added_by(
+        lambda: samp.sample(params, state, 0, ids, noise=u),
+        "sampler.direct.sites", "sampler.direct.cached_sites", "arnn.rows")
+    s = -torch.ones(m, n)
+    with torch.no_grad():
+        for i in range(n):
+            log_p_up, _ = cond(params, s)
+            p_up = torch.exp(log_p_up[:, i])
+            s[:, i] = torch.where(u[i] < p_up.to(u.dtype), 1.0, -1.0)
+    assert torch.equal(out.s, s)
+    assert (sites, cached_sites, rows) == (n, 0, n * m + m)
 
 
 def test_pixelcnn_footprint():

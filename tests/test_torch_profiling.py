@@ -47,7 +47,7 @@ STEP_TREE = {
                    ("e_loc", None), ("gradient", None), ("sr", None),
                    ("sr.jacobian", "sr"), ("sr.minsr", "sr"),
                    ("update", None)],
-    # the direct pass: one conditional forward a site of the 4x4 lattice,
+    # the direct pass: one cached conditional a site of the 4x4 lattice,
     # then its closing log psi; a log-psi forward each for E_loc and the
     # gradient, one a part for the complex score Jacobian
     "arnn_direct": [("sampler", None), ("sampler.refresh", "sampler"),
@@ -142,9 +142,11 @@ def test_one_step_gives_the_span_tree(cases, name):
 def test_direct_pass_spans_and_counters(cases):
     """One step of the direct sampler: one ``sampler.direct`` span holding
     N ``arnn.cond`` spans and the closing ``arnn``; ``sampler.direct.sites``
-    counts the N conditional forwards and ``arnn.rows`` every row the trunk
-    forwarded: N M conditional rows, the closing M, E_loc's compacted rows
-    (``e_loc.rows``), the gradient's M and the Jacobian's M per part."""
+    and ``sampler.direct.cached_sites`` count the N sites, all drawn
+    through the PixelCNN's cache, and ``arnn.rows`` every row of a full
+    trunk forward: the closing M, E_loc's compacted rows (``e_loc.rows``),
+    the gradient's M and the Jacobian's M per part (a cached site adds
+    none)."""
     vmc, state, _ = cases["arnn_direct"]
     m, n = state.walkers.s.shape
     before = profiling.counters()
@@ -160,8 +162,9 @@ def test_direct_pass_spans_and_counters(cases):
     inside = [sp.name for sp in window.spans if sp.parent is passes[0]]
     assert inside == ["arnn.cond"] * n + ["arnn"]
     assert added("sampler.direct.sites") == n
+    assert added("sampler.direct.cached_sites") == n
     assert added("e_loc.rows") > 0
-    assert added("arnn.rows") == n * m + m + added("e_loc.rows") + m + 2 * m
+    assert added("arnn.rows") == m + added("e_loc.rows") + m + 2 * m
 
 
 def test_spans_record_under_a_profiler_and_stay_until_cleared(cases):
