@@ -4,8 +4,9 @@ count whatever computes it. 2 FLOPs per multiply-add.
 
   * An evaluation forward of one configuration (:func:`forward_flop`): the
     least work of the model's forward, counted by its kind's file
-    (``reference/kinds/<kind>.py``): the convolutions of the real CNN; for
-    the GCNN its group sums, times 2 under the spin-flip projection.
+    (``reference/kinds/<kind>.py``, or ``<kind>_<geometry>.py`` off the
+    hypercubic lattice): the convolutions of the real CNN; for the GCNN
+    its group sums, times 2 under the spin-flip projection.
   * A sweep proposal that changes the walker is one forward; an exchange
     proposal on an aligned bond is the identity and needs none.
   * An E_loc row is one anti-aligned bond of a walker: a bond whose spins
@@ -24,11 +25,11 @@ from __future__ import annotations
 
 import math
 
-from benchmark.reference import models
+from benchmark.reference import hamiltonian, models
 
 
 def n_sites(cfg: dict) -> int:
-    return math.prod(int(v) for v in cfg["lattice"]["shape"])
+    return int(hamiltonian.lattice(cfg).n_sites(cfg))
 
 
 def parts(cfg: dict) -> int:
@@ -44,7 +45,7 @@ def n_params(cfg: dict) -> int:
 
 def forward_flop(cfg: dict) -> float:
     """FLOPs of one evaluation forward of one configuration."""
-    return float(models.kind(cfg["model"]["kind"]).forward_flop(cfg))
+    return float(models.kind_of(cfg).forward_flop(cfg))
 
 
 def forward_bytes(cfg: dict) -> float:

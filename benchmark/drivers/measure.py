@@ -9,7 +9,8 @@ every shape up. The window measures until ``seconds`` have passed. A sample
 is checked when a hash of the seed and its index falls under
 ``check_share`` (and the window's first sample always); its walkers and
 answers are kept, and after the window the
-reference works the answers out again from those walkers.
+reference works the answers out again from those walkers. The S.S rows and
+the estimators are the square lattice's, so another lattice is refused.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from benchmark import check, devtrace
 from benchmark.counts import flops
 from benchmark.drivers import common
-from benchmark.reference import hamiltonian
+from benchmark.reference import estimators, hamiltonian
 from benchmark.spans import Recorder
 
 def checked(seed: int, index: int, share: float) -> bool:
@@ -31,6 +32,7 @@ def checked(seed: int, index: int, share: float) -> bool:
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         t_start: float, numbers: bool = True) -> dict:
+    estimators.square_only(cell["config"])
     from qmcnn_tpu_torch.measure import chunk_sizes, sample_estimators
     from qmcnn_tpu_torch.sampler.metropolis import fold_in, prng_key
     from qmcnn_tpu_torch.train import chunked_thermalize

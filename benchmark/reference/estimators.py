@@ -12,6 +12,9 @@ S^z = s / 2, sites x * Ly + y, sublattice (x + y) mod 2):
     walkers, the transverse part (1/2 the amplitude ratio of the swapped
     pair, anti-aligned pairs only, with the Marshall sign -1 across the
     sublattices) from the forward.
+
+These are the square lattice's by definition: :func:`sample` refuses
+another ``lattice.geometry``.
 """
 from __future__ import annotations
 
@@ -19,11 +22,23 @@ from typing import Dict
 
 import torch
 
-from benchmark.reference import hamiltonian, models
+from benchmark.reference import files, hamiltonian, models
+
+
+def square_only(cfg: dict) -> None:
+    """Raise for a lattice other than the square one: the staggering and the
+    +x neighbour are the square lattice's by definition."""
+    geometry = files.geometry(cfg)
+    if geometry != "hypercubic":
+        raise NotImplementedError(
+            f"the measured estimators (the (x + y) staggering, S.S to the +x "
+            f"neighbour) are the square lattice's; lattice.geometry is "
+            f"{geometry!r}")
 
 
 def sample(cfg: dict, params, s: torch.Tensor, prec: str = "f32",
            block: int = 65536) -> Dict[str, torch.Tensor]:
+    square_only(cfg)
     lx, ly = (int(v) for v in cfg["lattice"]["shape"])
     n = lx * ly
     sz = s / 2.0

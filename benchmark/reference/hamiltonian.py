@@ -1,5 +1,5 @@
-"""The Heisenberg and J1-J2 Hamiltonians on a periodic square lattice, and
-the local energy, written from their definitions (spin 1/2, S = sigma / 2):
+"""The Heisenberg and J1-J2 Hamiltonians on a periodic lattice, and the
+local energy, written from their definitions (spin 1/2, S = sigma / 2):
 
   H = sum_<ij> J [S_i . S_j] + sum_<<ij>> J2 [S_i . S_j],
 
@@ -9,44 +9,73 @@ the two spins swapped. The Marshall rotation turns the sign of every
 element across the two sublattices (the nearest-neighbour ones).
 
 E_loc(s) = diag(s) + sum_b mel_b psi(s^b) / psi(s), summed over the
-anti-aligned bonds only: a bond whose spins agree has no off-diagonal
-element.
+anti-aligned bonds only: a bond whose spins agree has no element.
+
+The lattice is a file of its own, ``lattices/<lattice.geometry>.py`` beside
+this one (``files.py``), loaded by :func:`lattice`; it imports nothing of
+the program and defines, from the configuration's ``lattice`` section,
+
+  * ``n_sites(cfg) -> int``;
+  * ``nn(cfg)``, ``nnn(cfg)``: the nearest and next-nearest bonds, [B, 2]
+    int64 site pairs in the program's site order;
+  * ``sublattice(cfg)``: [N] 0/1 of a bipartite lattice, or None.
+
+A new geometry is a new file there; nothing here changes.
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from benchmark.reference import files
+
+#: the geometry files
+LATTICES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "lattices")
+
+
+@functools.cache
+def _lattice_file(name: str):
+    return files.load(os.path.join(LATTICES, f"{name}.py"),
+                      f"benchmark_lattice_{name}")
+
+
+def lattice(cfg: dict):
+    """The module of the configuration's geometry file, loaded by path once
+    a process; a geometry with no file raises, naming it."""
+    name = files.geometry(cfg)
+    if not os.path.exists(os.path.join(LATTICES, f"{name}.py")):
+        raise FileNotFoundError(
+            f"no reference lattice for geometry {name!r}: "
+            f"{files.lattice_path(cfg)} (its sites, bonds and sublattices) "
+            f"is missing")
+    return _lattice_file(name)
+
 
 def bonds(cfg: dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(pairs [B, 2], diagonal coupling [B], off-diagonal element [B]) of
-    the configured Hamiltonian: the +x and +y neighbours of every site,
-    then (with J2) both diagonals."""
-    lat, h = cfg["lattice"], cfg["hamiltonian"]
-    if lat.get("geometry", "hypercubic") != "hypercubic" or not lat["pbc"]:
-        raise NotImplementedError("the reference lattice is the periodic "
-                                  "square one")
+    the configured Hamiltonian: the geometry's nearest-neighbour bonds,
+    then (with J2) its next-nearest ones."""
+    h = cfg["hamiltonian"]
+    geo = lattice(cfg)
     if h["kind"] not in ("heisenberg", "j1j2"):
         raise NotImplementedError(f"no reference for {h['kind']!r}")
-    lx, ly = (int(v) for v in lat["shape"])
-
-    def site(x, y):
-        return (x % lx) * ly + (y % ly)
-
-    nn = [(site(x, y), site(x + dx, y + dy)) for x in range(lx)
-          for y in range(ly) for dx, dy in ((1, 0), (0, 1))]
-    nnn = []
+    nn = geo.nn(cfg)
     j2 = float(h["j2"]) if h["kind"] == "j1j2" else 0.0
-    if j2:
-        nnn = [(site(x, y), site(x + 1, y + dy)) for x in range(lx)
-               for y in range(ly) for dy in (1, -1)]
-    pairs = np.array(nn + nnn, dtype=np.int64)
-    coupling = np.array([h["j"]] * len(nn) + [j2] * len(nnn), np.float64)
-    sub = np.array([(p // ly + p % ly) % 2 for p in range(lx * ly)])
+    pairs = np.concatenate([nn, geo.nnn(cfg)] if j2 else [nn])
+    coupling = np.array([h["j"]] * len(nn) + [j2] * (len(pairs) - len(nn)),
+                        np.float64)
     sign = np.ones(len(pairs))
     if h["marshall"]:
+        sub = geo.sublattice(cfg)
+        if sub is None:
+            raise ValueError(
+                f"marshall: true needs two sublattices; the "
+                f"{files.geometry(cfg)!r} lattice has none")
         sign = np.where(sub[pairs[:, 0]] != sub[pairs[:, 1]], -1.0, 1.0)
     diag = float(h["delta"]) * coupling / 4.0
     return pairs, diag.astype(np.float32), (sign * coupling / 2.0).astype(

@@ -5,8 +5,10 @@ reference are handed.
 Nothing here imports the program. A configuration is the benchmark's JSON
 (``configs/<name>.json``, key ``config``): the sections of the YAML as run.
 
-Each model kind is one file, ``kinds/<model.kind>.py`` beside this one,
-loaded by :func:`kind`; it imports nothing of the program and defines
+Each model kind is one file beside this one, loaded by :func:`kind_of`:
+``kinds/<model.kind>.py`` on the hypercubic lattice and
+``kinds/<model.kind>_<lattice.geometry>.py`` on any other (the rule of
+``files.py``). It imports nothing of the program and defines
 
   * ``layout(cfg) -> {key: (shape, std)}``: the program's flat parameter
     keys in sorted order, each with its shape and the standard deviation
@@ -16,7 +18,8 @@ loaded by :func:`kind`; it imports nothing of the program and defines
   * ``forward_flop(cfg) -> float``: the least FLOPs of one evaluation
     forward of one configuration, under the rules of ``counts/flops.py``.
 
-A new kind is a new file there; nothing here changes.
+A new kind, or a kind on a new lattice, is a new file there; nothing here
+changes.
 
 Precision (``prec``):
   * ``"f32"``: float32 with TF32 off for convolutions and matmuls (the
@@ -32,13 +35,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import importlib.util
 import math
 import os
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from benchmark.reference import files
 
 Params = Dict[str, torch.Tensor]
 _LOG2 = math.log(2.0)
@@ -97,22 +101,24 @@ def _conv(x: torch.Tensor, w: torch.Tensor, prec: str) -> torch.Tensor:
 def kind(name: str):
     """The module of ``kinds/<name>.py``, loaded by path once a process
     (``spec.cell`` refuses a configuration whose kind has no file)."""
-    mod_spec = importlib.util.spec_from_file_location(
-        f"benchmark_kind_{name}", os.path.join(KINDS, f"{name}.py"))
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod
+    return files.load(os.path.join(KINDS, f"{name}.py"),
+                      f"benchmark_kind_{name}")
+
+
+def kind_of(cfg: dict):
+    """The module of the configuration's kind file (``files.kind_name``)."""
+    return kind(files.kind_name(cfg))
 
 
 def param_layout(cfg: dict) -> Dict[str, Tuple[Tuple[int, ...], float]]:
     """{key: (shape, std)} of the configured model, in sorted key order;
     std 0 for the leaves that start at zero."""
-    return kind(cfg["model"]["kind"]).layout(cfg)
+    return kind_of(cfg).layout(cfg)
 
 
 def log_psi(cfg: dict, params: Params, s: torch.Tensor, prec: str = "f32"):
     """(re, im) log psi of the configured model on s [B, N]."""
-    return kind(cfg["model"]["kind"]).log_psi(cfg, params, s, prec)
+    return kind_of(cfg).log_psi(cfg, params, s, prec)
 
 
 def log_psi_blocks(cfg: dict, params: Params, s: torch.Tensor,

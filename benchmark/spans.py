@@ -38,11 +38,8 @@ class Recorder:
         self.stash: Optional[dict] = None
         pairs, _, _ = hamiltonian.bonds(cfg)
         self._pairs = torch.as_tensor(pairs, device=device)
-        # bonds() lists the 2 N nearest-neighbour bonds first
-        n = 1
-        for side in cfg["lattice"]["shape"]:
-            n *= int(side)
-        self._nn = self._pairs[:2 * n]
+        self._nn = torch.as_tensor(hamiltonian.lattice(cfg).nn(cfg),
+                                   device=device)
 
     def event(self):
         if not self.cuda:

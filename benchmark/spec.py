@@ -2,19 +2,23 @@
 checkout names the cell's configuration, traffic and chips and the metrics
 it reports; the configuration is ``configs/<name>.json``, the traffic
 ``traffic/<traffic>.json``, the limits of the correctness check
-``limits/<cell>.json``, each metric a reader ``metrics/<name>.py`` and
-each model kind (the configuration's ``model.kind``) a file
-``reference/kinds/<kind>.py`` of its reference forward, weight layout and
-work count (see ``reference/models.py``). A new cell, configuration, model
-kind, traffic mix or metric is a new file here and an entry in
-``BENCHMARK.json``; no code changes.
+``limits/<cell>.json``, each metric a reader ``metrics/<name>.py``, each
+lattice (the configuration's ``lattice.geometry``) a file
+``reference/lattices/<geometry>.py`` of its sites and bonds (see
+``reference/hamiltonian.py``) and each model kind a file
+``reference/kinds/<kind>.py``, or ``<kind>_<geometry>.py`` off the
+hypercubic lattice, of its reference forward, weight layout and work count
+(see ``reference/models.py``; the rules are ``reference/files.py``). A new
+cell, configuration, lattice, model kind, traffic mix or metric is a new
+file here and an entry in ``BENCHMARK.json``; no code changes.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 from typing import Callable, Dict, List
+
+from benchmark.reference import files
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the benchmark's folder under a checkout's root
@@ -35,8 +39,8 @@ def cell(name: str, root: str = ROOT) -> dict:
     entry (``workload``), the configuration entry and file (``config``,
     ``config_meta``), the traffic parameters, the limits, and the metrics
     it reports (``end_to_end``, ``per_layer``: the entries whose
-    ``workloads`` name it, or that have none). A configuration whose model
-    kind has no ``reference/kinds/<kind>.py`` raises here, before any
+    ``workloads`` name it, or that have none). A configuration whose
+    lattice or model kind has no file raises here, naming it, before any
     run."""
     spec = benchmark(root)
     work = next((w for w in spec["workloads"] if w["name"] == name), None)
@@ -45,8 +49,12 @@ def cell(name: str, root: str = ROOT) -> dict:
     conf = next(c for c in spec["configs"] if c["name"] == work["config"])
     meta = _load_json(os.path.join(root, conf["file"]))
     here = os.path.join(root, FOLDER)
-    kind = os.path.join(FOLDER, "reference", "kinds",
-                        f"{meta['config']['model']['kind']}.py")
+    lattice = files.lattice_path(meta["config"])
+    if not os.path.exists(os.path.join(root, lattice)):
+        raise FileNotFoundError(
+            f"configuration {conf['name']!r} is on a lattice with no file: "
+            f"{lattice} (its sites, bonds and sublattices) is missing")
+    kind = files.kind_path(meta["config"])
     if not os.path.exists(os.path.join(root, kind)):
         raise FileNotFoundError(
             f"configuration {conf['name']!r} is of a model kind with no "
@@ -72,13 +80,10 @@ def cell(name: str, root: str = ROOT) -> dict:
 
 def reader(metric: str, root: str = ROOT) -> Callable[[dict], object]:
     """The ``read(run)`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(root, FOLDER, "metrics", f"{metric}.py")
-    mod_spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return files.load(
+        os.path.join(root, FOLDER, "metrics", f"{metric}.py"),
+        f"benchmark_metric_{metric.replace('.', '_').replace('-', '_')}"
+    ).read
 
 
 def read_metrics(metrics: List[dict], run: dict,

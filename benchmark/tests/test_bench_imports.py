@@ -36,13 +36,18 @@ def _modules_after(code: str) -> set:
 def test_reference_imports_nothing_of_the_program():
     kinds = sorted(f[:-3] for f in os.listdir(os.path.join(
         ROOT, "benchmark", "reference", "kinds")) if f.endswith(".py"))
+    lattices = sorted(f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "benchmark", "reference", "lattices")) if f.endswith(".py"))
     assert "cnn" in kinds and "gcnn" in kinds
+    assert "hypercubic" in lattices and "triangular" in lattices
     mods = _modules_after(
         "import benchmark.reference.models, benchmark.reference.vmc, "
         "benchmark.reference.estimators, benchmark.reference.hamiltonian, "
         "benchmark.counts.flops, benchmark.counts.peaks, "
         "benchmark.counts.idle; "
-        f"[benchmark.reference.models.kind(k) for k in {kinds!r}]")
+        f"[benchmark.reference.models.kind(k) for k in {kinds!r}]; "
+        "[benchmark.reference.hamiltonian._lattice_file(g) for g in "
+        f"{lattices!r}]")
     assert not mods & {"qmcnn_tpu_torch", "qmcnn_tpu", "jax", "jaxlib",
                        "flax"}
 

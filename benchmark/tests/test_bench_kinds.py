@@ -1,9 +1,10 @@
-"""A model kind is one file of the harness, ``reference/kinds/<kind>.py``
-(its weight layout, reference forward and work count): a configuration of a
-new kind enters as new files and entries with no edit to the harness's
-code, a kind with no file is refused when the cell is read, and the two
-kinds the benchmark runs draw the weights they drew before they were files
-of their own.
+"""A model kind is one file of the harness, ``reference/kinds/<kind>.py``,
+or ``<kind>_<geometry>.py`` off the hypercubic lattice (its weight layout,
+reference forward and work count): a configuration of a new kind, or of a
+kind on a new lattice, enters as new files and entries with no edit to the
+harness's code, a kind or a lattice with no file is refused when the cell
+is read, and the two kinds the benchmark runs draw the weights they drew
+before they were files of their own.
 
   python -m pytest -p no:cacheprovider benchmark/tests/test_bench_kinds.py
 """
@@ -53,26 +54,35 @@ def forward_flop(cfg):
 '''
 
 
-def checkout(tmp_path, kind: str, **model) -> str:
-    """A copy of the benchmark with one more configuration (the flagship's
-    with ``model.kind`` = ``kind``) and its training cell, both added as
-    new files and entries."""
+def checkout(tmp_path, kind: str, geometries=("hypercubic",),
+             **model) -> str:
+    """A copy of the benchmark with one more configuration on each of
+    ``geometries`` (the flagship's with ``model.kind`` = ``kind``;
+    ``heis10x10_<kind>`` on the square lattice, ``<geometry>10x10_<kind>``
+    on another, without Marshall signs) and its training cell, all added
+    as new files and entries."""
     root = tmp_path / "checkout"
-    shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    with open(root / "benchmark/configs/heis10x10_sr.json") as f:
-        conf = json.load(f)
-    conf["config"]["model"].update(kind=kind, **model)
-    conf.pop("weight_std", None)
-    name = f"heis10x10_{kind}"
-    with open(root / f"benchmark/configs/{name}.json", "w") as f:
-        json.dump(conf, f)
+    if not root.exists():
+        shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
+                        ignore=shutil.ignore_patterns("__pycache__"))
     bench = spec.benchmark()
-    bench["configs"].append(dict(bench["configs"][0], name=name,
-                                 file=f"benchmark/configs/{name}.json"))
-    bench["workloads"].append({"name": f"{name}.train", "config": name,
-                               "traffic": "train", "chips": 1,
-                               "why": f"a {kind} model"})
+    for geometry in geometries:
+        with open(root / "benchmark/configs/heis10x10_sr.json") as f:
+            conf = json.load(f)
+        conf["config"]["model"].update(kind=kind, **model)
+        conf.pop("weight_std", None)
+        name = f"heis10x10_{kind}"
+        if geometry != "hypercubic":
+            conf["config"]["lattice"]["geometry"] = geometry
+            conf["config"]["hamiltonian"]["marshall"] = False
+            name = f"{geometry}10x10_{kind}"
+        with open(root / f"benchmark/configs/{name}.json", "w") as f:
+            json.dump(conf, f)
+        bench["configs"].append(dict(bench["configs"][0], name=name,
+                                     file=f"benchmark/configs/{name}.json"))
+        bench["workloads"].append({"name": f"{name}.train", "config": name,
+                                   "traffic": "train", "chips": 1,
+                                   "why": f"a {kind} model"})
     with open(root / "BENCHMARK.json", "w") as f:
         json.dump(bench, f)
     return str(root)
@@ -147,6 +157,80 @@ def test_a_kind_with_no_file_is_refused(tmp_path):
     with pytest.raises(FileNotFoundError,
                        match="benchmark/reference/kinds/nosuch.py"):
         spec.cell("heis10x10_nosuch.train", root=root)
+
+
+def test_a_kind_on_another_lattice_is_one_new_file(tmp_path):
+    """A triangular configuration of the toy kind takes
+    ``kinds/dense_triangular.py``; the square one keeps ``kinds/dense.py``;
+    both enter as new files and entries only."""
+    root = checkout(tmp_path, "dense", ("hypercubic", "triangular"),
+                    hidden=24, param_scale=0.05)
+    kinds = os.path.join(root, "benchmark/reference/kinds")
+    with open(os.path.join(kinds, "dense.py"), "w") as f:
+        f.write(DENSE)
+    # the triangular file: the same toy, with twice the hidden units
+    with open(os.path.join(kinds, "dense_triangular.py"), "w") as f:
+        f.write(DENSE.replace('cfg["model"]["hidden"]',
+                              '2 * cfg["model"]["hidden"]'))
+    script = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {root!r})
+        import torch
+        torch.set_num_threads(1)
+        from benchmark import spec
+        from benchmark.counts import flops
+        from benchmark.reference import files, models
+        out = {{}}
+        for name in ("heis10x10_dense", "triangular10x10_dense"):
+            cfg = spec.cell(name + ".train")["config"]
+            params = models.make_params(cfg, 2 ** 31 + 5, "cpu")
+            s = torch.randint(0, 2, (10, 100), generator=torch.Generator()
+                              .manual_seed(1)) * 2.0 - 1
+            re, _ = models.log_psi(cfg, params, s)
+            out[name] = {{
+                "path": files.kind_path(cfg),
+                "file": models.kind_of(cfg).__file__,
+                "kernel": list(params["params/Dense_0/kernel"].shape),
+                "rows": re.shape[0],
+                "n_sites": flops.n_sites(cfg),
+                "forward_flop": flops.forward_flop(cfg),
+            }}
+        print(json.dumps(out))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.splitlines()[-1])
+    for name, stem, hidden in (("heis10x10_dense", "dense", 24),
+                               ("triangular10x10_dense", "dense_triangular",
+                                48)):
+        assert got[name]["path"] == f"benchmark/reference/kinds/{stem}.py"
+        assert got[name]["file"] == os.path.join(kinds, f"{stem}.py")
+        assert got[name]["kernel"] == [100, hidden]
+        assert got[name]["rows"] == 10 and got[name]["n_sites"] == 100
+        assert got[name]["forward_flop"] == 2 * 100 * hidden
+    # no file the benchmark had was edited
+    mine, theirs = tree(root), tree(ROOT)
+    assert {k: mine[k] for k in theirs} == theirs
+
+
+def test_a_kind_with_no_file_on_another_lattice_is_refused(tmp_path):
+    root = checkout(tmp_path, "dense", ("hypercubic", "triangular"),
+                    hidden=24, param_scale=0.05)
+    with open(os.path.join(root, "benchmark/reference/kinds/dense.py"),
+              "w") as f:
+        f.write(DENSE)
+    spec.cell("heis10x10_dense.train", root=root)
+    with pytest.raises(FileNotFoundError,
+                       match="benchmark/reference/kinds/dense_triangular.py"):
+        spec.cell("triangular10x10_dense.train", root=root)
+
+
+def test_a_lattice_with_no_file_is_refused(tmp_path):
+    root = checkout(tmp_path, "cnn", ("kagome",))
+    with pytest.raises(FileNotFoundError,
+                       match="benchmark/reference/lattices/kagome.py"):
+        spec.cell("kagome10x10_cnn.train", root=root)
 
 
 #: the layouts as the benchmark drew them before each kind was a file
